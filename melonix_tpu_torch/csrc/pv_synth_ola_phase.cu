@@ -1,0 +1,169 @@
+// B3: phase-vocoder phase propagation + inverse DFT + window + overlap-add
+// of one stretch chunk, straight from the analysis spectrum (re, im).
+//
+// Replaces melonix_tpu/kernels/pallas_pv.py:synth_ola_phase with cart=True
+// (_syn_ola_phase_kernel, _atan2, _syn_body), which ran the whole chain in
+// one kernel because the TPU's grid is sequential: a (size - hop)-row OLA
+// carry and the frame-axis prefix sum rode from one grid step to the next.
+// Blocks on this card run in no order, so the carry becomes three launches
+// on one stream, each parallel over what it can be:
+//
+//   1. phase scan (phase_scan_kernel): one thread per bin walks the
+//      chunk's frames in order: mag, atan2f, the princarg residual against
+//      omega_k * max(da, 1e-3), incr = hop * dphi / da (0 on global frame 0),
+//      a running float32 sum added to resid_in, the exact int mod-size
+//      ramp, psi = phi0_eff + ramp + resid, the live-frame mask, and
+//      mag * e^{i psi} into the half spectrum; it also writes the carries
+//      (resid_last, phi_last at frame f_real - 1; phi0_eff).  Formulas of
+//      melonix_tpu/engine/phase_vocoder.py:_stretch_chunk_core:374-416.
+//      Only 1025 threads: bounded by the latency of each thread's serial
+//      atan2f/sincosf chain, not by the card.  Blocking the scan over
+//      frames is later work.
+//   2. synthesis (synth_kernel): one block per frame takes the Hermitian
+//      half spectrum, drops the DC/Nyquist imaginaries as a c2r inverse
+//      does, runs the inverse fft2048, scales by 1/2048 and applies the
+//      window.  Bounded by the FFT's shared-memory passes.
+//   3. overlap-add (ola_kernel): one thread per output sample sums the
+//      size/hop frames that cover it in ascending frame order: a fixed
+//      order, no atomics, deterministic.  Bounded by HBM: each frame
+//      sample is read once, coalesced.
+//
+// The wrapper allocates the (F, 1025) half spectrum and the (F, 2048)
+// frame matrix as scratch; the kernels allocate nothing.
+#include "fft2048.cuh"
+
+namespace {
+
+constexpr int kN = mlx::kFftN;
+constexpr int kBins = kN / 2 + 1;
+constexpr int kScanThreads = 64;
+constexpr float kPi = 3.14159265358979323846f;
+constexpr float kTwoPi = 6.28318530717958647692f;
+constexpr float kTwoPiOverN = 6.28318530717958647692f / kN;
+
+// jnp.mod / torch.remainder for float32: the result takes the divisor's sign.
+__device__ __forceinline__ float floor_mod(float a, float b) {
+  float r = fmodf(a, b);
+  if (r != 0.0f && ((r < 0.0f) != (b < 0.0f))) r += b;
+  return r;
+}
+
+__global__ void __launch_bounds__(kScanThreads)
+phase_scan_kernel(const float* __restrict__ re, const float* __restrict__ im,
+                  const float* __restrict__ da,
+                  const float* __restrict__ phi0,
+                  const float* __restrict__ resid_in,
+                  const float* __restrict__ phi_prev,
+                  float* __restrict__ s_re, float* __restrict__ s_im,
+                  float* __restrict__ resid_last,
+                  float* __restrict__ phi_last,
+                  float* __restrict__ phi0_eff, int n_frames, int m0,
+                  int f_real, int hop) {
+  const int k = blockIdx.x * blockDim.x + threadIdx.x;
+  if (k >= kBins) return;
+  const float omega = kTwoPiOverN * static_cast<float>(k);
+  const int last = min(max(f_real - 1, 0), n_frames - 1);
+  const float rin = resid_in[k];
+  float prev = phi_prev[k];
+  float p0e = phi0[k];
+  float cum = 0.0f;
+#pragma unroll 4
+  for (int m = 0; m < n_frames; ++m) {
+    const long long at = static_cast<long long>(m) * kBins + k;
+    const float r = re[at], i = im[at];
+    const float mag = sqrtf(r * r + i * i);
+    const float phi = atan2f(i, r);
+    const float d = fmaxf(da[m], 1e-3f);
+    const float dphi = floor_mod(phi - prev - omega * d + kPi, kTwoPi) - kPi;
+    float incr = static_cast<float>(hop) * dphi / d;
+    if (m == 0 && m0 == 0) {  // global frame 0: no predecessor, psi = phi
+      incr = 0.0f;
+      p0e = phi;
+    }
+    cum += incr;
+    const float resid = rin + cum;
+    // psi = phi0 + (m * hop * omega mod 2 pi) + resid, the ramp in exact
+    // integer arithmetic (a float running phase loses whole radians at
+    // hour scale).  64-bit: (m0 + m) * hop passes 2^31 past ~4M frames.
+    const long long hm = (static_cast<long long>(m0 + m) * hop) % kN;
+    const int prod = static_cast<int>((hm * k) % kN);
+    const float psi = p0e + kTwoPiOverN * static_cast<float>(prod) + resid;
+    const float mag_live = m < f_real ? mag : 0.0f;
+    float sn, cs;
+    sincosf(psi, &sn, &cs);
+    s_re[at] = mag_live * cs;
+    s_im[at] = mag_live * sn;
+    if (m == last) {
+      resid_last[k] = resid;
+      phi_last[k] = phi;
+    }
+    prev = phi;
+  }
+  phi0_eff[k] = p0e;
+}
+
+__global__ void __launch_bounds__(mlx::kFftThreads)
+synth_kernel(const float* __restrict__ s_re, const float* __restrict__ s_im,
+             const float* __restrict__ win, const float2* __restrict__ tw,
+             float* __restrict__ frames) {
+  __shared__ float2 data[kN];
+  __shared__ float2 s_tw[kN / 2];
+  mlx::load_twiddles(s_tw, tw);
+  const long long row = static_cast<long long>(blockIdx.x) * kBins;
+  for (int k = threadIdx.x; k < kN; k += blockDim.x) {
+    float2 x;
+    if (k < kBins) {
+      const bool real_bin = k == 0 || k == kN / 2;
+      x = make_float2(s_re[row + k], real_bin ? 0.0f : s_im[row + k]);
+    } else {  // negative frequencies: the Hermitian mirror
+      x = make_float2(s_re[row + kN - k], -s_im[row + kN - k]);
+    }
+    data[mlx::bitrev11(k)] = x;
+  }
+  mlx::fft2048(data, s_tw, 1.0f);
+  float* out = frames + static_cast<long long>(blockIdx.x) * kN;
+  for (int i = threadIdx.x; i < kN; i += blockDim.x) {
+    out[i] = data[i].x * (1.0f / kN) * win[i];
+  }
+}
+
+__global__ void ola_kernel(const float* __restrict__ frames,
+                           float* __restrict__ y, int n_frames, int hop,
+                           long long out_len) {
+  const long long j = static_cast<long long>(blockIdx.x) * blockDim.x +
+                      threadIdx.x;
+  if (j >= out_len) return;
+  const long long m_hi = min(j / hop, static_cast<long long>(n_frames - 1));
+  const long long m_lo = j >= kN ? (j - kN) / hop + 1 : 0;
+  float acc = 0.0f;
+  for (long long m = m_lo; m <= m_hi; ++m) {
+    acc += frames[m * kN + (j - m * hop)];
+  }
+  y[j] = acc;
+}
+
+}  // namespace
+
+extern "C" int mlx_pv_synth_ola_phase(
+    const float* re, const float* im, const float* da, const float* win,
+    const float2* tw, const float* phi0, const float* resid_in,
+    const float* phi_prev, float* s_re, float* s_im, float* frames, float* y,
+    float* resid_last, float* phi_last, float* phi0_eff, int n_frames,
+    int m0, int f_real, int hop, cudaStream_t stream) {
+  if (n_frames <= 0 || hop <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  phase_scan_kernel<<<(kBins + kScanThreads - 1) / kScanThreads,
+                      kScanThreads, 0, stream>>>(
+      re, im, da, phi0, resid_in, phi_prev, s_re, s_im, resid_last, phi_last,
+      phi0_eff, n_frames, m0, f_real, hop);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  synth_kernel<<<n_frames, mlx::kFftThreads, 0, stream>>>(s_re, s_im, win,
+                                                          tw, frames);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long out_len = static_cast<long long>(n_frames - 1) * hop + kN;
+  const int threads = 256;
+  ola_kernel<<<static_cast<unsigned>((out_len + threads - 1) / threads),
+               threads, 0, stream>>>(frames, y, n_frames, hop, out_len);
+  return static_cast<int>(cudaGetLastError());
+}

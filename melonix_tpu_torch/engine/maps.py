@@ -1,0 +1,179 @@
+"""Piecewise-linear time-warp and pitch-bend maps.
+
+Markers define BOTH a time warp and a pitch-bend curve (reference:
+app.cpp:1020-1122).  Each marker ``i`` (sorted by sample) is a knot:
+
+  knot_sample[i+1] = marker[i].sample
+  knot_time[i+1]   = knot_time[i]
+                     + (knot_sample[i+1] - knot_sample[i]) / sample_rate
+                     + marker[i].d_time                      (app.cpp:1035)
+  knot_bend[i+1]   = marker[i].pitch_bend
+
+with the implicit origin knot (sample 0, time 0, bend 0).  Between knots all
+three maps interpolate linearly; beyond the last knot time advances at 1 s per
+``sample_rate`` samples (app.cpp:1047) and the pitch bend relaxes linearly to 0
+at ``duration()`` (app.cpp:1115-1119).
+
+This is the float64 NumPy host half of ``melonix_tpu/engine/maps.py``: the
+control plane of render planning, bit-comparable with the C++ double
+arithmetic.  The reference's segment search is *first match in marker order*
+(the time map may be non-monotonic when ``d_time`` makes a segment run
+backwards, app.cpp:1067-1068); it is reproduced with an argmax-over-mask
+rather than by assuming monotonicity.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Sequence
+
+import numpy as np
+
+from ..markers import Marker, sort_markers
+
+
+@dataclasses.dataclass(frozen=True)
+class MapKnots:
+    """Precomputed knot arrays; the array representation of an edit.
+
+    ``samples``/``times``/``bends`` have length ``n_markers + 1`` with the
+    implicit origin knot at index 0.
+    """
+
+    samples: np.ndarray  # float64 (n+1,) — source-sample knots
+    times: np.ndarray  # float64 (n+1,) — warped-time knots
+    bends: np.ndarray  # float64 (n+1,) — pitch-bend knots (semitones)
+    sample_rate: int
+    n_samples: int  # length of the source track
+
+    @classmethod
+    def from_markers(
+        cls, markers: Sequence[Marker], sample_rate: int, n_samples: int
+    ) -> "MapKnots":
+        ms = sort_markers(markers)
+        n = len(ms)
+        samples = np.zeros(n + 1, np.float64)
+        times = np.zeros(n + 1, np.float64)
+        bends = np.zeros(n + 1, np.float64)
+        prev_s = 0.0
+        prev_t = 0.0
+        for i, m in enumerate(ms):
+            # app.cpp:1035 — cumulative d_time on top of proportional time
+            t = prev_t + (m.sample - prev_s) / sample_rate + m.d_time
+            samples[i + 1] = m.sample
+            times[i + 1] = t
+            bends[i + 1] = m.pitch_bend
+            prev_s, prev_t = m.sample, t
+        return cls(samples, times, bends, int(sample_rate), int(n_samples))
+
+    # ------------------------------------------------------------------
+    # NumPy host implementations (float64, exact reference arithmetic)
+    # ------------------------------------------------------------------
+
+    def sample_to_time(self, val):
+        """Vectorized ``App::sample2Time`` (app.cpp:1020-1050)."""
+        v = np.asarray(val, np.float64)
+        scalar = v.ndim == 0
+        v = np.atleast_1d(v)
+        ks, ts, sr = self.samples, self.times, self.sample_rate
+
+        # Beyond the last knot: constant-rate extension (app.cpp:1047).
+        out = ts[-1] + (v - ks[-1]) / sr
+        if len(ks) > 1:
+            # First segment (in marker order) with v in (ks[i], ks[i+1]].
+            # Markers sorted by sample make this effectively a searchsorted,
+            # but the mask scan also reproduces the reference's skipping of
+            # empty/backward segments (negative-sample markers, duplicates;
+            # app.cpp:1036 tests the half-open interval per segment).
+            lo = ks[:-1][None, :]
+            hi = ks[1:][None, :]
+            match = (v[:, None] > lo) & (v[:, None] <= hi)
+            has = match.any(axis=1)
+            i = np.argmax(match, axis=1)
+            denom = ks[i + 1] - ks[i]
+            with np.errstate(divide="ignore", invalid="ignore"):
+                interp = ts[i] + (v - ks[i]) * (ts[i + 1] - ts[i]) / denom
+            out = np.where(has, interp, out)
+        # val <= 0 short-circuits before the marker walk (app.cpp:1024).
+        out = np.where(v <= 0, v / sr, out)
+        return float(out[0]) if scalar else out
+
+    def time_to_sample(self, val):
+        """Vectorized ``App::time2Sample`` (app.cpp:1052-1082).
+
+        Returns int64 (the C++ ``static_cast<int>`` truncates toward zero).
+        """
+        v = np.asarray(val, np.float64)
+        scalar = v.ndim == 0
+        v = np.atleast_1d(v)
+        ks, ts, sr = self.samples, self.times, self.sample_rate
+
+        out = ks[-1] + (v - ts[-1]) * sr  # app.cpp:1079
+        if len(ks) > 1:
+            # First segment (in marker order) with v in (ts[i], ts[i+1]]
+            # — the time map may be non-monotonic, so scan-first-match.
+            lo = ts[:-1][None, :]  # (1, n)
+            hi = ts[1:][None, :]
+            match = (v[:, None] > lo) & (v[:, None] <= hi)  # (q, n)
+            has = match.any(axis=1)
+            i = np.argmax(match, axis=1)
+            denom = ts[i + 1] - ts[i]
+            with np.errstate(divide="ignore", invalid="ignore"):
+                interp = ks[i] + (v - ts[i]) * (ks[i + 1] - ks[i]) / denom
+            out = np.where(has, interp, out)
+        out = np.where(v <= 0, v * sr, out)
+        res = np.trunc(out).astype(np.int64)
+        return int(res[0]) if scalar else res
+
+    def time_to_sample_float(self, val):
+        """``time_to_sample`` without the int truncation (analysis use)."""
+        v = np.asarray(val, np.float64)
+        scalar = v.ndim == 0
+        v = np.atleast_1d(v)
+        ks, ts, sr = self.samples, self.times, self.sample_rate
+        out = ks[-1] + (v - ts[-1]) * sr
+        if len(ks) > 1:
+            lo = ts[:-1][None, :]
+            hi = ts[1:][None, :]
+            match = (v[:, None] > lo) & (v[:, None] <= hi)
+            has = match.any(axis=1)
+            i = np.argmax(match, axis=1)
+            denom = ts[i + 1] - ts[i]
+            with np.errstate(divide="ignore", invalid="ignore"):
+                interp = ks[i] + (v - ts[i]) * (ks[i + 1] - ks[i]) / denom
+            out = np.where(has, interp, out)
+        out = np.where(v <= 0, v * sr, out)
+        return float(out[0]) if scalar else out
+
+    def duration(self) -> float:
+        """``App::duration`` (app.cpp:1084-1087)."""
+        return float(self.sample_to_time(self.n_samples - 1))
+
+    def time_to_pitch_bend(self, val):
+        """Vectorized ``App::time2PitchBend`` (app.cpp:1089-1122)."""
+        v = np.asarray(val, np.float64)
+        scalar = v.ndim == 0
+        v = np.atleast_1d(v)
+        ts, bends = self.times, self.bends
+        dur = self.duration()
+
+        # Tail: relax to 0 at duration() (app.cpp:1118-1119); 0 beyond.
+        denom_tail = dur - ts[-1]
+        with np.errstate(divide="ignore", invalid="ignore"):
+            tail = bends[-1] + (v - ts[-1]) * (0.0 - bends[-1]) / denom_tail
+        tail = np.where(np.isfinite(tail), tail, 0.0)
+        out = np.where(v > dur, 0.0, tail)
+        if len(ts) > 1:
+            lo = ts[:-1][None, :]
+            hi = ts[1:][None, :]
+            match = (v[:, None] > lo) & (v[:, None] <= hi)
+            has = match.any(axis=1)
+            i = np.argmax(match, axis=1)
+            denom = ts[i + 1] - ts[i]
+            with np.errstate(divide="ignore", invalid="ignore"):
+                interp = bends[i] + (v - ts[i]) * (bends[i + 1] - bends[i]) / denom
+            out = np.where(has, interp, out)
+        out = np.where(v <= 0, 0.0, out)
+        # Reference returns float32 (app.cpp:1105).
+        out = out.astype(np.float32)
+        return float(out[0]) if scalar else out

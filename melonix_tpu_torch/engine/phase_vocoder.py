@@ -1,0 +1,441 @@
+"""Phase-vocoder pitch/time renderer (counterpart of
+``melonix_tpu/engine/phase_vocoder.py``).
+
+Formulation for time-VARYING pitch rate ``rho(t) = 2^(bend(t)/12)``:
+
+1.  **Rate integral, closed form.**  ``p(t) = integral_0^t rho`` maps output
+    time onto a "stretched" timeline; the bend is piecewise linear, so p is
+    piecewise exponential with an analytic expression per knot segment.
+
+2.  **PV time-stretch.**  Synthesis frames sit at ``m * hop`` on the
+    stretched timeline; frame m analyses the source at
+    ``A_m = time2Sample(p^-1(m * hop / sr))``, inverted per segment on the
+    host in float64.  The phase propagation
+
+        dphi   = princarg(phi_m - phi_{m-1} - omega_k * dA_m)
+        psi_m  = psi_{m-1} + hop * (omega_k + dphi_m / dA_m)
+
+    is a prefix sum over frames, followed by overlap-add.  Long tracks are
+    stretched in chunks with exact phase carry (the prefix sum and OLA are
+    both linear).
+
+3.  **Variable-rate resample** back to the output timeline from int32 block
+    bases + small float32 residuals (full precision at any track length).
+
+The host half (segment table, frame plan, resample anchors) is the JAX
+package's float64 NumPy code, copied.  The device half runs kernels B2, B3
+and B4 on a CUDA tensor and their plain twins on a CPU tensor, in natural
+bin order with 1025-bin phase state.  Formant preservation and identity
+phase locking are not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..config import DEFAULT_CONFIG, Config
+from ..kernels import pv as kpv
+from ..kernels import resample as kres
+from .maps import MapKnots
+from .spectral import hann_window
+
+LN2_12 = np.log(2.0) / 12.0
+
+# ----------------------------------------------------------------------
+# Host control plane (float64 NumPy, identical to the JAX package's)
+# ----------------------------------------------------------------------
+
+
+def _segment_table(knots: MapKnots, t_end: float):
+    """Per-segment (t0, b0, slope, P0) float64 rows covering [0, t_end].
+
+    Segments: the knot intervals, the relaxation to 0 at duration()
+    (app.cpp:1115-1119), and a constant-1-rate tail.  P0 is the exact
+    cumulative rate integral at t0.
+    """
+    dur = knots.duration()
+    ts = [float(t) for t in knots.times] + [max(dur, float(knots.times[-1])), t_end]
+    bs = [float(b) for b in knots.bends] + [0.0, 0.0]
+    # Deduplicate/enforce monotone (degenerate zero-length segments drop out)
+    t0s, b0s, slopes, p0s = [], [], [], []
+    P = 0.0
+    for i in range(len(ts) - 1):
+        t0, t1 = ts[i], ts[i + 1]
+        if t1 <= t0:
+            continue
+        b0, b1 = bs[i], bs[i + 1]
+        s = (b1 - b0) / (t1 - t0)
+        t0s.append(t0)
+        b0s.append(b0)
+        slopes.append(s)
+        p0s.append(P)
+        r0, r1 = 2.0 ** (b0 / 12.0), 2.0 ** (b1 / 12.0)
+        if abs(b1 - b0) < 1e-12:
+            P += r0 * (t1 - t0)
+        else:
+            P += (t1 - t0) * (r1 - r0) / ((b1 - b0) * LN2_12)
+    if not t0s:
+        t0s, b0s, slopes, p0s = [0.0], [0.0], [0.0], [0.0]
+    return (
+        np.asarray(t0s), np.asarray(b0s), np.asarray(slopes), np.asarray(p0s), P
+    )
+
+
+def rate_integral_total(knots: MapKnots, t_end: float) -> float:
+    """Exact ``integral_0^t_end 2^(bend(t)/12) dt`` (host sizing)."""
+    return float(_segment_table(knots, t_end)[4])
+
+
+def _invert_p(table, y: np.ndarray) -> np.ndarray:
+    """t with p(t) = y, per-segment closed form (float64, vectorized)."""
+    t0s, b0s, slopes, p0s, _ = table
+    seg = np.clip(np.searchsorted(p0s, y, side="right") - 1, 0, len(t0s) - 1)
+    t0, b0, s, P0 = t0s[seg], b0s[seg], slopes[seg], p0s[seg]
+    r0 = 2.0 ** (b0 / 12.0)
+    dy = y - P0
+    flat = np.abs(s) < 1e-12
+    with np.errstate(invalid="ignore", divide="ignore"):
+        r_t = r0 + dy * s * LN2_12
+        t_exp = t0 + (12.0 * np.log2(np.maximum(r_t, 1e-30)) - b0) / np.where(flat, 1.0, s)
+    return np.where(flat, t0 + dy / r0, t_exp)
+
+
+def _src_eval64(table, t_a: np.ndarray, sr: float) -> tuple[np.ndarray, ...]:
+    """Float64 (src, rho, slope) of the stretched position curve at times t_a.
+
+    src(t) = p(t)*sr - rho(t): the "exclusive" convention matching the
+    per-sample cumulative-rate positions (sample j sits at p(t_j)*sr with
+    t_j = (j+1)/sr, minus its own rate — so src(t_0) = 0 for unit rate).
+    """
+    t0s, b0s, slopes, p0s, _ = table
+    seg = np.clip(np.searchsorted(t0s, t_a, side="right") - 1, 0, len(t0s) - 1)
+    dt = t_a - t0s[seg]
+    s = slopes[seg]
+    r0 = 2.0 ** (b0s[seg] / 12.0)
+    rho = 2.0 ** ((b0s[seg] + s * dt) / 12.0)
+    flat = np.abs(s) < 1e-12
+    with np.errstate(invalid="ignore", divide="ignore"):
+        p = p0s[seg] + np.where(
+            flat, r0 * dt, (rho - r0) / (np.where(flat, 1.0, s) * LN2_12)
+        )
+    return np.maximum(p * sr - rho, 0.0), rho, s
+
+
+def _anchor_table(table, sr: float, n_out_pad: int, n_src: int):
+    """Host control plane for the block-relative resample positions.
+
+    Anchors = every resample block start UNION every rate-segment start, so
+    no anchor-to-anchor span crosses a segment boundary and every span is
+    <= BLK samples (exact int32 offsets, full f32 precision on device).
+
+    Returns (anc_j int32, src_rel f64, rho f64, slope f64, base int32) with
+    ``src_rel = src64(anchor) - base[block(anchor)]`` — small by
+    construction (block span + SLACK), so its f32 image keeps ~1e-3-sample
+    precision regardless of track length.
+    """
+    blk = kres.BLK
+    t0s = table[0]
+    nb = n_out_pad // blk
+    jb = np.arange(nb, dtype=np.int64) * blk
+    seg_j0 = np.clip(
+        np.ceil(t0s * sr - 1.0 - 1e-9), 0, n_out_pad - 1
+    ).astype(np.int64)
+    anc_j = np.union1d(jb, seg_j0)
+    t_a = (anc_j + 1.0) / sr
+    src_a, rho_a, s_a = _src_eval64(table, t_a, sr)
+    # Block slab bases from the float64 block-start positions.
+    base = kres.block_bases(src_a[np.searchsorted(anc_j, jb)], n_src)
+    src_rel = src_a - base[np.minimum(anc_j // blk, nb - 1)].astype(np.float64)
+    return anc_j.astype(np.int32), src_rel, rho_a, s_a, base
+
+
+PV_CHUNK_FRAMES = 49152  # frames per stretch chunk
+
+
+@dataclasses.dataclass(frozen=True)
+class PVPlan:
+    """Host control plane of one PV render (channel-independent).
+
+    The plan depends only on the edit model (knots) and track length, never
+    on the samples.  Same fields as the JAX package's ``PVPlan``.
+    """
+
+    size: int
+    hop: int
+    sr: int
+    n_wav: int
+    n_out: int
+    n_out_pad: int
+    n_frames: int
+    stretch_len: int
+    starts_m: np.ndarray  # int32 (n_frames,) exact frame starts
+    da_m: np.ndarray  # float32 (n_frames,) frame advances
+    rho_m: np.ndarray  # float64 (n_frames,) per-frame pitch rate
+    anc_np: tuple  # host (anc_j, src_f32, rho_f32, s_f32) padded, + n_real
+    base: np.ndarray  # int32 resample block bases
+    rho_max: float  # knot-wise max rate
+
+
+def build_pv_plan(
+    knots: MapKnots,
+    n_wav: int,
+    *,
+    config: Config = DEFAULT_CONFIG,
+    size: int | None = None,
+    hop: int | None = None,
+) -> PVPlan | None:
+    """Float64 host control plane; None when the render is empty."""
+    size = size or config.stft_size
+    hop = hop or config.stft_hop
+    sr = knots.sample_rate
+    n_out = int(knots.duration() * sr)
+    if n_out <= 0 or n_wav < size:
+        return None
+
+    table = _segment_table(knots, n_out / sr)
+    p_total = table[4]
+    n_frames = int(np.ceil(p_total * sr / hop)) + 2
+    n_frames = 64 * -(-n_frames // 64)
+    n_out_pad = 8192 * -(-n_out // 8192)
+    stretch_len = (n_frames - 1) * hop + size
+
+    # Frame positions by analytic inversion, exact int32 frame starts,
+    # float64-differenced frame advances.
+    y_m = np.arange(n_frames, dtype=np.float64) * hop / sr
+    t_m = _invert_p(table, np.minimum(y_m, p_total))
+    a_m = knots.time_to_sample_float(t_m)
+    rho_m = 2.0 ** (knots.time_to_pitch_bend(t_m).astype(np.float64) / 12.0)
+    starts_m = np.floor(np.clip(a_m, 0.0, n_wav - 1.0)).astype(np.int32)
+    da_m = np.maximum(
+        np.diff(a_m, prepend=a_m[0] - hop), 1e-3
+    ).astype(np.float32)
+
+    # Resample anchors: block-relative positions (see _anchor_table).
+    anc_j, src_rel64, rho_a, s_a, base = _anchor_table(
+        table, sr, n_out_pad, stretch_len
+    )
+    n_anc = 512 * -(-len(anc_j) // 512)  # same padding as the JAX plan
+    pad_a = n_anc - len(anc_j)
+    anc_j_p = np.pad(anc_j, (0, pad_a), constant_values=n_out_pad)
+    anc_np = (
+        anc_j_p,
+        np.pad(np.asarray(src_rel64, np.float32), (0, pad_a), mode="edge"),
+        np.pad(np.asarray(rho_a, np.float32), (0, pad_a), mode="edge"),
+        np.pad(np.asarray(s_a, np.float32), (0, pad_a), mode="edge"),
+        len(anc_j),
+    )
+    rho_max = float(2.0 ** (max(np.max(table[1]), 0.0) / 12.0))
+    return PVPlan(
+        size=size, hop=hop, sr=sr, n_wav=n_wav, n_out=n_out,
+        n_out_pad=n_out_pad, n_frames=n_frames, stretch_len=stretch_len,
+        starts_m=starts_m, da_m=da_m, rho_m=rho_m,
+        anc_np=anc_np, base=base, rho_max=rho_max,
+    )
+
+
+def pv_plan_from_numpy(fields: dict) -> PVPlan:
+    """A port ``PVPlan`` from another plan's fields (e.g. the JAX package's
+    ``PVPlan``), given as NumPy arrays and ints: lets a test feed both
+    packages one identical plan."""
+    anc = fields["anc_np"]
+    return PVPlan(
+        **{k: int(fields[k]) for k in ("size", "hop", "sr", "n_wav", "n_out",
+                                       "n_out_pad", "n_frames", "stretch_len")},
+        starts_m=np.asarray(fields["starts_m"], np.int32),
+        da_m=np.asarray(fields["da_m"], np.float32),
+        rho_m=np.asarray(fields["rho_m"], np.float64),
+        anc_np=(
+            np.asarray(anc[0], np.int32), np.asarray(anc[1], np.float32),
+            np.asarray(anc[2], np.float32), np.asarray(anc[3], np.float32),
+            int(anc[4]),
+        ),
+        base=np.asarray(fields["base"], np.int32),
+        rho_max=float(fields["rho_max"]),
+    )
+
+
+def _chunk_arrays(plan: PVPlan, m0: int, ch: int):
+    """Padded (starts, da, rho_f32, f_real) arrays for frames [m0, m0+ch)."""
+    f_real = min(ch, plan.n_frames - m0)
+    sl = slice(m0, m0 + f_real)
+    pad_c = ch - f_real
+    starts_c = np.pad(plan.starts_m[sl], (0, pad_c), mode="edge")
+    da_c = np.pad(plan.da_m[sl], (0, pad_c), constant_values=float(plan.hop))
+    rho_c = np.pad(plan.rho_m[sl].astype(np.float32), (0, pad_c), mode="edge")
+    return starts_c, da_c, rho_c, f_real
+
+
+# ----------------------------------------------------------------------
+# Device half: B2 -> B3 per chunk, normalisation, B4
+# ----------------------------------------------------------------------
+
+
+def resolve_device(device) -> torch.device:
+    """``torch.device(device)``, refusing CUDA where there is none (no run
+    ever moves to another device than the one asked for)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device!r} requested but torch.cuda.is_available() is "
+            "False"
+        )
+    return dev
+
+
+def _stretch_chunk_core(wav, starts_c, da_c, window, m0: int, f_real: int,
+                        phi0, resid_in, phi_prev, *, size: int, hop: int):
+    """Unnormalized OLA contribution of frames [m0, m0+f_real) plus carried
+    phase state ``(y_c, resid_last, phi_last, phi0_eff)``.
+
+    The phase prefix sum carries across chunks (``resid_in``) and OLA
+    overlaps add linearly, so chunking matches a one-shot stretch up to the
+    float32 rounding of the running phase sum — no phase resets, no
+    crossfades.  Frame starts are int32 (exact at any
+    track length).  Analysis is B2 and the phase/synthesis/OLA chain B3 on
+    a CUDA tensor; their plain twins on a CPU tensor.
+    """
+    re, im = kpv.analysis(wav, starts_c, window, size)
+    return kpv.synth_ola_phase(re, im, da_c, window, m0, f_real, phi0,
+                               resid_in, phi_prev, size, hop)
+
+
+def _ola_wsum(window, size: int, hop: int, n_frames: int, out_len: int):
+    """Global window-square OLA normalizer (formulas of the JAX package).
+
+    The interior is hop-periodic (every sample sees the same k = size/hop
+    window taps), so the array is one tiled (hop,) pattern plus two
+    size-long edge corrections, OVERWRITTEN with exact partial sums
+    (subtracting missing taps cancels catastrophically where the Hann edge
+    makes wsum ~1e-7).
+    """
+    k = size // hop
+    w2 = window * window
+    if size % hop != 0 or n_frames < k:
+        # Non-whole overlap or fewer frames than one window span: direct sum.
+        idx = (torch.arange(n_frames, device=window.device)[:, None] * hop
+               + torch.arange(size, device=window.device)[None, :])
+        keep = idx < out_len
+        wsum = torch.zeros(out_len, dtype=torch.float32, device=window.device)
+        wsum.index_put_((idx[keep],), w2.expand(n_frames, size)[keep],
+                        accumulate=True)
+        return wsum.clamp_min(1e-8)
+    rows = w2.reshape(k, hop)
+    pat = rows.sum(dim=0)  # (hop,)
+    ws = pat.repeat(-(-out_len // hop))[:out_len]
+    head = torch.cumsum(rows, dim=0).reshape(size)
+    n_head = min(size, out_len)
+    ws[:n_head] = head[:n_head]
+    j0 = n_frames * hop
+    if j0 < out_len:
+        tail = (torch.cumsum(rows.flip(0), dim=0).flip(0) - rows).reshape(size)
+        n_tail = min(size, out_len - j0)
+        ws[j0 : j0 + n_tail] = tail[:n_tail]
+    return ws.clamp_min(1e-8)
+
+
+def _accum_at(y, y_c, off: int):
+    """y[off : off+len(y_c)] += y_c, in place (saves the copy JAX's
+    functional update makes)."""
+    y[off : off + y_c.shape[0]].add_(y_c)
+    return y
+
+
+def _resample_pv_fused(plan: PVPlan, y):
+    """Positions + lerp from a PVPlan: B4 on CUDA, its twin on CPU."""
+    dev = y.device
+    anc_j_p, src_f, r_f, s_f, n_real = plan.anc_np
+    nb = plan.n_out_pad // kres.BLK
+    a0, cnt, _kmax = kres.pv_anchor_blocks(anc_j_p[:n_real], nb)
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    return kres.resample_pv(
+        y, put(plan.base), put(a0), put(cnt), put(anc_j_p[:n_real]),
+        put(src_f[:n_real]), put(r_f[:n_real]), put(s_f[:n_real]),
+        plan.sr, plan.n_out_pad,
+    )
+
+
+def render_track_pv(
+    wav,
+    knots: MapKnots,
+    *,
+    config: Config = DEFAULT_CONFIG,
+    size: int | None = None,
+    hop: int | None = None,
+    preserve_formants: bool = False,
+    phase_locking: bool = False,
+    device_out: bool = False,
+    device=None,
+):
+    """Full-track phase-vocoder render honoring the marker edit model.
+
+    Output spans the warped duration (``knots.duration()``).  ``wav`` is a
+    NumPy array or a tensor; the render runs on ``device``, which defaults
+    to the tensor's own device, or to ``"cuda"`` for NumPy input (there is
+    no fallback: CUDA absent raises).  ``device_out`` returns the render as
+    a tensor on that device instead of a NumPy array.
+    """
+    if preserve_formants:
+        raise NotImplementedError(
+            "preserve_formants: the cepstral formant warp is not ported yet "
+            "(ROADMAP queue A, item 6)"
+        )
+    if phase_locking:
+        raise NotImplementedError(
+            "phase_locking: identity phase locking is not ported yet "
+            "(ROADMAP queue A, item 7)"
+        )
+    if isinstance(wav, torch.Tensor):
+        dev = resolve_device(wav.device if device is None else device)
+        if wav.device != dev:
+            raise ValueError(f"wav is on {wav.device}, render asked for {dev}")
+        wav_dev = wav.to(torch.float32).contiguous()
+    else:
+        dev = resolve_device("cuda" if device is None else device)
+        wav_dev = torch.from_numpy(np.asarray(wav, np.float32)).to(dev)
+    n_wav = int(wav_dev.shape[0])
+    plan = build_pv_plan(knots, n_wav, config=config, size=size, hop=hop)
+    if plan is None:
+        n_out = max(int(knots.duration() * knots.sample_rate), 0)
+        zeros = torch.zeros(n_out, dtype=torch.float32, device=dev)
+        return zeros if device_out else zeros.cpu().numpy()
+    return _render_with_plan(wav_dev, plan, device_out=device_out)
+
+
+def _render_with_plan(wav_dev, plan: PVPlan, device_out: bool = False):
+    """One channel through a PVPlan: chunked stretch, OLA normalisation,
+    variable-rate resample, all on the device of ``wav_dev``."""
+    dev = wav_dev.device
+    size, hop = plan.size, plan.hop
+    n_frames, stretch_len = plan.n_frames, plan.stretch_len
+    win = torch.from_numpy(hann_window(size)).to(dev)
+
+    # Stretch in chunks with exact phase carry; OLA contributions add
+    # linearly; normalize once globally.  Short tracks take one chunk.
+    ch = min(PV_CHUNK_FRAMES, n_frames)
+    n_state = size // 2 + 1
+    one_chunk = n_frames <= ch
+    y = None if one_chunk else torch.zeros(
+        stretch_len + ch * hop + size, dtype=torch.float32, device=dev
+    )
+    resid = torch.zeros(n_state, dtype=torch.float32, device=dev)
+    phi_prev = torch.zeros_like(resid)
+    phi0 = torch.zeros_like(resid)
+    for m0 in range(0, n_frames, ch):
+        starts_c, da_c, _rho_c, f_real = _chunk_arrays(plan, m0, ch)
+        y_c, resid, phi_prev, phi0 = _stretch_chunk_core(
+            wav_dev, torch.from_numpy(starts_c).to(dev),
+            torch.from_numpy(da_c).to(dev), win, m0, f_real,
+            phi0, resid, phi_prev, size=size, hop=hop,
+        )
+        y = y_c if one_chunk else _accum_at(y, y_c, m0 * hop)
+
+    # In-place normalisation of the stretch (no second stretch-sized buffer).
+    y = y[:stretch_len].div_(_ola_wsum(win, size, hop, n_frames, stretch_len))
+    out = _resample_pv_fused(plan, y)[: plan.n_out]
+    return out if device_out else out.cpu().numpy()

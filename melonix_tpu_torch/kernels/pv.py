@@ -1,0 +1,228 @@
+"""Phase-vocoder DFT kernels B1-B3 and their plain PyTorch twins.
+
+Counterpart of ``melonix_tpu/kernels/pallas_pv.py``.  The TPU kernels ran a
+four-step bf16x3 MXU DFT in a scrambled bin order; the port's kernels
+(``csrc/stft_mag.cu``, ``csrc/pv_analysis.cu``, ``csrc/pv_synth_ola_phase.cu``)
+share one float32 radix-2 FFT in shared memory (``csrc/fft2048.cuh``) and
+keep natural bin order and the 1025-bin half spectrum throughout.
+
+Each wrapper takes the device of its input: a CUDA tensor launches the
+kernel (or raises), a CPU tensor runs the ``*_plain`` twin, anything else
+raises.  The twins are the CPU path and the reference the kernels are held
+to on the card; nothing on the CUDA main path calls them.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from . import _build
+
+FFT_N = 2048  # the only frame size the CUDA kernels take
+# float32 constants of the JAX formulas, as Python floats holding f32 values
+PI = float(np.float32(np.pi))
+TWO_PI = float(np.float32(2.0 * np.pi))
+
+
+def _no_size(size: int) -> NotImplementedError:
+    return NotImplementedError(
+        f"CUDA kernels take size {FFT_N}, got {size}: other sizes need "
+        "B12 (pallas_stft.stft_mag_pallas), ROADMAP queue B, not ported yet"
+    )
+
+
+@functools.cache
+def twiddles(device: torch.device) -> torch.Tensor:
+    """(1024, 2) float32 cos/sin(2 pi k / 2048), computed in float64."""
+    ang = 2.0 * np.pi * np.arange(FFT_N // 2, dtype=np.float64) / FFT_N
+    tw = np.stack([np.cos(ang), np.sin(ang)], axis=1).astype(np.float32)
+    return torch.from_numpy(tw).to(device)
+
+
+# ----------------------------------------------------------------------
+# B1: |STFT| at a uniform hop
+# ----------------------------------------------------------------------
+
+
+def hop_frames(wav, size: int, hop: int, n_frames: int) -> torch.Tensor:
+    """(n_frames, size) view of ``wav[f*hop : f*hop + size]``, zeros past
+    the end."""
+    need = (n_frames - 1) * hop + size if n_frames else 0
+    wavp = torch.nn.functional.pad(wav, (0, max(need - wav.shape[0], 0)))
+    return wavp.unfold(0, size, hop)[:n_frames]
+
+
+def stft_mag_plain(wav, window, size: int, hop: int, n_frames: int,
+                   scale: float = 1.0) -> torch.Tensor:
+    """(n_frames, size // 2) float32: ``|rfft(win * wav[f*hop : +size])|
+    * scale`` for the first size//2 bins, zeros past the end."""
+    frames = hop_frames(wav, size, hop, n_frames)
+    spec = torch.fft.rfft(frames * window[None, :])
+    return (spec[:, : size // 2].abs() * scale).to(torch.float32)
+
+
+def stft_mag(wav, window, size: int, hop: int, n_frames: int,
+             scale: float = 1.0) -> torch.Tensor:
+    """B1 (``csrc/stft_mag.cu``); contract of :func:`stft_mag_plain`."""
+    if wav.device.type == "cpu":
+        return stft_mag_plain(wav, window, size, hop, n_frames, scale)
+    dev = _build.cuda_device(wav)
+    if size != FFT_N:
+        raise _no_size(size)
+    if hop <= 0 or n_frames < 0:
+        raise ValueError(f"hop {hop}, n_frames {n_frames}")
+    _build.require(wav, "wav", torch.float32, (wav.shape[0],), dev)
+    _build.require(window, "window", torch.float32, (size,), dev)
+    out = torch.empty((n_frames, size // 2), dtype=torch.float32, device=dev)
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        err = lib.mlx_stft_mag(
+            wav.data_ptr(), wav.shape[0], window.data_ptr(),
+            twiddles(dev).data_ptr(), out.data_ptr(), n_frames, hop,
+            float(scale), _build.stream(dev),
+        )
+    _build.check("stft_mag", err)
+    stft_mag.launches += 1
+    return out
+
+
+stft_mag.launches = 0
+
+
+# ----------------------------------------------------------------------
+# B2: analysis DFT at arbitrary frame starts
+# ----------------------------------------------------------------------
+
+
+def analysis_plain(wav, starts, window, size: int):
+    """(re, im) float32 (F, size // 2 + 1): natural-order rfft of
+    ``window * wav[s : s + size]``, s = clip(starts, 0, n - 1), zeros past
+    the end."""
+    n = wav.shape[0]
+    wavp = torch.nn.functional.pad(wav, (0, size))
+    s = starts.to(torch.int64).clamp(0, max(n - 1, 0))
+    idx = s[:, None] + torch.arange(size, device=wav.device)[None, :]
+    spec = torch.fft.rfft(wavp[idx] * window[None, :])
+    return spec.real.contiguous(), spec.imag.contiguous()
+
+
+def analysis(wav, starts, window, size: int):
+    """B2 (``csrc/pv_analysis.cu``); contract of :func:`analysis_plain`."""
+    if wav.device.type == "cpu":
+        return analysis_plain(wav, starts, window, size)
+    dev = _build.cuda_device(wav)
+    if size != FFT_N:
+        raise _no_size(size)
+    f = starts.shape[0]
+    _build.require(wav, "wav", torch.float32, (wav.shape[0],), dev)
+    _build.require(starts, "starts", torch.int32, (f,), dev)
+    _build.require(window, "window", torch.float32, (size,), dev)
+    if wav.shape[0] == 0:
+        raise ValueError("wav is empty")
+    re = torch.empty((f, size // 2 + 1), dtype=torch.float32, device=dev)
+    im = torch.empty_like(re)
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        err = lib.mlx_pv_analysis(
+            wav.data_ptr(), wav.shape[0], starts.data_ptr(),
+            window.data_ptr(), twiddles(dev).data_ptr(), re.data_ptr(),
+            im.data_ptr(), f, _build.stream(dev),
+        )
+    _build.check("analysis", err)
+    analysis.launches += 1
+    return re, im
+
+
+analysis.launches = 0
+
+
+# ----------------------------------------------------------------------
+# B3: phase propagation + synthesis + overlap-add
+# ----------------------------------------------------------------------
+
+
+def synth_ola_phase_plain(re, im, da, window, m0: int, f_real: int, phi0,
+                          resid_in, phi_prev, size: int, hop: int):
+    """One stretch chunk from its natural-order analysis spectrum.
+
+    Formulas of ``melonix_tpu/engine/phase_vocoder.py:_stretch_chunk_core``
+    (natural path): princarg residual against omega * da, prefix sum over
+    frames from ``resid_in``, exact int mod-size ramp, live-frame mask,
+    inverse rfft, window and overlap-add.  Returns ``(y, resid_last,
+    phi_last, phi0_eff)``: the unnormalised OLA signal of length
+    ``(F - 1) * hop + size`` and the carries of frame ``f_real - 1``.
+    """
+    dev = re.device
+    f, n_bins = re.shape
+    mag = torch.sqrt(re * re + im * im)
+    phi = torch.atan2(im, re)
+    k_idx = torch.arange(n_bins, device=dev)
+    step = float(np.float32(2.0 * np.pi / size))
+    omega = k_idx.to(torch.float32) * step
+    d = da.clamp_min(1e-3)[:, None]
+    prev = torch.cat([phi_prev[None, :], phi[:-1]], dim=0)
+    dphi = torch.remainder(phi - prev - omega[None, :] * d + PI, TWO_PI) - PI
+    incr = hop * dphi / d
+    if m0 == 0:  # global frame 0 has no predecessor: psi_0 = phi_0
+        incr[0] = 0.0
+    resid = resid_in[None, :] + torch.cumsum(incr, dim=0)
+    hm = ((m0 + torch.arange(f, device=dev)) * hop) % size
+    ramp = ((hm[:, None] * k_idx[None, :]) % size).to(torch.float32) * step
+    phi0_eff = phi[0] if m0 == 0 else phi0
+    psi = phi0_eff[None, :] + ramp + resid
+    live = (torch.arange(f, device=dev) < f_real)[:, None]
+    mag_live = torch.where(live, mag, torch.zeros((), device=dev))
+    t = torch.fft.irfft(torch.polar(mag_live, psi), n=size) * window[None, :]
+    out_len = (f - 1) * hop + size
+    y = torch.nn.functional.fold(
+        t.T[None], output_size=(1, out_len), kernel_size=(1, size),
+        stride=(1, hop),
+    ).reshape(out_len)
+    last = min(max(f_real - 1, 0), f - 1)
+    return y, resid[last].clone(), phi[last].clone(), phi0_eff.clone()
+
+
+def synth_ola_phase(re, im, da, window, m0: int, f_real: int, phi0,
+                    resid_in, phi_prev, size: int, hop: int):
+    """B3 (``csrc/pv_synth_ola_phase.cu``, three launches on one stream);
+    contract of :func:`synth_ola_phase_plain`."""
+    if re.device.type == "cpu":
+        return synth_ola_phase_plain(re, im, da, window, m0, f_real, phi0,
+                                     resid_in, phi_prev, size, hop)
+    dev = _build.cuda_device(re)
+    if size != FFT_N:
+        raise _no_size(size)
+    f = re.shape[0]
+    nb = size // 2 + 1
+    if f == 0 or hop <= 0:
+        raise ValueError(f"{f} frames, hop {hop}")
+    f32 = torch.float32
+    for name, t, shape in (("re", re, (f, nb)), ("im", im, (f, nb)),
+                           ("da", da, (f,)), ("window", window, (size,)),
+                           ("phi0", phi0, (nb,)), ("resid_in", resid_in, (nb,)),
+                           ("phi_prev", phi_prev, (nb,))):
+        _build.require(t, name, f32, shape, dev)
+    s_re = torch.empty((f, nb), dtype=f32, device=dev)  # scratch
+    s_im = torch.empty_like(s_re)  # scratch
+    frames = torch.empty((f, size), dtype=f32, device=dev)  # scratch
+    y = torch.empty(((f - 1) * hop + size,), dtype=f32, device=dev)
+    resid_last = torch.empty((nb,), dtype=f32, device=dev)
+    phi_last = torch.empty_like(resid_last)
+    phi0_eff = torch.empty_like(resid_last)
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        err = lib.mlx_pv_synth_ola_phase(
+            *(t.data_ptr() for t in (
+                re, im, da, window, twiddles(dev), phi0, resid_in, phi_prev,
+                s_re, s_im, frames, y, resid_last, phi_last, phi0_eff)),
+            f, int(m0), int(f_real), hop, _build.stream(dev),
+        )
+    _build.check("synth_ola_phase", err)
+    synth_ola_phase.launches += 1
+    return y, resid_last, phi_last, phi0_eff
+
+
+synth_ola_phase.launches = 0

@@ -1,0 +1,122 @@
+"""Variable-rate PV resample: kernel B4 and its plain PyTorch twin.
+
+Counterpart of ``melonix_tpu/kernels/pallas_resample.py``.  Positions are
+**block-relative**: an int32 source base per 2048-sample output block (host
+float64, with slack) plus a small float32 offset evaluated from the block's
+piecewise-analytic anchors.  Absolute float32 positions would lose
+sub-sample precision past 2^23 source samples (~3 min at 44.1 kHz).
+
+``resample_pv`` launches ``csrc/resample_pv.cu`` for CUDA tensors and runs
+``resample_pv_plain`` for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import _build
+
+BLK = 2048  # output samples per block
+SLACK = 128  # guard below the host base for device f32 rounding
+LN2_12 = np.log(2.0) / 12.0  # d(bend)/dt -> d(ln rho)/dt
+
+
+def expm1_precise(x: torch.Tensor) -> torch.Tensor:
+    """f32 expm1 with ~1-ulp relative error for |x| <= 0.7: a 9-term Horner
+    Taylor series, verbatim from the JAX package (XLA's f32 expm1 carried
+    ~1.2e-4 relative error there).  Larger |x| falls back to exp(x) - 1."""
+    p = 1.0 + x / 9.0
+    for k in (8.0, 7.0, 6.0, 5.0, 4.0, 3.0, 2.0):
+        p = 1.0 + x * p / k
+    return torch.where(x.abs() <= 0.7, x * p, torch.exp(x) - 1.0)
+
+
+def block_bases(pos_block_starts: np.ndarray, n_src: int) -> np.ndarray:
+    """Host: slab base per block from float64 start positions (with slack)."""
+    base = np.floor(pos_block_starts).astype(np.int64) - SLACK
+    return np.clip(base, 0, max(n_src - 1, 0)).astype(np.int32)
+
+
+def pv_anchor_blocks(anc_j: np.ndarray, nb: int):
+    """Host: per-block first-anchor index + live-anchor count.
+
+    ``anc_j`` must be the UNPADDED ascending anchor list (block starts are
+    always anchors, so a0[b] indexes the b*BLK anchor exactly).  kmax is
+    the largest per-block anchor count."""
+    anc_j = np.asarray(anc_j, np.int64)
+    starts = np.arange(nb, dtype=np.int64) * BLK
+    a0 = (np.searchsorted(anc_j, starts, side="right") - 1).astype(np.int32)
+    nxt = np.append(a0[1:], len(anc_j)).astype(np.int32)
+    cnt = (nxt - a0).astype(np.int32)
+    kmax = int(cnt.max()) if nb else 1
+    return a0, cnt, kmax
+
+
+def positions_rel_plain(anc_j, anc_src, anc_r, anc_s, sr: int, n_out: int):
+    """(n_out,) float32 block-relative positions: each sample takes the
+    constants of the last anchor at or before it (the segmented broadcast of
+    ``melonix_tpu/engine/phase_vocoder.py:_positions_rel_device``)."""
+    j = torch.arange(n_out, dtype=torch.int32, device=anc_j.device)
+    a = (torch.searchsorted(anc_j, j, right=True) - 1).clamp_min(0)
+    s = anc_s[a]
+    srf = float(np.float32(sr))
+    ln = float(np.float32(LN2_12))
+    dt = (j - anc_j[a]).to(torch.float32) / srf
+    em1 = expm1_precise(s * dt * ln)
+    flat = s.abs() < 1e-9
+    delta_p = torch.where(flat, dt, em1 / (torch.where(flat, 1.0, s) * ln))
+    return (anc_src[a] + anc_r[a] * (delta_p * srf - em1)).clamp_min(0.0)
+
+
+def resample_pv_plain(y, base, anc_j, anc_src, anc_r, anc_s, sr: int,
+                      n_out: int) -> torch.Tensor:
+    """(n_out,) float32 lerp of ``y`` at base[j // BLK] + position, indices
+    clamped to [0, len(y) - 1] (``_lerp_resample_rel_xla``)."""
+    pos = positions_rel_plain(anc_j, anc_src, anc_r, anc_s, sr, n_out)
+    b = base.to(torch.int64).repeat_interleave(BLK)[:n_out]
+    rel = torch.floor(pos)
+    frac = pos - rel
+    i0 = b + rel.to(torch.int64)
+    last = y.shape[0] - 1
+    lo = y[i0.clamp(0, last)]
+    hi = y[(i0 + 1).clamp(0, last)]
+    return (1.0 - frac) * lo + frac * hi
+
+
+def resample_pv(y, base, a0, cnt, anc_j, anc_src, anc_r, anc_s, sr: int,
+                n_out: int) -> torch.Tensor:
+    """B4 (``csrc/resample_pv.cu``): contract of :func:`resample_pv_plain`;
+    ``a0``/``cnt`` (from :func:`pv_anchor_blocks`) give each block's anchor
+    range, so a thread scans a handful of anchors instead of all."""
+    if y.device.type == "cpu":
+        return resample_pv_plain(y, base, anc_j, anc_src, anc_r, anc_s, sr,
+                                 n_out)
+    dev = _build.cuda_device(y)
+    if n_out % BLK != 0:
+        raise ValueError(f"n_out {n_out} is not a multiple of {BLK}")
+    nb = n_out // BLK
+    n_anc = anc_j.shape[0]
+    if y.shape[0] == 0 or n_anc == 0:
+        raise ValueError("empty source or anchor list")
+    _build.require(y, "y", torch.float32, (y.shape[0],), dev)
+    for name, t in (("base", base), ("a0", a0), ("cnt", cnt)):
+        _build.require(t, name, torch.int32, (nb,), dev)
+    _build.require(anc_j, "anc_j", torch.int32, (n_anc,), dev)
+    for name, t in (("anc_src", anc_src), ("anc_r", anc_r), ("anc_s", anc_s)):
+        _build.require(t, name, torch.float32, (n_anc,), dev)
+    out = torch.empty((n_out,), dtype=torch.float32, device=dev)
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        err = lib.mlx_resample_pv(
+            y.data_ptr(), y.shape[0], base.data_ptr(), a0.data_ptr(),
+            cnt.data_ptr(), anc_j.data_ptr(), anc_src.data_ptr(),
+            anc_r.data_ptr(), anc_s.data_ptr(), n_anc, out.data_ptr(), n_out,
+            int(sr), _build.stream(dev),
+        )
+    _build.check("resample_pv", err)
+    resample_pv.launches += 1
+    return out
+
+
+resample_pv.launches = 0
