@@ -3,26 +3,33 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from ``melonix_tpu_torch/csrc``, holds each
-kernel against its plain PyTorch twin on the card at the main path's shapes,
-drives the main path once (the 2048/512 |STFT| and the phase-vocoder render
-of a 180 s, 44.1 kHz song with 12 markers), checks its output, shows that
-the run went through every kernel, and times kernels, twins and the path
-with CUDA events.  Any failed check raises: the script then exits non-zero
-and prints no result.  The last line of standard output is
+Builds the port's CUDA kernels from ``melonix_tpu_torch/csrc`` and the
+native host runtime from ``native/melonix_native.cpp``, holds each kernel
+against its plain PyTorch twin on the card at the main paths' shapes, drives
+the two main paths once each on a 180 s, 44.1 kHz song with 12 markers (the
+2048/512 |STFT| plus the phase-vocoder render; the granular export,
+``render_track``), checks their output (the granular export bit for bit
+against its plain references and ``tests/oracle.py``), shows that each run
+went through every kernel of its path, and times kernels, twins and paths.
+Any failed check raises: the script then exits non-zero and prints no
+result.  The last line of standard output is
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
-It needs one GPU, ``nvcc`` and ``nvidia-smi``, and imports no JAX.
+It needs one GPU, ``nvcc``, a C++ compiler and ``nvidia-smi``, and imports
+no JAX.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import importlib.util
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -30,6 +37,7 @@ import numpy as np
 SR = 44100
 SECONDS = 180.0
 REPS = 5  # timed repetitions after one warm-up; the median is reported
+KERNEL_INNER = 10  # back-to-back calls per timed kernel repetition
 
 
 def make_song(sr: int, seconds: float) -> np.ndarray:
@@ -80,8 +88,10 @@ def rms_env(got, want, size: int = 2048) -> tuple[float, float]:
     return rms, float((f_g - f_w).abs().max() / f_w.max())
 
 
-def cuda_ms(fn, reps: int = REPS) -> float:
-    """Median CUDA-event time of ``fn()`` over ``reps`` runs after a warm-up."""
+def cuda_ms(fn, reps: int = REPS, inner: int = 1) -> float:
+    """Median CUDA-event time of ``fn()`` over ``reps`` runs after a warm-up;
+    each run makes ``inner`` calls back to back and counts their mean, so a
+    short kernel's host-side wrapper overlaps the previous launch."""
     import torch
 
     fn()
@@ -90,30 +100,80 @@ def cuda_ms(fn, reps: int = REPS) -> float:
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(inner):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / inner)
+    return float(np.median(times))
+
+
+def host_ms(fn, reps: int = REPS) -> float:
+    """Median wall time of ``fn()`` ending in a device synchronise, over
+    ``reps`` runs after a warm-up (host work included)."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
     return float(np.median(times))
 
 
 @contextlib.contextmanager
-def plain_twins(kpv, kres):
-    """Route the main path through the plain twins (for the all-plain
-    reference run on the card); restores the kernels on exit."""
+def plain_twins(kpv, kres, krender):
+    """Route the main paths through the plain twins (for the all-plain
+    reference runs on the card); restores the kernels on exit."""
     saved = (kpv.stft_mag, kpv.analysis, kpv.synth_ola_phase,
-             kres.resample_pv)
+             kres.resample_pv, krender.render_steps, krender.compact)
     kpv.stft_mag = kpv.stft_mag_plain
     kpv.analysis = kpv.analysis_plain
     kpv.synth_ola_phase = kpv.synth_ola_phase_plain
     kres.resample_pv = (
         lambda y, base, a0, cnt, *rest: kres.resample_pv_plain(y, base, *rest)
     )
+    krender.render_steps = krender.render_steps_plain
+    krender.compact = (
+        lambda vals, off, a0, cnt, out_len: krender.compact_plain(vals, off,
+                                                                  out_len)
+    )
     try:
         yield
     finally:
         (kpv.stft_mag, kpv.analysis, kpv.synth_ola_phase,
-         kres.resample_pv) = saved
+         kres.resample_pv, krender.render_steps, krender.compact) = saved
+
+
+def load_oracle(root: str):
+    """``tests/oracle.py`` (the literal transcription of the reference's
+    render loop; NumPy only), loaded by path without the test package."""
+    spec = importlib.util.spec_from_file_location(
+        "oracle", os.path.join(root, "tests", "oracle.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def granular_parity_max_err(mt, oracle, dev) -> float:
+    """The JAX bench's parity fixture (bench.py:270-291): a 1.5 s, 8 kHz
+    chirp with one marker through ``render_track`` on the card against
+    ``oracle.export``; returns the max abs error (the lengths must agree)."""
+    sr = 8000
+    t = np.arange(int(sr * 1.5)) / sr
+    x = (0.6 * np.sin(2 * np.pi * (180.0 + 120.0 * t) * t)).astype(np.float32)
+    markers = [mt.Marker(sample=sr // 2, note=57.0, d_time=0.05,
+                         pitch_bend=2.0)]
+    table = mt.build_grain_table(x)
+    knots = mt.MapKnots.from_markers(markers, sr, len(x))
+    got = mt.render_track(x, table, knots, device=dev)
+    tup = [(m.sample, m.note, m.d_time, m.pitch_bend) for m in markers]
+    grains = list(zip(table.starts.tolist(), table.lengths.tolist()))
+    want = oracle.export(x, grains, tup, sr)
+    check(got.shape == want.shape, f"parity lengths {got.shape} {want.shape}")
+    return float(np.max(np.abs(got - want)))
 
 
 def pitch_err_cents(mt, dev) -> float:
@@ -153,14 +213,19 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this check "
               "needs an NVIDIA GPU", file=sys.stderr)
         return 1
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, root)
     import melonix_tpu_torch as mt
     from melonix_tpu_torch.engine import phase_vocoder as pv
+    from melonix_tpu_torch.engine import render as grender
     from melonix_tpu_torch.engine.spectral import hann_window, num_frames
     from melonix_tpu_torch.kernels import _build
     from melonix_tpu_torch.kernels import pv as kpv
+    from melonix_tpu_torch.kernels import render as krender
     from melonix_tpu_torch.kernels import resample as kres
+    from melonix_tpu_torch.runtime import native
 
+    oracle = load_oracle(root)
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -186,6 +251,10 @@ def main() -> int:
     _build.library()
     print(f"[2] built {lib_path} in {time.perf_counter() - t0:.1f} s",
           flush=True)
+    t0 = time.perf_counter()
+    check(native.try_load() is not None, "native host runtime: no compiler")
+    print(f"    native host runtime {native.BUILD_DIR / native.LIB_NAME} "
+          f"built in {time.perf_counter() - t0:.1f} s", flush=True)
     for line in (_build.BUILD_DIR / "nvcc.log").read_text().splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print("    ptxas:", line.strip())
@@ -322,7 +391,7 @@ def main() -> int:
     mags, out = pipeline()
     torch.cuda.synchronize()
     launches = {fn.__name__: fn.launches for fn in counters}
-    with plain_twins(kpv, kres):
+    with plain_twins(kpv, kres, krender):
         mags_p, out_p = pipeline()
     torch.cuda.synchronize()
     check(out.shape == (plan.n_out,), f"output length {out.shape} != "
@@ -359,16 +428,158 @@ def main() -> int:
     for name, fn in zip(rows, counters):
         rows[name]["launches"] = launches[fn.__name__]
 
-    # -- 6. times (CUDA events, median of 5 after a warm-up) ----------
+    # -- 6. granular host half: native runtime against NumPy -----------
+    native.build_grains.calls = native.build_plan.calls = 0
+    t0 = time.perf_counter()
+    table = mt.build_grain_table(x)
+    t_grains = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    table_np = mt.build_grain_table(x, backend="numpy")
+    t_grains_np = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gplan = mt.build_render_plan(table, knots)
+    t_plan = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gplan_np = mt.build_render_plan(table_np, knots, backend="numpy")
+    t_plan_np = time.perf_counter() - t0
+    check(native.build_grains.calls == 1 and native.build_plan.calls == 1,
+          "backend='auto' did not take the native runtime")
+    check(np.array_equal(table.starts, table_np.starts)
+          and np.array_equal(table.lengths, table_np.lengths),
+          "native grain table != NumPy")
+    for f in dataclasses.fields(gplan):
+        a, b = getattr(gplan, f.name), getattr(gplan_np, f.name)
+        check(np.array_equal(a, b) and np.asarray(a).dtype == np.asarray(b).dtype,
+              f"native plan field {f.name} != NumPy")
+    total = gplan.total_out
+    t0 = time.perf_counter()
+    fix_idx, fix_val = grender.seam_fixes(gplan, x, total)
+    t_fix = time.perf_counter() - t0
+    gmax, szmax = krender._buckets(gplan)
+    offs = gplan.out_offset[:-1]
+    a0g, cntg, kmax_g = krender.compact_blocks(offs, -(-total // krender.CBLK))
+    n_fix = int((fix_idx < total).sum())
+    print(f"[6] granular host: grains {len(table)} (native {1e3 * t_grains:.2f}"
+          f" ms, NumPy {1e3 * t_grains_np:.1f} ms, equal), plan steps "
+          f"{gplan.n_steps} (native {1e3 * t_plan:.2f} ms, NumPy "
+          f"{1e3 * t_plan_np:.1f} ms, equal), total_out {total}, buckets "
+          f"gmax {gmax} szmax {szmax}, compact kmax {kmax_g}, seam fixes "
+          f"{n_fix} ({1e3 * t_fix:.2f} ms)", flush=True)
+
+    # -- 7. B5 and B6 against their twins, bit for bit ----------------
+    gs_d = put(gplan.grain_start.astype(np.int32))
+    rate_d = put(gplan.rate.astype(np.float32))
+    sz_d = put(gplan.sz.astype(np.int32))
+    off_d = put(offs.astype(np.int32))
+    a0g_d, cntg_d = put(a0g), put(cntg)
+    b5 = lambda: krender.render_steps(wav, gs_d, rate_d, sz_d, szmax)  # noqa: E731
+    b5p = lambda: krender.render_steps_plain(  # noqa: E731
+        wav, gs_d, rate_d, sz_d, szmax)
+    vals_k, vals_p = b5(), b5p()
+    torch.cuda.synchronize()
+    e = max_err(vals_k, vals_p)
+    print(f"[7] B5 render_steps ({gplan.n_steps} x {szmax}): equal "
+          f"{torch.equal(vals_k, vals_p)}, max abs err {e:.3e} (bar: equal)",
+          flush=True)
+    check(vals_k.shape == (gplan.n_steps, szmax) and torch.equal(vals_k, vals_p),
+          "B5 vs twin")
+    record("render_steps", "melonix_tpu_torch/csrc/render_steps.cu",
+           "melonix_tpu/kernels/pallas_render.py:108", e, b5, b5p)
+    b6 = lambda: krender.compact(vals_k, off_d, a0g_d, cntg_d, total)  # noqa: E731
+    b6p = lambda: krender.compact_plain(vals_k, off_d, total)  # noqa: E731
+    got, want = b6(), b6p()
+    torch.cuda.synchronize()
+    e = max_err(got, want)
+    print(f"    B6 compact ({total} samples): equal {torch.equal(got, want)}, "
+          f"max abs err {e:.3e} (bar: equal)", flush=True)
+    check(got.shape == (total,) and torch.equal(got, want), "B6 vs twin")
+    record("compact", "melonix_tpu_torch/csrc/compact.cu",
+           "melonix_tpu/kernels/pallas_render.py:375", e, b6, b6p)
+    del vals_p, got, want
+
+    # -- 8. the granular main path: render_track ----------------------
+    def granular():
+        tab = mt.build_grain_table(x)
+        return mt.render_track(x, tab, knots, device=dev, device_out=True)
+
+    gcounters = (krender.render_steps, krender.compact)
+    for fn in gcounters:
+        fn.launches = 0
+    torch.cuda.synchronize()
+    out_g = granular()
+    torch.cuda.synchronize()
+    glaunches = {fn.__name__: fn.launches for fn in gcounters}
+    with plain_twins(kpv, kres, krender):
+        out_gp = granular()
+    rd_args = grender.render_device_args(gplan, x, total)
+    out_rd = grender.render_device(
+        wav, put(rd_args[0]), put(rd_args[1]), put(rd_args[2]),
+        int(rd_args[3]), rd_args[4], put(rd_args[5]), put(rd_args[6]))
+    torch.cuda.synchronize()
+    nz = torch.nonzero(out_g).flatten()
+    trailing = total - 1 - int(nz[-1]) if nz.numel() else total
+    parity = granular_parity_max_err(mt, oracle, dev)
+    print(f"[8] granular path: render_track n_out {out_g.shape[0]} (bar "
+          f"{total}), finite, {trailing} trailing zeros (bar 1500); equal to "
+          f"all-plain path {torch.equal(out_g, out_gp)}, to render_device "
+          f"{torch.equal(out_g, out_rd)}; granular_parity_max_err {parity} "
+          f"(bar 0.0)", flush=True)
+    check(out_g.shape == (total,) and bool(torch.isfinite(out_g).all()),
+          "granular output length / finite")
+    check(trailing == 1500, f"{trailing} trailing zeros")
+    check(torch.equal(out_g, out_gp), "render_track vs all-plain path")
+    check(torch.equal(out_g, out_rd), "render_track vs render_device")
+    check(parity == 0.0, f"granular_parity_max_err {parity}")
+    print(f"    launches in one granular run: {glaunches}", flush=True)
+    check(all(v > 0 for v in glaunches.values()),
+          "a granular kernel was not launched")
+    for fn in gcounters:
+        rows[fn.__name__]["launches"] = glaunches[fn.__name__]
+    del out_gp, out_rd
+    # the CLI's default engine on the default device (cuda), 20 s of the song
+    from melonix_tpu_torch.cli import main as cli_main
+
+    with tempfile.TemporaryDirectory() as tmp:
+        src, dst = os.path.join(tmp, "in.wav"), os.path.join(tmp, "out.wav")
+        clip = x[: 20 * SR]
+        mt.write_wav(src, clip, SR, dtype="float32")
+        before = krender.render_steps.launches
+        check(cli_main(["render", src, "-o", dst, "--dtype", "float32"]) == 0,
+              "CLI render")
+        cli_out, _rate = mt.read_wav(dst)
+        want = mt.render_track(clip, mt.build_grain_table(clip),
+                               mt.MapKnots.from_markers([], SR, len(clip)),
+                               device="cpu")
+        check(krender.render_steps.launches > before, "CLI ran no kernel")
+        check(np.array_equal(cli_out, want), "CLI (cuda) vs render_track (cpu)")
+    print("    CLI render (granular, --device cuda by default) equals the CPU "
+          "render_track bit for bit", flush=True)
+
+    # -- 9. times (CUDA events, median of 5 after a warm-up) ----------
     for r in rows.values():
-        r["ms"] = cuda_ms(r.pop("run_kernel"))
-        r["plain_ms"] = cuda_ms(r.pop("run_plain"))
-        print(f"[6] {r['name']}: kernel {r['ms']:.3f} ms, plain twin "
-              f"{r['plain_ms']:.3f} ms | {card}", flush=True)
+        r["ms"] = cuda_ms(r.pop("run_kernel"), inner=KERNEL_INNER)
+        r["plain_ms"] = cuda_ms(r.pop("run_plain"), inner=KERNEL_INNER)
+        print(f"[9] {r['name']}: kernel {r['ms']:.4f} ms, plain twin "
+              f"{r['plain_ms']:.4f} ms (mean of {KERNEL_INNER} back-to-back "
+              f"calls) | {card}", flush=True)
+    dev_args = (wav, gplan.grain_start, gplan.rate, gplan.sz, offs, total,
+                fix_idx, fix_val, szmax)
+    g_dev_ms = cuda_ms(lambda: krender.render_full(*dev_args))
+    with plain_twins(kpv, kres, krender):
+        g_dev_plain_ms = cuda_ms(lambda: krender.render_full(*dev_args))
+    g_wall_ms = host_ms(granular)
+    g_grains_ms = host_ms(lambda: mt.build_grain_table(x))
+    g_plan_ms = host_ms(lambda: mt.build_render_plan(table, knots))
+    g_fix_ms = host_ms(lambda: grender.seam_fixes(gplan, x, total))
+    print(f"[9] granular path ({SECONDS:.0f} s): wall {g_wall_ms:.2f} ms = "
+          f"host grains {g_grains_ms:.2f} + plan {g_plan_ms:.2f} + seam fixes "
+          f"{g_fix_ms:.2f} ms + device part (uploads, B5, B6, fixes) "
+          f"{g_dev_ms:.3f} ms with the kernels, {g_dev_plain_ms:.3f} ms "
+          f"all-plain | {card}", flush=True)
     path_ms = cuda_ms(pipeline)
-    with plain_twins(kpv, kres):
+    with plain_twins(kpv, kres, krender):
         plain_path_ms = cuda_ms(pipeline)
-    print(f"[6] main path (|STFT| + PV render of {SECONDS:.0f} s, host plan "
+    print(f"[9] main path (|STFT| + PV render of {SECONDS:.0f} s, host plan "
           f"included): {path_ms:.2f} ms with the kernels, {plain_path_ms:.2f} "
           f"ms all-plain | {card}", flush=True)
 

@@ -1,12 +1,13 @@
 """Command-line interface of the PyTorch/CUDA port.
 
-    python -m melonix_tpu_torch render in.wav --markers m.json -o out.wav --engine pv
+    python -m melonix_tpu_torch render in.wav --markers m.json -o out.wav \
+        [--engine pv] [--stereo] [--device cuda|cpu]
 
-Only the phase-vocoder render of a WAV file is ported.  The flags and
-defaults are those of ``melonix_tpu``'s ``render`` subcommand, plus
-``--device`` (default ``cuda``; there is no fallback to another device).
-Flags whose code is not ported yet exit with status 2 and name the ROADMAP
-item that ports them.
+The render of a WAV file through the granular engine (the default, mono or
+``--stereo``) or the phase vocoder (mono).  The flags and defaults are those
+of ``melonix_tpu``'s ``render`` subcommand, plus ``--device`` (default
+``cuda``; there is no fallback to another device).  Flags whose code is not
+ported yet exit with status 2 and name the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -15,12 +16,9 @@ import argparse
 import sys
 import time
 
-import numpy as np
-
 # flag -> ROADMAP queue A item that ports it
 NOT_PORTED = {
-    "engine granular": "item 10 (granular export)",
-    "stereo": "item 8 (stereo / multichannel)",
+    "stereo": "item 8 (stereo / multichannel phase vocoder)",
     "formant": "item 6 (formant preservation)",
     "lock": "item 7 (identity phase locking)",
     "rate": "item 9 (CLI render options: --rate)",
@@ -29,9 +27,9 @@ NOT_PORTED = {
 
 
 def _not_ported(args) -> str | None:
-    if args.engine == "granular":
-        return "--engine granular: " + NOT_PORTED["engine granular"]
-    for flag in ("stereo", "formant", "lock", "rate", "trace"):
+    if args.stereo and args.engine == "pv":
+        return "--stereo with --engine pv: " + NOT_PORTED["stereo"]
+    for flag in ("formant", "lock", "rate", "trace"):
         if getattr(args, flag):
             return f"--{flag}: " + NOT_PORTED[flag]
     if not args.input.lower().endswith(".wav"):
@@ -40,8 +38,8 @@ def _not_ported(args) -> str | None:
 
 
 def cmd_render(args) -> int:
-    from .engine.maps import MapKnots
-    from .engine.phase_vocoder import render_track_pv
+    from .engine.session import render_session
+    from .io.audio import downmix_mono
     from .io.wav import read_wav, write_wav
     from .markers import markers_from_json
 
@@ -51,20 +49,22 @@ def cmd_render(args) -> int:
               file=sys.stderr)
         return 2
     wav, rate = read_wav(args.input)
-    if wav.ndim == 2:  # mono downmix, as melonix_tpu.io.audio.downmix_mono
-        wav = wav.mean(axis=1).astype(np.float32)
+    if not args.stereo:
+        wav = downmix_mono(wav)
     markers = []
     if args.markers:
         with open(args.markers) as f:
             markers = markers_from_json(f.read())
-    knots = MapKnots.from_markers(markers, rate, len(wav))
     t0 = time.perf_counter()
-    out = render_track_pv(wav, knots, device=args.device)
+    out = render_session(wav, markers, rate, engine=args.engine,
+                         device=args.device)
     dt = time.perf_counter() - t0
     write_wav(args.output, out, rate, dtype=args.dtype)
+    ch = out.shape[1] if out.ndim == 2 else 1
+    detail = "phase-vocoder" if args.engine == "pv" else "granular"
     print(
-        f"rendered {len(out)/rate:.2f}s x1ch @{rate}Hz "
-        f"({len(markers)} markers, phase-vocoder on {args.device}) "
+        f"rendered {len(out)/rate:.2f}s x{ch}ch @{rate}Hz "
+        f"({len(markers)} markers, {detail} on {args.device}) "
         f"in {dt:.2f}s -> {args.output}"
     )
     return 0

@@ -1,1 +1,2 @@
-"""Render engines of the port: edit maps, STFT, phase vocoder."""
+"""Render engines of the port: edit maps, STFT, grains and the granular
+render, phase vocoder, sessions."""

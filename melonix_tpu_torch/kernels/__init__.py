@@ -1,7 +1,8 @@
 """Hand-written CUDA kernels of the port, each beside its plain PyTorch twin.
 
 ``pv`` holds B1-B3 (counterpart of ``melonix_tpu/kernels/pallas_pv.py``),
-``resample`` holds B4 (``melonix_tpu/kernels/pallas_resample.py``).  A
+``resample`` holds B4 (``melonix_tpu/kernels/pallas_resample.py``),
+``render`` holds B5-B6 (``melonix_tpu/kernels/pallas_render.py``).  A
 wrapper launches its kernel for a CUDA tensor, runs its plain twin for a CPU
 tensor, and raises for anything else; ``launches`` on each wrapper counts
 its kernel launches.

@@ -51,6 +51,10 @@ SIGNATURES = {
     # y, n_src, base, a0, cnt, anc_j, anc_src, anc_r, anc_s, n_anc,
     # out, n_out, sr, stream
     "mlx_resample_pv": (_P, _L, _P, _P, _P, _P, _P, _P, _P, _I, _P, _L, _I, _P),
+    # wav, n, gs, rate, sz, n_steps, szmax, out, stream
+    "mlx_render_steps": (_P, _L, _P, _P, _P, _I, _I, _P, _P),
+    # vals, n_steps, szmax, off, a0, cnt, out, out_len, stream
+    "mlx_compact": (_P, _I, _I, _P, _P, _P, _P, _I, _P),
 }
 
 

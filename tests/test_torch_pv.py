@@ -14,6 +14,7 @@ import pytest
 import torch
 
 import melonix_tpu.engine.phase_vocoder as jpv
+import oracle
 from melonix_tpu.cli import main as j_main
 from melonix_tpu.engine.maps import MapKnots as JMapKnots
 from melonix_tpu.engine.spectral import hann_window as j_hann
@@ -184,9 +185,12 @@ def test_unported_render_options_raise(option):
         mt.render_track_pv(_song(), pk, device="cpu", **{option: True})
 
 
-def _cli_files(tmp_path):
+def _cli_files(tmp_path, channels=1):
     wav_path, markers_path = str(tmp_path / "in.wav"), str(tmp_path / "m.json")
-    mt.write_wav(wav_path, _song()[: 2 * SR], SR)
+    x = _song()[: 2 * SR]
+    if channels == 2:
+        x = np.stack([x, 0.8 * x[::-1]], axis=1)
+    mt.write_wav(wav_path, x, SR, dtype="float32" if channels == 2 else "int16")
     with open(markers_path, "w") as f:
         json.dump([{"sample": SR, "note": 57.0, "d_time": 0.05,
                     "pitch_bend": 2.0}], f)
@@ -207,8 +211,38 @@ def test_cli_render_pv_matches_jax_cli(tmp_path, capsys):
     assert "phase-vocoder" in capsys.readouterr().out
 
 
+@pytest.mark.parametrize("stereo", [False, True])
+def test_cli_render_granular_matches_jax_cli(tmp_path, capsys, stereo):
+    """The default engine (granular), mono downmix or --stereo: float32
+    output within JAX's own FMA drift of the JAX CLI's (atol 2e-6), and
+    equal to oracle.export on the same input."""
+    wav_path, markers_path = _cli_files(tmp_path, channels=2)
+    out_t, out_j = str(tmp_path / "t.wav"), str(tmp_path / "j.wav")
+    extra = ["--stereo"] if stereo else []
+    assert t_main(["render", wav_path, "--markers", markers_path, "-o", out_t,
+                   "--dtype", "float32", "--device", "cpu", *extra]) == 0
+    assert "granular" in capsys.readouterr().out
+    assert j_main(["render", wav_path, "--markers", markers_path, "-o", out_j,
+                   "--dtype", "float32", *extra]) == 0
+    got, rate = mt.read_wav(out_t)
+    want, rate_j = j_read_wav(out_j)
+    assert rate == rate_j == SR
+    assert got.shape == want.shape and got.ndim == (2 if stereo else 1)
+    np.testing.assert_allclose(got, want, rtol=0, atol=2e-6)
+    src, _ = mt.read_wav(wav_path)
+    mono = src.mean(axis=1).astype(np.float32)
+    table = mt.build_grain_table(mono)
+    grains = list(zip(table.starts.tolist(), table.lengths.tolist()))
+    ref = [(SR, 57.0, 0.05, 2.0)]
+    chans = [np.ascontiguousarray(src[:, c]) for c in range(2)] if stereo \
+        else [mono]
+    for c, ch in enumerate(chans):
+        np.testing.assert_array_equal(
+            got[:, c] if stereo else got, oracle.export(ch, grains, ref, SR))
+
+
 @pytest.mark.parametrize("extra", [
-    [], ["--engine", "pv", "--stereo"], ["--engine", "pv", "--formant"],
+    ["--engine", "pv", "--stereo"], ["--engine", "pv", "--formant"],
     ["--engine", "pv", "--lock"], ["--engine", "pv", "--rate", "16000"],
     ["--engine", "pv", "--trace", "tr"],
 ])
