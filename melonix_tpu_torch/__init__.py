@@ -3,9 +3,10 @@
 The marker edit model, the granular export (grain table, render plan and the
 reference-parity render, with the native C++ host runtime), the
 phase-vocoder render (chunked stretch with exact phase carry, OLA
-normalisation, variable-rate resample) and the 2048/512 Hann |STFT|, on an
-NVIDIA GPU through hand-written CUDA kernels (``kernels/``, sources in
-``csrc/``).
+normalisation, variable-rate resample), the Hann |STFT|, and the spectrogram
+display data (reference-parity 32768-point columns, the tile server, the
+Hann |STFT| pyramid and the waveform min/max pyramid), on an NVIDIA GPU
+through hand-written CUDA kernels (``kernels/``, sources in ``csrc/``).
 Every public function runs on the device it is given: a CUDA tensor
 launches the kernels, a CPU tensor runs their plain PyTorch twins.  The
 package imports neither JAX nor ``melonix_tpu``.
@@ -17,9 +18,12 @@ from .engine.maps import MapKnots
 from .engine.phase_vocoder import render_track_pv
 from .engine.render import build_render_plan, render_track
 from .engine.session import render_session
-from .engine.spectral import stft_mags_device
+from .engine.pyramid import build_pyramid
+from .engine.spectral import spectrogram_columns, stft_mags_device
 from .io.wav import read_wav, write_wav
 from .markers import Marker, markers_from_json, markers_to_json, sort_markers
+from .runtime.spec_pyramid import SpecPyramid
+from .runtime.tiles import TileServer
 
 __version__ = "0.1.0"
 
@@ -38,6 +42,10 @@ __all__ = [
     "render_session",
     "render_track_pv",
     "stft_mags_device",
+    "spectrogram_columns",
+    "TileServer",
+    "SpecPyramid",
+    "build_pyramid",
     "read_wav",
     "write_wav",
     "__version__",

@@ -1,2 +1,3 @@
-"""Render engines of the port: edit maps, STFT, grains and the granular
-render, phase vocoder, sessions."""
+"""Render engines of the port: edit maps, STFT and spectrogram columns,
+grains and the granular render, phase vocoder, sessions, the waveform
+min/max pyramid."""

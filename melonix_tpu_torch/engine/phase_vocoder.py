@@ -40,7 +40,7 @@ from ..config import DEFAULT_CONFIG, Config
 from ..kernels import pv as kpv
 from ..kernels import resample as kres
 from .maps import MapKnots
-from .spectral import hann_window
+from .spectral import hann_window, resolve_device
 
 LN2_12 = np.log(2.0) / 12.0
 
@@ -271,18 +271,6 @@ def _chunk_arrays(plan: PVPlan, m0: int, ch: int):
 # ----------------------------------------------------------------------
 # Device half: B2 -> B3 per chunk, normalisation, B4
 # ----------------------------------------------------------------------
-
-
-def resolve_device(device) -> torch.device:
-    """``torch.device(device)``, refusing CUDA where there is none (no run
-    ever moves to another device than the one asked for)."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device {device!r} requested but torch.cuda.is_available() is "
-            "False"
-        )
-    return dev
 
 
 def _stretch_chunk_core(wav, starts_c, da_c, window, m0: int, f_real: int,

@@ -36,7 +36,7 @@ from ..config import DEFAULT_CONFIG, Config
 from ..kernels import render as krender
 from .grains import GrainTable, _host_f32
 from .maps import MapKnots
-from .phase_vocoder import resolve_device
+from .spectral import resolve_device
 
 F32 = np.float32
 

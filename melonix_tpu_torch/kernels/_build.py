@@ -1,12 +1,15 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Every ``.cu`` file under ``melonix_tpu_torch/csrc/`` is compiled by ``nvcc``
-for Hopper (``sm_90a``) into ONE shared library with a plain C interface,
-``build/kernels/libmelonix_torch_kernels.so`` beside the package, and loaded
+Every ``.cu`` file under ``melonix_tpu_torch/csrc/`` is compiled by its own
+``nvcc`` for Hopper (``sm_90a``), all of them at once, and the objects are
+linked into ONE shared library with a plain C interface,
+``build/kernels/libmelonix_torch_kernels.so`` beside the package, loaded
 with ``ctypes``.  No source includes PyTorch's headers, so a cold build takes
 seconds, not minutes.  The build runs at the first kernel launch of a process
 (never at import: the CPU tests import every module) and again whenever the
-hash of the sources and flags changes.
+hash of the sources and flags changes.  One lock serialises the build and
+the load, so threads that launch their first kernels together (the tile
+server's worker and the caller) build once.
 
 Each C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; :func:`check` turns a non-zero code into an error.
@@ -15,11 +18,11 @@ Each C entry point launches on the stream it is given and returns
 from __future__ import annotations
 
 import ctypes
-import functools
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 import torch
@@ -29,9 +32,13 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 LIB_NAME = "libmelonix_torch_kernels.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # registers / spills per kernel, kept in nvcc.log
 )
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
+
+_LOCK = threading.RLock()  # build() and the one-time load in library()
+_LIB: ctypes.CDLL | None = None
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -55,6 +62,12 @@ SIGNATURES = {
     "mlx_render_steps": (_P, _L, _P, _P, _P, _I, _I, _P, _P),
     # vals, n_steps, szmax, off, a0, cnt, out, out_len, stream
     "mlx_compact": (_P, _I, _I, _P, _P, _P, _P, _I, _P),
+    # wav, n, win, tw, out, n_frames, size, hop, scale, stream
+    "mlx_stft_mag_sizes": (_P, _L, _P, _P, _P, _I, _I, _I, _F, _P),
+    # wav, n, starts, ends, tw, out, n_cols, size, neg_decay, inv_size,
+    # kgain, colormap, stream
+    "mlx_spectrogram_columns": (_P, _L, _P, _P, _P, _P, _I, _I, _F, _F, _F,
+                                _I, _P),
 }
 
 
@@ -63,7 +76,7 @@ def sources() -> list[Path]:
 
 
 def source_hash() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for p in sources():
         h.update(p.name.encode())
         h.update(p.read_bytes())
@@ -84,32 +97,51 @@ def nvcc_path() -> str:
 
 
 def build() -> Path:
-    """Compile the kernels unless a library of the current hash exists."""
-    lib = BUILD_DIR / LIB_NAME
-    stamp = BUILD_DIR / (LIB_NAME + ".sha256")
-    digest = source_hash()
-    if lib.exists() and stamp.exists() and stamp.read_text() == digest:
+    """Compile the kernels unless a library of the current hash exists:
+    one ``nvcc -c`` per source, all started together, then one link."""
+    with _LOCK:
+        lib = BUILD_DIR / LIB_NAME
+        stamp = BUILD_DIR / (LIB_NAME + ".sha256")
+        digest = source_hash()
+        if lib.exists() and stamp.exists() and stamp.read_text() == digest:
+            return lib
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tag = f"{os.getpid()}.{threading.get_ident()}"  # unique per thread
+        nvcc = nvcc_path()
+        jobs = []
+        for src in (p for p in sources() if p.suffix == ".cu"):
+            obj = BUILD_DIR / f"{src.stem}.{tag}.o"
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        log, failed = [], []
+        for cmd, _obj, proc in jobs:
+            out = proc.communicate()[0]
+            log.append(" ".join(cmd) + "\n" + out)
+            if proc.returncode != 0:
+                failed.append(f"{cmd[-1]} ({proc.returncode}):\n{out}")
+        tmp = BUILD_DIR / f"{LIB_NAME}.{tag}.tmp"
+        if not failed:
+            cmd = [nvcc, *LINK_FLAGS, "-o", str(tmp),
+                   *[str(obj) for _cmd, obj, _proc in jobs]]
+            res = subprocess.run(cmd, capture_output=True, text=True)
+            log.append(" ".join(cmd) + "\n" + res.stdout + res.stderr)
+            if res.returncode != 0:
+                failed.append(f"link ({res.returncode}):\n{res.stderr}")
+        (BUILD_DIR / "nvcc.log").write_text("\n".join(log))
+        for _cmd, obj, _proc in jobs:
+            obj.unlink(missing_ok=True)
+        if failed:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        os.replace(tmp, lib)  # atomic: a concurrent loader sees old or new
+        stamp.write_text(digest)
         return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(p) for p in sources() if p.suffix == ".cu"]]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    (BUILD_DIR / "nvcc.log").write_text(
-        " ".join(cmd) + "\n" + res.stdout + res.stderr
-    )
-    if res.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    os.replace(tmp, lib)  # atomic: a concurrent loader sees old or new
-    stamp.write_text(digest)
-    return lib
 
 
-@functools.cache
-def library() -> ctypes.CDLL:
-    """The loaded kernel library (built first if needed), one per process."""
-    lib = ctypes.CDLL(str(build()))
+def _load(path: Path) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(path))
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
@@ -117,6 +149,16 @@ def library() -> ctypes.CDLL:
     lib.mlx_error_string.argtypes = (ctypes.c_int,)
     lib.mlx_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built first if needed), one per process."""
+    global _LIB
+    if _LIB is None:
+        with _LOCK:
+            if _LIB is None:
+                _LIB = _load(build())
+    return _LIB
 
 
 def check(name: str, err: int) -> None:

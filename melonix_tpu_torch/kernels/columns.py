@@ -1,0 +1,126 @@
+"""Reference-parity spectrogram columns: kernel B7 beside its plain twin.
+
+Counterpart of ``melonix_tpu/kernels/pallas_columns.py``.  Each column is
+the DFT of the window ``[end - size, end)`` anchored at the column's end
+sample, samples before ``start`` attenuated by ``exp(-decay * (start - i))``
+(int distance, float32 product), out-of-range samples zero, magnitudes of
+the first ``size // 2`` bins divided by ``size`` (spec.cpp:44-66); with
+``colormap`` they are mapped through the reference's colormap with gain
+``kgain`` and packed as int32 ``0x00RRGGBB`` texels.
+
+The TPU kernel DMA'd a slab per column, realigned it with lane rolls and ran
+a four-step MXU DFT; the port's kernel (``csrc/spectrogram_columns.cu``) is
+one block per column running the real-input FFT of ``csrc/fft_real.cuh`` in
+shared memory.  ``spectrogram_columns_fused`` launches it for a CUDA tensor,
+runs :func:`spectrogram_columns_plain` for a CPU tensor, and raises for
+anything else; ``spectrogram_columns_fused.launches`` counts its launches.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import _build
+from .stft import MAX_SIZE, twiddles  # the shared real-input FFT's cap, table
+
+N1 = 128  # the TPU kernel's lane factor, kept for its size predicate
+_PI_REF = 3.141592  # the reference's pi literal (spec-cache.cpp:86)
+
+
+def supported(size: int) -> bool:
+    """The sizes the TPU kernel took (``pallas_columns.supported``: 1024 *
+    j, j <= 64).  On CUDA :func:`spectrogram_columns_fused` takes them up to
+    :data:`MAX_SIZE` and raises above."""
+    n2 = size // N1
+    return size % N1 == 0 and 8 <= n2 <= 512 and n2 % 8 == 0
+
+
+def _pack_rgb(mags, kgain):
+    """int32 0x00RRGGBB of pallas_columns.py:152-162 in torch ops."""
+    v = torch.clamp(mags * kgain, 0.0, 255.0)
+    a = (v - 85.0) * (1.0 / 85.0) * (_PI_REF / 2.0)
+    r = torch.where(v < 85.0, v,
+                    torch.where(v < 170.0, v * torch.cos(a), (v - 170.0) * 3.0))
+    g = torch.where(v < 85.0, 0.0, torch.where(v < 170.0, v * torch.sin(a), v))
+    b = torch.where(v < 170.0, 0.0, (v - 170.0) * 3.0)
+    i32 = torch.int32
+    return r.to(i32) * 65536 + g.to(i32) * 256 + b.to(i32)
+
+
+def extract_frames(wav, starts, ends, size: int,
+                   decay: float = 2.5e-4) -> torch.Tensor:
+    """(B, size) float32 end-anchored frames: frame b covers samples
+    [end - size, end) with end = clip(ends[b], 0, n + size) (the clip moves
+    no in-range sample), samples before starts[b] scaled by ``exp(-decay *
+    (start - i))`` in float32, samples out of range zero (spec.cpp:47-58)."""
+    dev = wav.device
+    n = wav.shape[0]
+    end = ends.to(torch.int64).clamp(0, n + size)
+    idx = end[:, None] - size + torch.arange(size, device=dev)[None, :]
+    inb = (idx >= 0) & (idx < n)
+    vals = wav[idx.clamp(0, max(n - 1, 0))]
+    dist = starts.to(torch.int64)[:, None] - idx
+    neg = torch.tensor(-decay, dtype=torch.float32, device=dev)
+    dec = torch.where(dist > 0, torch.exp(neg * dist.to(torch.float32)), 1.0)
+    return torch.where(inb, vals * dec, 0.0)
+
+
+def spectrogram_columns_plain(wav, starts, ends, kgain, size: int = 32768,
+                              decay: float = 2.5e-4,
+                              colormap: bool = True) -> torch.Tensor:
+    """(B, size // 2): float32 magnitudes, or int32 packed texels with
+    ``colormap``.  :func:`extract_frames`, ``torch.fft.rfft``,
+    ``|.| / size``."""
+    frames = extract_frames(wav, starts, ends, size, decay)
+    mags = torch.fft.rfft(frames)[:, : size // 2].abs() * (1.0 / size)
+    mags = mags.to(torch.float32)
+    return _pack_rgb(mags, float(kgain)) if colormap else mags
+
+
+def spectrogram_columns_fused(wav, starts, ends, kgain, size: int = 32768,
+                              decay: float = 2.5e-4,
+                              colormap: bool = True) -> torch.Tensor:
+    """B7 (``csrc/spectrogram_columns.cu``); contract of
+    :func:`spectrogram_columns_plain`.  ``starts``/``ends`` are int32 (B,)
+    sample ranges; ``kgain`` a float (used with ``colormap`` only)."""
+    if wav.device.type == "cpu":
+        return spectrogram_columns_plain(wav, starts, ends, kgain, size,
+                                         decay, colormap)
+    dev = _build.cuda_device(wav)
+    if not supported(size):
+        raise ValueError(f"B7 takes no size {size}")
+    if size > MAX_SIZE:
+        raise NotImplementedError(
+            f"B7 size {size} is above its cap MAX_SIZE = {MAX_SIZE} (4 * size "
+            "bytes of shared memory per column; ROADMAP queue B, B7)"
+        )
+    b = starts.shape[0]
+    _build.require(wav, "wav", torch.float32, (wav.shape[0],), dev)
+    _build.require(starts, "starts", torch.int32, (b,), dev)
+    _build.require(ends, "ends", torch.int32, (b,), dev)
+    out = torch.empty((b, size // 2),
+                      dtype=torch.int32 if colormap else torch.float32,
+                      device=dev)
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        err = lib.mlx_spectrogram_columns(
+            wav.data_ptr(), wav.shape[0], starts.data_ptr(), ends.data_ptr(),
+            twiddles(size, dev).data_ptr(), out.data_ptr(), b, size,
+            -float(decay), 1.0 / size, float(kgain), int(colormap),
+            _build.stream(dev),
+        )
+    _build.check("spectrogram_columns", err)
+    spectrogram_columns_fused.launches += 1
+    return out
+
+
+spectrogram_columns_fused.launches = 0
+
+
+def unpack_rgb(packed) -> np.ndarray:
+    """0x00RRGGBB int32 (..., bins) -> uint8 (..., bins, 3)."""
+    p = np.asarray(packed)
+    return np.stack(
+        [(p >> 16) & 0xFF, (p >> 8) & 0xFF, p & 0xFF], axis=-1
+    ).astype(np.uint8)

@@ -29,8 +29,9 @@ TWO_PI = float(np.float32(2.0 * np.pi))
 
 def _no_size(size: int) -> NotImplementedError:
     return NotImplementedError(
-        f"CUDA kernels take size {FFT_N}, got {size}: other sizes need "
-        "B12 (pallas_stft.stft_mag_pallas), ROADMAP queue B, not ported yet"
+        f"B1-B3 take size {FFT_N}, got {size}: for the |STFT| at other sizes "
+        "use engine.spectral.stft_mags_device (B12); the PV path at other "
+        "sizes needs B9 (ROADMAP queue B), not ported yet"
     )
 
 
