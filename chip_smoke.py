@@ -10,11 +10,15 @@ the main paths once each on a 180 s, 44.1 kHz song with 12 markers (the
 2048/512 |STFT| plus the phase-vocoder render; the granular export,
 ``render_track``; the Hann |STFT| pyramid at 2048/512 and 4096/1024 and
 the waveform min/max pyramid; the spectrogram tile server's bursts and a
-1280-column viewport), checks their output (the granular export bit for bit
-against its plain references and ``tests/oracle.py``, the columns against a
-float64 oracle, the tiles against an all-plain server), shows that each run went through every kernel of its
-path, and times kernels, twins, one-call PyTorch yardsticks and paths beside
-each kernel's bound.  Any failed check raises: the script then exits
+1280-column viewport; the pitch curve of the song; ``autotune`` with its
+defaults, the formant-preserving phase vocoder, on a 180 s detuned melody),
+checks their output (the granular export bit for bit against its plain
+references and ``tests/oracle.py``, the columns against a float64 oracle,
+the tiles against an all-plain server, the pitch curve against the song's
+closed-form f0, the autotuned melody against its snapped notes, each path
+against its all-plain run), shows that each run went through every kernel
+of its path, and times kernels, twins, one-PyTorch-call yardsticks and
+paths beside each kernel's bound.  Any failed check raises: the script then exits
 non-zero and prints no result.  The last line of standard output is
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
@@ -55,6 +59,42 @@ def make_song(sr: int, seconds: float) -> np.ndarray:
     x += 0.2 * np.sin(2 * np.pi * 2.0 * np.cumsum(f) / sr)
     x += 0.01 * np.random.default_rng(0).standard_normal(len(t))
     return x.astype(np.float32)
+
+
+def song_f0(t: np.ndarray) -> np.ndarray:
+    """The fundamental of :func:`make_song` at times ``t`` (seconds)."""
+    return 220.0 * 2.0 ** (np.sin(2 * np.pi * 0.25 * t) * 0.5)
+
+
+def make_melody(sr: int, seconds: float, seed: int = 4):
+    """A detuned melody for autotune: notes of 1.5 s (reference note scale,
+    48 = 220 Hz) in steps of 2-5 semitones, each detuned by a seeded 20-45
+    cents either way, three partials, noise 40 dB below the fundamental.
+    Returns (samples, notes, cents)."""
+    rng = np.random.default_rng(seed)
+    n_notes = int(seconds / 1.5)
+    notes = np.empty(n_notes, np.int64)
+    notes[0] = 52
+    for i in range(1, n_notes):
+        step = int(rng.choice([-5, -4, -3, -2, 2, 3, 4, 5]))
+        nxt = notes[i - 1] + step
+        notes[i] = nxt if 43 <= nxt <= 62 else notes[i - 1] - step
+    cents = rng.uniform(20.0, 45.0, n_notes) * rng.choice([-1.0, 1.0], n_notes)
+    f = np.repeat(55.0 * 2.0 ** ((notes - 24 + cents / 100.0) / 12.0),
+                  int(1.5 * sr))
+    phase = 2 * np.pi * np.cumsum(f) / sr
+    x = 0.5 * np.sin(phase) + 0.25 * np.sin(2 * phase) + 0.12 * np.sin(3 * phase)
+    x += 0.005 * rng.standard_normal(len(x))
+    return x.astype(np.float32), notes, cents
+
+
+def curves_agree(got, want) -> tuple[float, float]:
+    """(share of frames with equal voicing, share of the frames voiced in
+    both whose notes agree within 0.01 semitone)."""
+    both = got.voiced & want.voiced
+    close = np.abs(got.note[both] - want.note[both]) < 0.01
+    return (float(np.mean(got.voiced == want.voiced)),
+            float(close.mean()) if both.any() else 1.0)
 
 
 def bench_markers(mt, n: int):
@@ -234,12 +274,13 @@ def host_ms(fn, reps: int = REPS) -> float:
 
 
 @contextlib.contextmanager
-def plain_twins(kpv, kres, krender, kcols, kstft):
+def plain_twins(kpv, kres, krender, kcols, kstft, kpitch):
     """Route the main paths through the plain twins (for the all-plain
     reference runs on the card); restores the kernels on exit."""
     saved = (kpv.stft_mag, kpv.analysis, kpv.synth_ola_phase,
              kres.resample_pv, krender.render_steps, krender.compact,
-             kcols.spectrogram_columns_fused, kstft.stft_mag)
+             kcols.spectrogram_columns_fused, kstft.stft_mag, kpitch.pitch_ac)
+    kpitch.pitch_ac = kpitch.pitch_ac_plain
     kcols.spectrogram_columns_fused = kcols.spectrogram_columns_plain
     kstft.stft_mag = kstft.stft_mag_plain
     kpv.stft_mag = kpv.stft_mag_plain
@@ -258,7 +299,8 @@ def plain_twins(kpv, kres, krender, kcols, kstft):
     finally:
         (kpv.stft_mag, kpv.analysis, kpv.synth_ola_phase,
          kres.resample_pv, krender.render_steps, krender.compact,
-         kcols.spectrogram_columns_fused, kstft.stft_mag) = saved
+         kcols.spectrogram_columns_fused, kstft.stft_mag,
+         kpitch.pitch_ac) = saved
 
 
 def load_oracle(root: str):
@@ -328,7 +370,9 @@ def main() -> int:
     from melonix_tpu_torch.engine.spectral import (hann_window, num_frames,
                                                    view_column_ranges)
     from melonix_tpu_torch.kernels import _build
+    from melonix_tpu_torch.engine import autotune as eat
     from melonix_tpu_torch.kernels import columns as kcols
+    from melonix_tpu_torch.kernels import pitch as kpitch
     from melonix_tpu_torch.kernels import pv as kpv
     from melonix_tpu_torch.kernels import render as krender
     from melonix_tpu_torch.kernels import resample as kres
@@ -337,7 +381,7 @@ def main() -> int:
     from melonix_tpu_torch.ui.colormap import colormap_lut
     from melonix_tpu_torch.utils import Timer, registry
 
-    twins = (kpv, kres, krender, kcols, kstft)
+    twins = (kpv, kres, krender, kcols, kstft, kpitch)
 
     oracle = load_oracle(root)
     dev = torch.device("cuda", 0)
@@ -922,7 +966,173 @@ def main() -> int:
           f"tile server not settled: {settled}")
     rows["spectrogram_columns"]["launches"] = tile_launches
 
-    # -- 12. times (CUDA events, median of 5 after a warm-up) ---------
+    # -- 12. the pitch path: B8 against its twin, pitch_curve ---------
+    pcfg = mt.DEFAULT_CONFIG
+    pframe, phop = pcfg.pitch_frame, pcfg.pitch_hop
+    pnf = 1 + (n - pframe) // phop
+    b8 = lambda: kpitch.pitch_ac(wav, pframe, phop, pnf)  # noqa: E731
+    b8p = lambda: kpitch.pitch_ac_plain(wav, pframe, phop, pnf)  # noqa: E731
+    (ac_k, w_k), (ac_p, w_p) = b8(), b8p()
+    torch.cuda.synchronize()
+    s, e_w = snr_db(ac_k, ac_p), max_err(w_k, w_p)
+    print(f"[12] B8 pitch_ac ({pnf} x {pframe}): ac SNR {s:.1f} dB (bar < "
+          f"-100), max abs err {max_err(ac_k, ac_p):.3e}; w max abs err "
+          f"{e_w:.3e} (bar 1e-5)", flush=True)
+    check(ac_k.shape == w_k.shape == (pnf, pframe) and s < -100.0
+          and e_w < 1e-5, "B8 vs twin")
+    # yardstick: cuFFT's round trip on the twin's mean-subtracted frames
+    # (rfft, |.|^2, irfft: two FFT calls and one elementwise pass)
+    record("pitch_ac", "melonix_tpu_torch/csrc/pitch_ac.cu",
+           "melonix_tpu/kernels/pallas_pitch.py:123", max_err(ac_k, ac_p),
+           b8, b8p,
+           lambda: torch.fft.irfft(torch.fft.rfft(w_p, n=2 * pframe).abs()
+                                   .square(), n=2 * pframe),
+           4 * min(n, (pnf - 1) * phop + pframe) + nbytes(ac_k, w_k),
+           2 * fft_flops(pnf, 2 * pframe))
+    del ac_k, w_k, ac_p
+
+    kpitch.pitch_ac.launches = 0
+    torch.cuda.synchronize()
+    curve = mt.pitch_curve(x, SR)  # NumPy in, on cuda by default
+    torch.cuda.synchronize()
+    b8_launches = kpitch.pitch_ac.launches
+    with plain_twins(*twins):
+        curve_p = mt.pitch_curve(x, SR)
+    t_c = (np.arange(len(curve.f0)) * phop + pframe // 2) / SR
+    v = curve.voiced
+    cents_err = np.abs(1200.0 * np.log2(curve.f0[v] / song_f0(t_c[v])))
+    same_v, same_n = curves_agree(curve, curve_p)
+    print(f"    pitch_curve of the song ({len(curve.f0)} frames): voiced "
+          f"{100 * v.mean():.2f}% (bar 90), median error "
+          f"{np.median(cents_err):.3f} cents (bar 10) against the closed-form "
+          f"f0; vs the all-plain run: voicing equal on {100 * same_v:.3f}%, "
+          f"notes within 0.01 st on {100 * same_n:.3f}% (bars 99.9); B8 "
+          f"launches {b8_launches} (bar 1)", flush=True)
+    check(len(curve.f0) == pnf and v.mean() > 0.9
+          and np.median(cents_err) < 10.0, "pitch_curve vs the song's f0")
+    check(same_v >= 0.999 and same_n >= 0.999, "pitch_curve vs all-plain")
+    check(b8_launches == 1, f"B8 launches {b8_launches} in pitch_curve")
+    rows["pitch_ac"]["launches"] = b8_launches
+
+    # -- 13. autotune with its defaults: PV with formant preservation ---
+    mel, mel_notes, mel_cents = make_melody(SR, SECONDS)
+    n_mel = len(mel)
+    at_counters = (kpitch.pitch_ac, kpv.analysis, kpv.synth_ola_phase,
+                   kres.resample_pv)
+    for fn in at_counters:
+        fn.launches = 0
+    torch.cuda.synchronize()
+    tuned, at_markers = mt.autotune(mel, SR)  # engine pv, formants, cuda
+    torch.cuda.synchronize()
+    at_launches = {fn.__name__: fn.launches for fn in at_counters}
+    mplan = pv.build_pv_plan(
+        mt.MapKnots.from_markers(at_markers, SR, n_mel), n_mel)
+    n_chunks = -(-mplan.n_frames // pv.PV_CHUNK_FRAMES)
+    with plain_twins(*twins):
+        tuned_p = mt.render_session(mel, at_markers, SR, engine="pv",
+                                    preserve_formants=True)
+        markers_p = eat.suggest_markers(mel, SR)
+    check(tuned.shape == tuned_p.shape == (mplan.n_out,)
+          and bool(np.isfinite(tuned).all()), "autotune output length/finite")
+    rms, env = rms_env(torch.from_numpy(tuned), torch.from_numpy(tuned_p))
+    same_m = (len(markers_p) == len(at_markers) and all(
+        a.sample == b.sample and abs(a.pitch_bend - b.pitch_bend) < 1e-3
+        for a, b in zip(at_markers, markers_p)))
+    c_out = mt.pitch_curve(tuned, SR)
+    t_o = (np.arange(len(c_out.note)) * phop + pframe // 2) / SR
+    hits, meds = 0, []
+    for i, note in enumerate(mel_notes):
+        sel = c_out.voiced & (t_o > 1.5 * i + 0.25) & (t_o < 1.5 * (i + 1) - 0.25)
+        med = float(np.median(c_out.note[sel])) if sel.any() else np.nan
+        meds.append(med - note)
+        hits += bool(abs(med - note) < 0.1)
+    share = hits / len(mel_notes)
+    print(f"[13] autotune (pv, formants, cuda) of a {SECONDS:.0f} s melody, "
+          f"{len(mel_notes)} notes detuned {np.abs(mel_cents).min():.1f}-"
+          f"{np.abs(mel_cents).max():.1f} cents: {len(at_markers)} markers; "
+          f"corrected median within 10 cents of its note on {100 * share:.1f}% "
+          f"of notes (bar 95), median |error| "
+          f"{100 * np.nanmedian(np.abs(meds)):.3f} cents", flush=True)
+    print(f"     vs the all-plain formant render of the same markers: rms "
+          f"{rms:.2e} (bar 5e-3 of max), envelope {env:.2e} (bar 2e-2); "
+          f"all-plain markers equal {same_m}; launches {at_launches} (bars: "
+          f"B8 1, B2 and B3 once per chunk of {n_chunks}, B4 1)", flush=True)
+    check(share >= 0.95, f"autotune hit its notes on {share:.3f}")
+    check(rms < 5e-3 and env < 2e-2, "autotune render vs all-plain")
+    check(same_m, "autotune markers vs all-plain")
+    check(at_launches == {"pitch_ac": 1, "analysis": n_chunks,
+                          "synth_ola_phase": n_chunks, "resample_pv": 1},
+          f"autotune launches {at_launches}")
+    del tuned_p
+
+    # B3's (mag, phi) entry against its twin at the melody's chunk shapes
+    st_m, da_m, rho_m, fr_m = pv._chunk_arrays(mplan, 0, mplan.n_frames)
+    re_m, im_m = kpv.analysis(torch.from_numpy(mel).to(dev),
+                              torch.from_numpy(st_m).to(dev), win, size)
+    mag_m = torch.sqrt(re_m * re_m + im_m * im_m)
+    phi_m = torch.atan2(im_m, re_m)
+    del re_m, im_m
+    rho_d = torch.from_numpy(rho_m).to(dev)
+    gain_fn = lambda: pv._formant_gain(mag_m, rho_d, size)  # noqa: E731
+    mag_m.mul_(gain_fn())
+    da_d = torch.from_numpy(da_m).to(dev)
+    b3f_args = (mag_m, phi_m, da_d, win, 0, fr_m, zeros, zeros, zeros, size,
+                hop)
+    b3f = lambda: kpv.synth_ola_phase(*b3f_args, cart=False)  # noqa: E731
+    b3fp = lambda: kpv.synth_ola_phase_plain(  # noqa: E731
+        *b3f_args, cart=False)
+    (y_k, r_k, pl_k, p0_k), (y_p, r_p, pl_p, p0_p) = b3f(), b3fp()
+    torch.cuda.synchronize()
+    rms, env = rms_env(y_k, y_p)
+    e = max_err(y_k, y_p)
+    # every frame of the melody is bent, so the residual sums run to
+    # thousands of radians, and two float32 summation orders (the kernel's
+    # serial sum, the twin's cumsum) differ in proportion to them: the bar
+    # counts float32 spacings of |resid| (eps |resid|)
+    eps32 = torch.finfo(torch.float32).eps
+    r_sp = (r_k - r_p).abs() / (eps32 * r_p.abs().clamp_min(1.0))
+    r_q = [float(v) for v in torch.quantile(
+        r_sp, torch.tensor([0.5, 0.9, 0.99], device=dev))]
+    r_ok = float((r_sp <= 32.0).float().mean())
+    print(f"     B3 synth_ola_phase (mag, phi) entry: rms {rms:.2e} (bar < "
+          f"5e-3 of max), envelope {env:.2e} (bar < 2e-2), max abs err "
+          f"{e:.3e}; carries: phi0_eff {max_err(p0_k, p0_p):.2e}, phi_last "
+          f"{max_err(pl_k, pl_p):.2e} (bars 1e-5), resid_last (median "
+          f"|resid| {float(r_p.abs().median()):.1f} rad) within 32 float32 "
+          f"spacings on {100 * r_ok:.1f}% of bins (bar 90%; quantiles 50/90/"
+          f"99%: {r_q[0]:.1f}, {r_q[1]:.1f}, {r_q[2]:.1f} spacings)",
+          flush=True)
+    check(rms < 5e-3 and env < 2e-2, "B3 (mag, phi) waveform vs twin")
+    check(max_err(p0_k, p0_p) < 1e-5 and max_err(pl_k, pl_p) < 1e-5
+          and r_ok > 0.9, "B3 (mag, phi) carries vs twin")
+    spec_b3f = torch.polar(mag_m, phi_m)
+    record("pv_synth_ola_phase_mag_phi",
+           "melonix_tpu_torch/csrc/pv_synth_ola_phase.cu",
+           "melonix_tpu/kernels/pallas_pv.py:828", e, b3f, b3fp,
+           lambda: torch.fft.irfft(spec_b3f, n=size),
+           nbytes(mag_m, phi_m, da_d, win, zeros, zeros, zeros)
+           + nbytes(y_k, r_k, pl_k, p0_k), fft_flops(mplan.n_frames, size))
+    rows["pv_synth_ola_phase_mag_phi"]["launches"] = at_launches[
+        "synth_ola_phase"]
+    del y_k, y_p
+
+    # the formant gain and the autotune render on the device (profiler)
+    gain_names, gain_busy, gain_wall = device_profile(gain_fn)
+    at_names, at_busy, at_wall = device_profile(
+        lambda: mt.render_session(mel, at_markers, SR, engine="pv",
+                                  preserve_formants=True))
+    top = sorted(at_names.items(), key=lambda kv: -kv[1])[:8]
+    print(f"     formant gain ({mplan.n_frames} x {size // 2 + 1}, 39 "
+          f"Chebyshev terms): device busy {gain_busy:.3f} ms in "
+          f"{len(gain_names)} kernel names, wall {gain_wall:.3f} ms | {card}",
+          flush=True)
+    print(f"     profiled autotune render (formant PV, 180 s): wall "
+          f"{at_wall:.2f} ms, device busy {at_busy:.3f} ms (idle share "
+          f"{1.0 - at_busy / at_wall:.4f}); device ms by name: "
+          + ", ".join(f"{k[:48]} {v:.3f}" for k, v in top) + f" | {card}",
+          flush=True)
+
+    # -- 14. times (CUDA events, median of 5 after a warm-up) ---------
     for r in rows.values():
         r["ms"] = cuda_ms(r.pop("run_kernel"), inner=KERNEL_INNER)
         r["plain_ms"] = cuda_ms(r.pop("run_plain"), inner=KERNEL_INNER)
@@ -931,7 +1141,7 @@ def main() -> int:
                            else cuda_ms(lib, inner=KERNEL_INNER))
         lib_txt = ("none" if lib is None
                    else f"{r['library_ms']:.4f} ms")
-        print(f"[12] {r['name']}: kernel {r['ms']:.4f} ms, plain twin "
+        print(f"[14] {r['name']}: kernel {r['ms']:.4f} ms, plain twin "
               f"{r['plain_ms']:.4f} ms, one PyTorch call {lib_txt}, bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}); launches on its "
               f"main path {r['launches']} (mean of {KERNEL_INNER} "
@@ -945,7 +1155,7 @@ def main() -> int:
     g_grains_ms = host_ms(lambda: mt.build_grain_table(x))
     g_plan_ms = host_ms(lambda: mt.build_render_plan(table, knots))
     g_fix_ms = host_ms(lambda: grender.seam_fixes(gplan, x, total))
-    print(f"[12] granular path ({SECONDS:.0f} s): wall {g_wall_ms:.2f} ms = "
+    print(f"[14] granular path ({SECONDS:.0f} s): wall {g_wall_ms:.2f} ms = "
           f"host grains {g_grains_ms:.2f} + plan {g_plan_ms:.2f} + seam fixes "
           f"{g_fix_ms:.2f} ms + device part (uploads, B5, B6, fixes) "
           f"{g_dev_ms:.3f} ms with the kernels, {g_dev_plain_ms:.3f} ms "
@@ -953,9 +1163,35 @@ def main() -> int:
     path_ms = cuda_ms(pipeline)
     with plain_twins(*twins):
         plain_path_ms = cuda_ms(pipeline)
-    print(f"[12] main path (|STFT| + PV render of {SECONDS:.0f} s, host plan "
+    print(f"[14] main path (|STFT| + PV render of {SECONDS:.0f} s, host plan "
           f"included): {path_ms:.2f} ms with the kernels, {plain_path_ms:.2f} "
           f"ms all-plain | {card}", flush=True)
+    pc_ms = host_ms(lambda: mt.pitch_curve(x, SR))
+    with plain_twins(*twins):
+        pc_plain_ms = host_ms(lambda: mt.pitch_curve(x, SR))
+    pc_names, pc_busy, pc_wall = device_profile(lambda: mt.pitch_curve(x, SR))
+    top = sorted(pc_names.items(), key=lambda kv: -kv[1])[:8]
+    print(f"[14] pitch path (pitch_curve of {SECONDS:.0f} s, upload and host "
+          f"float64 part included): {pc_ms:.2f} ms with B8, {pc_plain_ms:.2f} "
+          f"ms all-plain; profiled: device busy {pc_busy:.3f} ms of "
+          f"{pc_wall:.2f} ms wall (idle share {1.0 - pc_busy / pc_wall:.4f}), "
+          f"B8 {sum(v for k, v in pc_names.items() if 'pitch_ac' in k):.3f} "
+          f"ms; device ms by name: "
+          + ", ".join(f"{k[:48]} {v:.3f}" for k, v in top) + f" | {card}",
+          flush=True)
+    detect_ms = host_ms(lambda: mt.pitch_curve(mel, SR))
+    suggest_ms = host_ms(lambda: eat.suggest_markers(mel, SR))
+    render_ms = host_ms(lambda: mt.render_session(
+        mel, at_markers, SR, engine="pv", preserve_formants=True))
+    at_ms = host_ms(lambda: mt.autotune(mel, SR))
+    with plain_twins(*twins):
+        at_plain_ms = host_ms(lambda: mt.autotune(mel, SR))
+    print(f"[14] autotune path ({SECONDS:.0f} s melody, defaults): {at_ms:.2f} "
+          f"ms wall with the kernels ({at_plain_ms:.2f} ms all-plain) = detect "
+          f"(pitch_curve) {detect_ms:.2f} + suggest (host segmentation and "
+          f"snap) {suggest_ms - detect_ms:.2f} + render (formant PV) "
+          f"{render_ms:.2f} ms; formant gain device time {gain_busy:.3f} ms"
+          f" | {card}", flush=True)
 
     print(json.dumps({"kernels": list(rows.values())}))
     print(json.dumps({"ok": True, "device": {

@@ -3,9 +3,11 @@
 The marker edit model, the granular export (grain table, render plan and the
 reference-parity render, with the native C++ host runtime), the
 phase-vocoder render (chunked stretch with exact phase carry, OLA
-normalisation, variable-rate resample), the Hann |STFT|, and the spectrogram
-display data (reference-parity 32768-point columns, the tile server, the
-Hann |STFT| pyramid and the waveform min/max pyramid), on an NVIDIA GPU
+normalisation, variable-rate resample, formant preservation), the Hann
+|STFT|, the spectrogram display data (reference-parity 32768-point columns,
+the tile server, the Hann |STFT| pyramid and the waveform min/max pyramid),
+and the analysis half of the editor (the pitch curve, suggested markers and
+autotune), on an NVIDIA GPU
 through hand-written CUDA kernels (``kernels/``, sources in ``csrc/``).
 Every public function runs on the device it is given: a CUDA tensor
 launches the kernels, a CPU tensor runs their plain PyTorch twins.  The
@@ -14,8 +16,10 @@ package imports neither JAX nor ``melonix_tpu``.
 
 from .config import DEFAULT_CONFIG, Config
 from .engine.grains import GrainTable, build_grain_table
+from .engine.autotune import autotune, suggest_markers
 from .engine.maps import MapKnots
 from .engine.phase_vocoder import render_track_pv
+from .engine.pitch import PitchCurve, pitch_curve
 from .engine.render import build_render_plan, render_track
 from .engine.session import render_session
 from .engine.pyramid import build_pyramid
@@ -41,6 +45,10 @@ __all__ = [
     "render_track",
     "render_session",
     "render_track_pv",
+    "PitchCurve",
+    "pitch_curve",
+    "suggest_markers",
+    "autotune",
     "stft_mags_device",
     "spectrogram_columns",
     "TileServer",

@@ -1,15 +1,19 @@
 // B3: phase-vocoder phase propagation + inverse DFT + window + overlap-add
-// of one stretch chunk, straight from the analysis spectrum (re, im).
+// of one stretch chunk, straight from the analysis spectrum (re, im), or,
+// on the formant path, from its warped magnitude and phase (mag, phi).
 //
 // Replaces melonix_tpu/kernels/pallas_pv.py:synth_ola_phase with cart=True
-// (_syn_ola_phase_kernel, _atan2, _syn_body), which ran the whole chain in
-// one kernel because the TPU's grid is sequential: a (size - hop)-row OLA
+// and cart=False (_syn_ola_phase_kernel, _atan2, _syn_body), which ran the
+// whole chain in one kernel because the TPU's grid is sequential: a
+// (size - hop)-row OLA
 // carry and the frame-axis prefix sum rode from one grid step to the next.
 // Blocks on this card run in no order, so the carry becomes three launches
 // on one stream, each parallel over what it can be:
 //
-//   1. phase scan (phase_scan_kernel): one thread per bin walks the
-//      chunk's frames in order: mag, atan2f, the princarg residual against
+//   1. phase scan (phase_scan_kernel<cart>): one thread per bin walks the
+//      chunk's frames in order: mag and phase (sqrtf and atan2f of (re, im)
+//      with cart; read as given without: the formant path passes the
+//      warped mag and phi, pallas_pv.py:728-730), the princarg residual against
 //      omega_k * max(da, 1e-3), incr = hop * dphi / da (0 on global frame 0),
 //      a running float32 sum added to resid_in, the exact int mod-size
 //      ramp, psi = phi0_eff + ramp + resid, the live-frame mask, and
@@ -48,8 +52,9 @@ __device__ __forceinline__ float floor_mod(float a, float b) {
   return r;
 }
 
+template <bool kCart>
 __global__ void __launch_bounds__(kScanThreads)
-phase_scan_kernel(const float* __restrict__ re, const float* __restrict__ im,
+phase_scan_kernel(const float* __restrict__ a, const float* __restrict__ b,
                   const float* __restrict__ da,
                   const float* __restrict__ phi0,
                   const float* __restrict__ resid_in,
@@ -70,9 +75,15 @@ phase_scan_kernel(const float* __restrict__ re, const float* __restrict__ im,
 #pragma unroll 4
   for (int m = 0; m < n_frames; ++m) {
     const long long at = static_cast<long long>(m) * kBins + k;
-    const float r = re[at], i = im[at];
-    const float mag = sqrtf(r * r + i * i);
-    const float phi = atan2f(i, r);
+    float mag, phi;
+    if (kCart) {  // (a, b) = (re, im) of the analysis spectrum
+      const float r = a[at], i = b[at];
+      mag = sqrtf(r * r + i * i);
+      phi = atan2f(i, r);
+    } else {  // (a, b) = (mag, phi), the formant path's warped magnitude
+      mag = a[at];
+      phi = b[at];
+    }
     const float d = fmaxf(da[m], 1e-3f);
     const float dphi = floor_mod(phi - prev - omega * d + kPi, kTwoPi) - kPi;
     float incr = static_cast<float>(hop) * dphi / d;
@@ -145,16 +156,22 @@ __global__ void ola_kernel(const float* __restrict__ frames,
 }  // namespace
 
 extern "C" int mlx_pv_synth_ola_phase(
-    const float* re, const float* im, const float* da, const float* win,
+    const float* a, const float* b, const float* da, const float* win,
     const float2* tw, const float* phi0, const float* resid_in,
     const float* phi_prev, float* s_re, float* s_im, float* frames, float* y,
     float* resid_last, float* phi_last, float* phi0_eff, int n_frames,
-    int m0, int f_real, int hop, cudaStream_t stream) {
+    int m0, int f_real, int hop, int cart, cudaStream_t stream) {
   if (n_frames <= 0 || hop <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  phase_scan_kernel<<<(kBins + kScanThreads - 1) / kScanThreads,
-                      kScanThreads, 0, stream>>>(
-      re, im, da, phi0, resid_in, phi_prev, s_re, s_im, resid_last, phi_last,
-      phi0_eff, n_frames, m0, f_real, hop);
+  const int scan_blocks = (kBins + kScanThreads - 1) / kScanThreads;
+  if (cart) {
+    phase_scan_kernel<true><<<scan_blocks, kScanThreads, 0, stream>>>(
+        a, b, da, phi0, resid_in, phi_prev, s_re, s_im, resid_last, phi_last,
+        phi0_eff, n_frames, m0, f_real, hop);
+  } else {
+    phase_scan_kernel<false><<<scan_blocks, kScanThreads, 0, stream>>>(
+        a, b, da, phi0, resid_in, phi_prev, s_re, s_im, resid_last, phi_last,
+        phi0_eff, n_frames, m0, f_real, hop);
+  }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   synth_kernel<<<n_frames, mlx::kFftThreads, 0, stream>>>(s_re, s_im, win,

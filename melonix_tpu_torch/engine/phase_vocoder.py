@@ -25,8 +25,10 @@ Formulation for time-VARYING pitch rate ``rho(t) = 2^(bend(t)/12)``:
 The host half (segment table, frame plan, resample anchors) is the JAX
 package's float64 NumPy code, copied.  The device half runs kernels B2, B3
 and B4 on a CUDA tensor and their plain twins on a CPU tensor, in natural
-bin order with 1025-bin phase state.  Formant preservation and identity
-phase locking are not ported yet.
+bin order with 1025-bin phase state.  Formant preservation
+(``preserve_formants``) warps the analysis magnitudes by a cepstral
+envelope gain in PyTorch between B2 and B3, and enters B3 with (mag, phi)
+instead of (re, im).  Identity phase locking is not ported yet.
 """
 
 from __future__ import annotations
@@ -274,7 +276,8 @@ def _chunk_arrays(plan: PVPlan, m0: int, ch: int):
 
 
 def _stretch_chunk_core(wav, starts_c, da_c, window, m0: int, f_real: int,
-                        phi0, resid_in, phi_prev, *, size: int, hop: int):
+                        phi0, resid_in, phi_prev, *, size: int, hop: int,
+                        rho_c=None, formant: bool = False, n_ceps: int = 40):
     """Unnormalized OLA contribution of frames [m0, m0+f_real) plus carried
     phase state ``(y_c, resid_last, phi_last, phi0_eff)``.
 
@@ -283,11 +286,57 @@ def _stretch_chunk_core(wav, starts_c, da_c, window, m0: int, f_real: int,
     float32 rounding of the running phase sum — no phase resets, no
     crossfades.  Frame starts are int32 (exact at any
     track length).  Analysis is B2 and the phase/synthesis/OLA chain B3 on
-    a CUDA tensor; their plain twins on a CPU tensor.
+    a CUDA tensor; their plain twins on a CPU tensor.  With ``formant`` the
+    magnitudes are warped by :func:`_formant_gain` at the chunk's per-frame
+    pitch rates ``rho_c`` and B3 takes ``(mag, phi)``.
     """
     re, im = kpv.analysis(wav, starts_c, window, size)
-    return kpv.synth_ola_phase(re, im, da_c, window, m0, f_real, phi0,
-                               resid_in, phi_prev, size, hop)
+    if not formant:
+        return kpv.synth_ola_phase(re, im, da_c, window, m0, f_real, phi0,
+                                   resid_in, phi_prev, size, hop, cart=True)
+    mag = torch.sqrt(re * re + im * im)
+    phi = torch.atan2(im, re)
+    del re, im
+    mag.mul_(_formant_gain(mag, rho_c, size, n_ceps))
+    return kpv.synth_ola_phase(mag, phi, da_c, window, m0, f_real, phi0,
+                               resid_in, phi_prev, size, hop, cart=False)
+
+
+def _formant_gain(mag, rho_m, size: int, n_ceps: int = 40):
+    """Cepstral-envelope warp gain, natural bin order
+    (``melonix_tpu/engine/phase_vocoder.py:_formant_gain``, scrambled=False).
+
+    The envelope is ``n_ceps`` cosine coefficients of the log magnitude, a
+    projection over the half spectrum with weights {1, 2, ..., 2, 1} / size
+    (a matrix product accumulated in float64, so no TF32 setting of the
+    caller's can reach it, rounded to float32); E at the rho-scaled bins is
+    evaluated directly with a Chebyshev recurrence (T_q(cos t) = cos(q t)):
+    gain_log[k] = sum_q 2 c_q (cos(q theta_k rho) - cos(q theta_k)),
+    clipped to +-60 dB.
+    """
+    n_bins = size // 2 + 1
+    dev = mag.device
+    log_mag = torch.log(mag + 1e-8)
+    qq = np.arange(1, n_ceps, dtype=np.float64)
+    kk = np.arange(n_bins, dtype=np.float64)
+    wk = np.full(n_bins, 2.0 / size)
+    wk[0] = wk[-1] = 1.0 / size
+    a_mat = torch.from_numpy(
+        (wk[:, None] * np.cos(2.0 * np.pi * kk[:, None] * qq[None, :] / size))
+        .astype(np.float32).astype(np.float64)).to(dev)  # c_q = L @ a_mat
+    cep = torch.matmul(log_mag.double(), a_mat).to(torch.float32)
+    theta = (2.0 * np.pi / size) * torch.arange(n_bins, dtype=torch.float32,
+                                                device=dev)
+    c1w = torch.cos(theta[None, :] * rho_m[:, None])
+    c1p = torch.cos(theta)[None, :].expand_as(c1w)
+    tw_prev, tw_cur = torch.ones_like(c1w), c1w
+    tp_prev, tp_cur = torch.ones_like(c1w), c1p
+    gain_log = 2.0 * cep[:, 0:1] * (c1w - c1p)
+    for qi in range(2, n_ceps):
+        tw_prev, tw_cur = tw_cur, 2.0 * c1w * tw_cur - tw_prev
+        tp_prev, tp_cur = tp_cur, 2.0 * c1p * tp_cur - tp_prev
+        gain_log = gain_log + 2.0 * cep[:, qi - 1 : qi] * (tw_cur - tp_cur)
+    return torch.exp(gain_log.clamp(-6.9, 6.9))  # +-60 dB
 
 
 def _ola_wsum(window, size: int, hop: int, n_frames: int, out_len: int):
@@ -366,13 +415,9 @@ def render_track_pv(
     NumPy array or a tensor; the render runs on ``device``, which defaults
     to the tensor's own device, or to ``"cuda"`` for NumPy input (there is
     no fallback: CUDA absent raises).  ``device_out`` returns the render as
-    a tensor on that device instead of a NumPy array.
+    a tensor on that device instead of a NumPy array.  ``preserve_formants``
+    keeps the spectral envelope (the timbre) in place while the pitch moves.
     """
-    if preserve_formants:
-        raise NotImplementedError(
-            "preserve_formants: the cepstral formant warp is not ported yet "
-            "(ROADMAP queue A, item 6)"
-        )
     if phase_locking:
         raise NotImplementedError(
             "phase_locking: identity phase locking is not ported yet "
@@ -392,10 +437,12 @@ def render_track_pv(
         n_out = max(int(knots.duration() * knots.sample_rate), 0)
         zeros = torch.zeros(n_out, dtype=torch.float32, device=dev)
         return zeros if device_out else zeros.cpu().numpy()
-    return _render_with_plan(wav_dev, plan, device_out=device_out)
+    return _render_with_plan(wav_dev, plan, preserve_formants,
+                             device_out=device_out)
 
 
-def _render_with_plan(wav_dev, plan: PVPlan, device_out: bool = False):
+def _render_with_plan(wav_dev, plan: PVPlan, preserve_formants: bool = False,
+                      device_out: bool = False):
     """One channel through a PVPlan: chunked stretch, OLA normalisation,
     variable-rate resample, all on the device of ``wav_dev``."""
     dev = wav_dev.device
@@ -415,11 +462,14 @@ def _render_with_plan(wav_dev, plan: PVPlan, device_out: bool = False):
     phi_prev = torch.zeros_like(resid)
     phi0 = torch.zeros_like(resid)
     for m0 in range(0, n_frames, ch):
-        starts_c, da_c, _rho_c, f_real = _chunk_arrays(plan, m0, ch)
+        starts_c, da_c, rho_c, f_real = _chunk_arrays(plan, m0, ch)
         y_c, resid, phi_prev, phi0 = _stretch_chunk_core(
             wav_dev, torch.from_numpy(starts_c).to(dev),
             torch.from_numpy(da_c).to(dev), win, m0, f_real,
             phi0, resid, phi_prev, size=size, hop=hop,
+            rho_c=torch.from_numpy(rho_c).to(dev) if preserve_formants
+            else None,
+            formant=preserve_formants,
         )
         y = y_c if one_chunk else _accum_at(y, y_c, m0 * hop)
 

@@ -53,8 +53,8 @@ SIGNATURES = {
     "mlx_pv_analysis": (_P, _L, _P, _P, _P, _P, _P, _I, _P),
     # re, im, da, win, tw, phi0, resid_in, phi_prev,
     # s_re, s_im, frames, y, resid_last, phi_last, phi0_eff,
-    # n_frames, m0, f_real, hop, stream
-    "mlx_pv_synth_ola_phase": (_P,) * 15 + (_I, _I, _I, _I, _P),
+    # n_frames, m0, f_real, hop, cart, stream
+    "mlx_pv_synth_ola_phase": (_P,) * 15 + (_I, _I, _I, _I, _I, _P),
     # y, n_src, base, a0, cnt, anc_j, anc_src, anc_r, anc_s, n_anc,
     # out, n_out, sr, stream
     "mlx_resample_pv": (_P, _L, _P, _P, _P, _P, _P, _P, _P, _I, _P, _L, _I, _P),
@@ -68,6 +68,8 @@ SIGNATURES = {
     # kgain, colormap, stream
     "mlx_spectrogram_columns": (_P, _L, _P, _P, _P, _P, _I, _I, _F, _F, _F,
                                 _I, _P),
+    # wav, n, tw, ac, w, n_frames, hop, stream
+    "mlx_pitch_ac": (_P, _L, _P, _P, _P, _I, _I, _P),
 }
 
 

@@ -29,9 +29,10 @@ TWO_PI = float(np.float32(2.0 * np.pi))
 
 def _no_size(size: int) -> NotImplementedError:
     return NotImplementedError(
-        f"B1-B3 take size {FFT_N}, got {size}: for the |STFT| at other sizes "
-        "use engine.spectral.stft_mags_device (B12); the PV path at other "
-        "sizes needs B9 (ROADMAP queue B), not ported yet"
+        f"B1-B3 (B3's (re, im) and (mag, phi) entries alike) take size "
+        f"{FFT_N}, got {size}: for the |STFT| at other sizes use "
+        "engine.spectral.stft_mags_device (B12); the PV path at other sizes "
+        "needs B9 (ROADMAP queue B), not ported yet"
     )
 
 
@@ -145,9 +146,13 @@ analysis.launches = 0
 # ----------------------------------------------------------------------
 
 
-def synth_ola_phase_plain(re, im, da, window, m0: int, f_real: int, phi0,
-                          resid_in, phi_prev, size: int, hop: int):
-    """One stretch chunk from its natural-order analysis spectrum.
+def synth_ola_phase_plain(a, b, da, window, m0: int, f_real: int, phi0,
+                          resid_in, phi_prev, size: int, hop: int,
+                          cart: bool = True):
+    """One stretch chunk from its natural-order analysis spectrum: ``(a, b)``
+    is ``(re, im)`` with ``cart`` (the default here; the TPU kernel's default
+    is the other entry) and ``(mag, phi)`` without, as the formant path
+    passes its warped magnitude (``pallas_pv.py:719-730``).
 
     Formulas of ``melonix_tpu/engine/phase_vocoder.py:_stretch_chunk_core``
     (natural path): princarg residual against omega * da, prefix sum over
@@ -156,10 +161,12 @@ def synth_ola_phase_plain(re, im, da, window, m0: int, f_real: int, phi0,
     phi_last, phi0_eff)``: the unnormalised OLA signal of length
     ``(F - 1) * hop + size`` and the carries of frame ``f_real - 1``.
     """
-    dev = re.device
-    f, n_bins = re.shape
-    mag = torch.sqrt(re * re + im * im)
-    phi = torch.atan2(im, re)
+    dev = a.device
+    f, n_bins = a.shape
+    if cart:
+        mag, phi = torch.sqrt(a * a + b * b), torch.atan2(b, a)
+    else:
+        mag, phi = a, b
     k_idx = torch.arange(n_bins, device=dev)
     step = float(np.float32(2.0 * np.pi / size))
     omega = k_idx.to(torch.float32) * step
@@ -186,22 +193,25 @@ def synth_ola_phase_plain(re, im, da, window, m0: int, f_real: int, phi0,
     return y, resid[last].clone(), phi[last].clone(), phi0_eff.clone()
 
 
-def synth_ola_phase(re, im, da, window, m0: int, f_real: int, phi0,
-                    resid_in, phi_prev, size: int, hop: int):
+def synth_ola_phase(a, b, da, window, m0: int, f_real: int, phi0,
+                    resid_in, phi_prev, size: int, hop: int, cart: bool = True):
     """B3 (``csrc/pv_synth_ola_phase.cu``, three launches on one stream);
-    contract of :func:`synth_ola_phase_plain`."""
-    if re.device.type == "cpu":
-        return synth_ola_phase_plain(re, im, da, window, m0, f_real, phi0,
-                                     resid_in, phi_prev, size, hop)
-    dev = _build.cuda_device(re)
+    contract of :func:`synth_ola_phase_plain`.  ``cart`` picks the phase
+    scan's entry: ``(re, im)`` or ``(mag, phi)``; one wrapper call, one
+    count, either way."""
+    if a.device.type == "cpu":
+        return synth_ola_phase_plain(a, b, da, window, m0, f_real, phi0,
+                                     resid_in, phi_prev, size, hop, cart)
+    dev = _build.cuda_device(a)
     if size != FFT_N:
         raise _no_size(size)
-    f = re.shape[0]
+    f = a.shape[0]
     nb = size // 2 + 1
     if f == 0 or hop <= 0:
         raise ValueError(f"{f} frames, hop {hop}")
     f32 = torch.float32
-    for name, t, shape in (("re", re, (f, nb)), ("im", im, (f, nb)),
+    names = ("re", "im") if cart else ("mag", "phi")
+    for name, t, shape in ((names[0], a, (f, nb)), (names[1], b, (f, nb)),
                            ("da", da, (f,)), ("window", window, (size,)),
                            ("phi0", phi0, (nb,)), ("resid_in", resid_in, (nb,)),
                            ("phi_prev", phi_prev, (nb,))):
@@ -217,9 +227,10 @@ def synth_ola_phase(re, im, da, window, m0: int, f_real: int, phi0,
     with torch.cuda.device(dev):
         err = lib.mlx_pv_synth_ola_phase(
             *(t.data_ptr() for t in (
-                re, im, da, window, twiddles(dev), phi0, resid_in, phi_prev,
+                a, b, da, window, twiddles(dev), phi0, resid_in, phi_prev,
                 s_re, s_im, frames, y, resid_last, phi_last, phi0_eff)),
-            f, int(m0), int(f_real), hop, _build.stream(dev),
+            f, int(m0), int(f_real), hop, int(bool(cart)),
+            _build.stream(dev),
         )
     _build.check("synth_ola_phase", err)
     synth_ola_phase.launches += 1

@@ -147,7 +147,8 @@ def test_wav_roundtrip(tmp_path, dtype, channels):
 def test_import_pulls_in_no_jax():
     code = (
         "import sys, melonix_tpu_torch, melonix_tpu_torch.cli, "
-        "melonix_tpu_torch.runtime.native, melonix_tpu_torch.kernels.render; "
+        "melonix_tpu_torch.runtime.native, melonix_tpu_torch.kernels.render, "
+        "melonix_tpu_torch.kernels.pitch, melonix_tpu_torch.engine.autotune; "
         "bad = sorted(m for m in sys.modules "
         "if m.split('.')[0] in ('jax', 'jaxlib', 'melonix_tpu')); "
         "print(bad); sys.exit(1 if bad else 0)"
@@ -205,7 +206,7 @@ def test_kernel_sources_and_build_hash():
     names = {p.name for p in _build.sources()}
     assert {"fft2048.cuh", "stft_mag.cu", "pv_analysis.cu",
             "pv_synth_ola_phase.cu", "resample_pv.cu", "render_steps.cu",
-            "compact.cu"} <= names
+            "compact.cu", "pitch_ac.cu"} <= names
     assert _build.source_hash() == _build.source_hash()
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     # every C entry point named in SIGNATURES is defined in some source

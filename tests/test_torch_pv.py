@@ -178,11 +178,22 @@ def test_short_track_renders_silence_like_jax():
     assert np.array_equal(got, want) and not got.any()
 
 
-@pytest.mark.parametrize("option", ["preserve_formants", "phase_locking"])
+@pytest.mark.parametrize("option", ["phase_locking"])
 def test_unported_render_options_raise(option):
     _jk, pk = _knots(_markers(1))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         mt.render_track_pv(_song(), pk, device="cpu", **{option: True})
+
+
+@pytest.mark.parametrize("count", [1, 9])
+def test_ported_render_options_preserve_formants_matches_jax(count):
+    """The formant warp (once an unported option): the port's render
+    against JAX's, by the PV convention."""
+    w = _song()
+    jk, pk = _knots(_markers(count))
+    want = np.asarray(jpv.render_track_pv(w, jk, preserve_formants=True))
+    got = mt.render_track_pv(w, pk, device="cpu", preserve_formants=True)
+    _assert_pv_close(got, want)
 
 
 def _cli_files(tmp_path, channels=1):
@@ -209,6 +220,23 @@ def test_cli_render_pv_matches_jax_cli(tmp_path, capsys):
     assert rate == rate_j == SR
     assert len(got) == len(want) > 2 * SR  # d_time lengthens the render
     assert "phase-vocoder" in capsys.readouterr().out
+
+
+def test_cli_ported_flags_formant_matches_jax_cli(tmp_path, capsys):
+    """``render --engine pv --formant`` (once an unported flag) against the
+    JAX CLI's, float32 output, by the PV convention."""
+    wav_path, markers_path = _cli_files(tmp_path)
+    out_t, out_j = str(tmp_path / "t.wav"), str(tmp_path / "j.wav")
+    flags = ["--engine", "pv", "--formant", "--dtype", "float32"]
+    assert t_main(["render", wav_path, "--markers", markers_path, "-o", out_t,
+                   "--device", "cpu", *flags]) == 0
+    assert "formant-preserving" in capsys.readouterr().out
+    assert j_main(["render", wav_path, "--markers", markers_path, "-o", out_j,
+                   *flags]) == 0
+    got, rate = mt.read_wav(out_t)
+    want, rate_j = j_read_wav(out_j)
+    assert rate == rate_j == SR
+    _assert_pv_close(got, want)
 
 
 @pytest.mark.parametrize("stereo", [False, True])
@@ -242,7 +270,7 @@ def test_cli_render_granular_matches_jax_cli(tmp_path, capsys, stereo):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--engine", "pv", "--stereo"], ["--engine", "pv", "--formant"],
+    ["--engine", "pv", "--stereo"],
     ["--engine", "pv", "--lock"], ["--engine", "pv", "--rate", "16000"],
     ["--engine", "pv", "--trace", "tr"],
 ])
