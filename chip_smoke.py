@@ -11,14 +11,18 @@ the main paths once each on a 180 s, 44.1 kHz song with 12 markers (the
 ``render_track``; the Hann |STFT| pyramid at 2048/512 and 4096/1024 and
 the waveform min/max pyramid; the spectrogram tile server's bursts and a
 1280-column viewport; the pitch curve of the song; ``autotune`` with its
-defaults, the formant-preserving phase vocoder, on a 180 s detuned melody),
+defaults, the formant-preserving phase vocoder, on a 180 s detuned melody;
+the identity-locked render; renders at 4096/1024 (through B9) and 1000/250;
+a locked stereo PV session; the streaming phase vocoder and the Player),
 checks their output (the granular export bit for bit against its plain
 references and ``tests/oracle.py``, the columns against a float64 oracle,
 the tiles against an all-plain server, the pitch curve against the song's
-closed-form f0, the autotuned melody against its snapped notes, each path
-against its all-plain run), shows that each run went through every kernel
-of its path, and times kernels, twins, one-PyTorch-call yardsticks and
-paths beside each kernel's bound.  Any failed check raises: the script then exits
+closed-form f0, the autotuned melody against its snapped notes, locked
+phasiness against classic, each stereo channel against its mono render,
+the stream against the offline render, the first buffer after an edit
+against the bent pitch, each path against its all-plain run), shows that
+each run went through every kernel of its path, and times kernels, twins,
+one-PyTorch-call yardsticks and paths beside each kernel's bound.  Any failed check raises: the script then exits
 non-zero and prints no result.  The last line of standard output is
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
@@ -274,12 +278,15 @@ def host_ms(fn, reps: int = REPS) -> float:
 
 
 @contextlib.contextmanager
-def plain_twins(kpv, kres, krender, kcols, kstft, kpitch):
+def plain_twins(kpv, kres, krender, kcols, kstft, kpitch, kframes):
     """Route the main paths through the plain twins (for the all-plain
     reference runs on the card); restores the kernels on exit."""
     saved = (kpv.stft_mag, kpv.analysis, kpv.synth_ola_phase,
              kres.resample_pv, krender.render_steps, krender.compact,
-             kcols.spectrogram_columns_fused, kstft.stft_mag, kpitch.pitch_ac)
+             kcols.spectrogram_columns_fused, kstft.stft_mag, kpitch.pitch_ac,
+             kframes.extract_frames, kres.resample_lerp)
+    kframes.extract_frames = kframes.extract_frames_plain
+    kres.resample_lerp = kres.resample_lerp_plain
     kpitch.pitch_ac = kpitch.pitch_ac_plain
     kcols.spectrogram_columns_fused = kcols.spectrogram_columns_plain
     kstft.stft_mag = kstft.stft_mag_plain
@@ -300,7 +307,7 @@ def plain_twins(kpv, kres, krender, kcols, kstft, kpitch):
         (kpv.stft_mag, kpv.analysis, kpv.synth_ola_phase,
          kres.resample_pv, krender.render_steps, krender.compact,
          kcols.spectrogram_columns_fused, kstft.stft_mag,
-         kpitch.pitch_ac) = saved
+         kpitch.pitch_ac, kframes.extract_frames, kres.resample_lerp) = saved
 
 
 def load_oracle(root: str):
@@ -332,18 +339,19 @@ def granular_parity_max_err(mt, oracle, dev) -> float:
     return float(np.max(np.abs(got - want)))
 
 
-def pitch_err_cents(mt, dev) -> float:
+def pitch_err_cents(mt, dev, size=None, hop=None) -> float:
     """End-to-end PV pitch accuracy (bench.py:185-223): a 440 Hz tone through
     a +2-semitone plateau, dominant frequency of the output at the plateau
     from a 32768-pt reference column (computed on the host) with parabolic
-    bin refinement, in cents against 440 * 2^(2/12)."""
+    bin refinement, in cents against 440 * 2^(2/12).  ``size``/``hop``: the
+    PV frame (default the config's 2048/512)."""
     n = 5 * SR
     t = np.arange(n) / SR
     tone = (0.5 * np.sin(2.0 * np.pi * 440.0 * t)).astype(np.float32)
     knots = mt.MapKnots.from_markers(
         [mt.Marker(n // 3, 57.0, 0.0, 2.0),
          mt.Marker(2 * n // 3, 57.0, 0.0, 2.0)], SR, n)
-    out = mt.render_track_pv(tone, knots, device=dev)
+    out = mt.render_track_pv(tone, knots, device=dev, size=size, hop=hop)
     size = 32768
     end = n // 2
     col = column_f64(out, end - int(0.05 * SR), end, size)
@@ -353,6 +361,87 @@ def pitch_err_cents(mt, dev) -> float:
     dk = 0.5 * (ym1 - yp1) / denom if abs(denom) > 1e-12 else 0.0
     f_got = (k + float(np.clip(dk, -0.5, 0.5))) * SR / size
     return float(1200.0 * np.log2(f_got / (440.0 * 2.0 ** (2.0 / 12.0))))
+
+
+def mod_index(y: np.ndarray, sr: int) -> float:
+    """Amplitude-modulation index of the four strongest partials over the
+    steady plateau [1.2 s, 2.8 s) (bench.py:247-262): vertical phase
+    incoherence shows as beating of the window's mainlobe bins."""
+    size, hop = 2048, 512
+    seg = y[int(1.2 * sr): int(2.8 * sr)]
+    n_f = (len(seg) - size) // hop
+    fr = np.stack([seg[i * hop: i * hop + size] for i in range(n_f)])
+    mags = np.abs(np.fft.rfft(fr * np.hanning(size)))
+    mean = mags.mean(0)
+    ks: list[int] = []
+    for kk in np.argsort(mean)[::-1]:
+        if all(abs(int(kk) - j) > 4 for j in ks):
+            ks.append(int(kk))
+        if len(ks) == 4:
+            break
+    return float(np.mean([mags[:, kk].std() / mags[:, kk].mean() for kk in ks]))
+
+
+def pv_phasiness(mt, dev) -> tuple[float, float]:
+    """bench.py:226-267: two inharmonic tones through a +3 st plateau at
+    44.1 kHz, rendered classic and locked on ``dev``; returns their
+    modulation indices (classic, locked)."""
+    sr = 44100
+    n = 4 * sr
+    t = np.arange(n) / sr
+    x = (0.4 * np.sin(2 * np.pi * 311.1 * t)
+         + 0.4 * np.sin(2 * np.pi * 554.4 * t)).astype(np.float32)
+    knots = mt.MapKnots.from_markers(
+        [mt.Marker(n // 4, 57.0, 0.0, 3.0), mt.Marker(3 * n // 4, 57.0, 0.0, 3.0)],
+        sr, n)
+    classic = mt.render_track_pv(x, knots, device=dev)
+    locked = mt.render_track_pv(x, knots, device=dev, phase_locking=True)
+    return mod_index(classic, sr), mod_index(locked, sr)
+
+
+def dominant_hz(buf: np.ndarray, sr: int, lo: float, hi: float) -> float:
+    """The strongest frequency of ``buf`` in [lo, hi] Hz: Hann window,
+    zero-padded 65536-point |FFT|, parabolic refinement."""
+    size = 65536
+    spec = np.abs(np.fft.rfft(buf * np.hanning(len(buf)), size))
+    k0, k1 = int(lo * size / sr), int(hi * size / sr)
+    k = k0 + int(np.argmax(spec[k0:k1]))
+    ym1, y0, yp1 = spec[k - 1], spec[k], spec[k + 1]
+    denom = ym1 - 2 * y0 + yp1
+    dk = 0.5 * (ym1 - yp1) / denom if abs(denom) > 1e-12 else 0.0
+    return (k + float(np.clip(dk, -0.5, 0.5))) * sr / size
+
+
+def live_pv_sustained(mt, seconds: float = 15.0) -> dict:
+    """bench.py:574-622: continuous 1024-sample pulls through the Player on
+    the PV engine (on the card) against the audio clock, after one
+    prebuffering pull; a pull underruns when the wall clock has passed the
+    audio it has delivered."""
+    sr = 44100
+    n = int(sr * (seconds + 6.0))
+    t = np.arange(n) / sr
+    x = (0.5 * np.sin(2 * np.pi * 220.0 * t)
+         + 0.2 * np.sin(2 * np.pi * 331.0 * t)).astype(np.float32)
+    knots = mt.MapKnots.from_markers(
+        [mt.Marker(n // 3, 57.0, 0.0, 3.0), mt.Marker(2 * n // 3, 57.0, 0.0, -2.0)],
+        sr, n)
+    p = mt.Player(x, mt.build_grain_table(x), knots, engine="pv")
+    p.is_playing = True
+    buf = 1024
+    first = p.callback(buf)
+    check(np.abs(first).max() > 1e-4, "live PV stream started silent")
+    pulls = int(seconds * sr / buf)
+    t0 = time.perf_counter()
+    audio, under, worst = 0.0, 0, 0.0
+    for _ in range(pulls):
+        p.callback(buf)
+        audio += buf / sr
+        behind = (time.perf_counter() - t0) - audio
+        worst = max(worst, behind)
+        under += behind > 0.0
+    wall = time.perf_counter() - t0
+    return {"live_pv_underruns": under, "live_pv_x_realtime": audio / wall,
+            "live_pv_worst_lag_ms": 1e3 * worst}
 
 
 def main() -> int:
@@ -372,6 +461,7 @@ def main() -> int:
     from melonix_tpu_torch.kernels import _build
     from melonix_tpu_torch.engine import autotune as eat
     from melonix_tpu_torch.kernels import columns as kcols
+    from melonix_tpu_torch.kernels import frames as kframes
     from melonix_tpu_torch.kernels import pitch as kpitch
     from melonix_tpu_torch.kernels import pv as kpv
     from melonix_tpu_torch.kernels import render as krender
@@ -381,7 +471,7 @@ def main() -> int:
     from melonix_tpu_torch.ui.colormap import colormap_lut
     from melonix_tpu_torch.utils import Timer, registry
 
-    twins = (kpv, kres, krender, kcols, kstft, kpitch)
+    twins = (kpv, kres, krender, kcols, kstft, kpitch, kframes)
 
     oracle = load_oracle(root)
     dev = torch.device("cuda", 0)
@@ -1132,7 +1222,273 @@ def main() -> int:
           + ", ".join(f"{k[:48]} {v:.3f}" for k, v in top) + f" | {card}",
           flush=True)
 
-    # -- 14. times (CUDA events, median of 5 after a warm-up) ---------
+    # -- 14. identity phase locking: B3 lock=True, the locked render ----
+    # B3's lock prologue against its twin (the twin's phase formulas, then
+    # identity_lock) on the song's chunk, through both entries; with the
+    # same (re, im) the kernel's correctly rounded sqrt equals the twin's,
+    # so both pick the same peaks
+    mag_s = torch.sqrt(re_k * re_k + im_k * im_k)
+    phi_s = torch.atan2(im_k, re_k)
+    for entry, a_in, b_in, cart in (("(re, im)", re_k, im_k, True),
+                                    ("(mag, phi)", mag_s, phi_s, False)):
+        args = (a_in, b_in, da, win, 0, f_real, zeros, zeros, zeros, size,
+                hop)
+        b3l = (lambda args=args, cart=cart:  # noqa: E731
+               kpv.synth_ola_phase(*args, cart=cart, lock=True))
+        b3lp = (lambda args=args, cart=cart:  # noqa: E731
+                kpv.synth_ola_phase_plain(*args, cart=cart, lock=True))
+        (y_k, r_k, pl_k, p0_k), (y_p, r_p, pl_p, p0_p) = b3l(), b3lp()
+        torch.cuda.synchronize()
+        rms, env = rms_env(y_k, y_p)
+        e = max_err(y_k, y_p)
+        eps32 = torch.finfo(torch.float32).eps
+        r_sp = (r_k - r_p).abs() / (eps32 * r_p.abs().clamp_min(1.0))
+        r_ok = float((r_sp <= 32.0).float().mean())
+        print(f"[14] B3 synth_ola_phase lock=True, {entry} entry: rms {rms:.2e} "
+              f"(bar < 5e-3 of max), envelope {env:.2e} (bar < 2e-2), max abs "
+              f"err {e:.3e}; phi0_eff equal {torch.equal(p0_k, p0_p)}, "
+              f"phi_last equal {torch.equal(pl_k, pl_p)} (bars: equal), "
+              f"resid_last within 32 float32 spacings on {100 * r_ok:.1f}% of "
+              f"bins (bar 90%)", flush=True)
+        check(y_k.shape == y_p.shape and rms < 5e-3 and env < 2e-2,
+              f"B3 lock {entry} waveform vs twin")
+        check(torch.equal(p0_k, p0_p) and torch.equal(pl_k, pl_p)
+              and r_ok >= 0.9, f"B3 lock {entry} carries vs twin")
+        if cart:
+            record("pv_synth_ola_phase_lock",
+                   "melonix_tpu_torch/csrc/pv_synth_ola_phase.cu",
+                   "melonix_tpu/kernels/pallas_pv.py:828", e, b3l, b3lp,
+                   lambda: torch.fft.irfft(spec_b3, n=size),
+                   nbytes(re_k, im_k, da, win, zeros, zeros, zeros)
+                   + nbytes(y_k, r_k, pl_k, p0_k),
+                   fft_flops(plan.n_frames, size))
+    del mag_s, phi_s, y_k, y_p
+
+    def locked_render():
+        return mt.render_track_pv(wav, knots, phase_locking=True,
+                                  device_out=True)
+
+    pv_counters = (kpv.analysis, kpv.synth_ola_phase, kres.resample_pv,
+                   kframes.extract_frames)
+
+    def counted(fn):
+        """(fn's result, launches of the PV kernels in one run of fn)."""
+        for c in pv_counters:
+            c.launches = 0
+        torch.cuda.synchronize()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, {c.__name__: c.launches for c in pv_counters}
+
+    out_l, lock_launches = counted(locked_render)
+    with plain_twins(*twins):
+        out_lp = locked_render()
+    rms, env = rms_env(out_l, out_lp)
+    m_c, m_l = pv_phasiness(mt, dev)
+    print(f"     locked render_track_pv (180 s): n_out {out_l.shape[0]}, vs the "
+          f"all-plain locked render rms {rms:.2e} (bar 5e-3 of max), envelope "
+          f"{env:.2e} (bar 2e-2); launches {lock_launches} (bars: B2, B3, B4 "
+          f"1, B9 0); phasiness (bench.py:226-267) classic {m_c:.4f}, locked "
+          f"{m_l:.4f} (bar: locked < 0.5 x classic)", flush=True)
+    check(out_l.shape == (plan.n_out,) and bool(torch.isfinite(out_l).all()),
+          "locked render length / finite")
+    check(rms < 5e-3 and env < 2e-2, "locked render vs all-plain")
+    check(lock_launches == {"analysis": 1, "synth_ola_phase": 1,
+                            "resample_pv": 1, "extract_frames": 0},
+          f"locked render launches {lock_launches}")
+    check(m_l < 0.5 * m_c, f"phasiness classic {m_c} locked {m_l}")
+    rows["pv_synth_ola_phase_lock"]["launches"] = lock_launches[
+        "synth_ola_phase"]
+    del out_lp
+
+    # -- 15. other frame sizes: B9 and the unfused natural path --------
+    for sz, hp in ((4096, 1024), (1536, 384)):
+        p_sz = pv.build_pv_plan(knots, n, size=sz, hop=hp)
+        st_sz = put(p_sz.starts_m)
+        b9 = lambda st_sz=st_sz, sz=sz: kframes.extract_frames(  # noqa: E731
+            wav, st_sz, sz)
+        b9p = lambda st_sz=st_sz, sz=sz: kframes.extract_frames_plain(  # noqa: E731
+            wav, st_sz, sz)
+        got, want = b9(), b9p()
+        torch.cuda.synchronize()
+        print(f"[15] B9 extract_frames {sz}/{hp} ({p_sz.n_frames} frames): "
+              f"equal {torch.equal(got, want)} (bar: equal)", flush=True)
+        check(got.shape == (p_sz.n_frames, sz) and torch.equal(got, want),
+              f"B9 {sz} vs twin")
+        if sz == 4096:
+            # yardstick: one advanced-index gather from the zero-padded track
+            wav_pad9 = torch.nn.functional.pad(wav, (0, sz))
+            idx9 = (st_sz.long().clamp(0, n - 1)[:, None]
+                    + torch.arange(sz, device=dev))
+            s9 = np.clip(p_sz.starts_m.astype(np.int64), 0, n - 1)
+            record("extract_frames", "melonix_tpu_torch/csrc/extract_frames.cu",
+                   "melonix_tpu/kernels/pallas_frames.py:65", max_err(got, want),
+                   b9, b9p, lambda: wav_pad9[idx9],
+                   4 * covered_len(s9, s9 + sz, n) + nbytes(st_sz, got), 0.0)
+        del got, want
+    for sz, hp in ((4096, 1024), (1000, 250)):
+        p_sz = pv.build_pv_plan(knots, n, size=sz, hop=hp)
+        n_ch = -(-p_sz.n_frames // pv.PV_CHUNK_FRAMES)
+        render_sz = (lambda sz=sz, hp=hp:  # noqa: E731
+                     mt.render_track_pv(wav, knots, size=sz, hop=hp,
+                                        device_out=True))
+        o_sz, sz_launches = counted(render_sz)
+        with plain_twins(*twins):
+            o_szp = render_sz()
+        rms, env = rms_env(o_sz, o_szp)
+        want_l = {"analysis": 0, "synth_ola_phase": 0, "resample_pv": 1,
+                  "extract_frames": n_ch if kframes.supported(sz) else 0}
+        print(f"     render_track_pv at {sz}/{hp} ({p_sz.n_frames} frames, "
+              f"{n_ch} chunk(s)): vs the all-plain render rms {rms:.2e} (bar "
+              f"5e-3 of max), envelope {env:.2e} (bar 2e-2); launches "
+              f"{sz_launches} (bars {want_l})", flush=True)
+        check(o_sz.shape == (plan.n_out,) and bool(torch.isfinite(o_sz).all()),
+              f"{sz}/{hp} render length / finite")
+        check(rms < 5e-3 and env < 2e-2, f"{sz}/{hp} render vs all-plain")
+        check(sz_launches == want_l, f"{sz}/{hp} launches {sz_launches}")
+        if sz == 4096:
+            rows["extract_frames"]["launches"] = sz_launches["extract_frames"]
+            render_4096 = render_sz
+        del o_sz, o_szp
+    cents4 = pitch_err_cents(mt, dev, 4096, 1024)
+    o4l = mt.render_track_pv(wav, knots, size=4096, hop=1024,
+                             phase_locking=True, device_out=True)
+    torch.cuda.synchronize()
+    print(f"     pitch error at 4096/1024 {cents4:+.3f} cents (bar 1); locked "
+          f"4096/1024 render: n_out {o4l.shape[0]}, finite "
+          f"{bool(torch.isfinite(o4l).all())}", flush=True)
+    check(abs(cents4) < 1.0, f"pitch error at 4096: {cents4} cents")
+    check(o4l.shape == (plan.n_out,) and bool(torch.isfinite(o4l).all()),
+          "locked 4096 render")
+    del o4l
+
+    # -- 16. stereo: a locked multichannel PV session ------------------
+    st = np.ascontiguousarray(np.stack([x, 0.8 * x[::-1]], axis=1),
+                              dtype=np.float32)
+    markers = bench_markers(mt, n)
+    t0 = time.perf_counter()
+    (out_st, st_launches) = counted(lambda: mt.render_session(
+        st, markers, SR, engine="pv", phase_locking=True))
+    st_ms = 1e3 * (time.perf_counter() - t0)
+    same = [np.array_equal(out_st[:, c], mt.render_track_pv(
+        np.ascontiguousarray(st[:, c]), knots, phase_locking=True))
+        for c in range(2)]
+    print(f"[16] stereo locked PV session (180 s x 2, cuda by default): shape "
+          f"{out_st.shape}, {st_ms:.2f} ms wall; each channel equal to its "
+          f"mono render_track_pv {same} (bar: equal); launches {st_launches} "
+          f"(bars: B2, B3 2 per chunk of 1, B4 2)", flush=True)
+    check(out_st.shape == (plan.n_out, 2) and bool(np.isfinite(out_st).all()),
+          "stereo session shape / finite")
+    check(all(same), "stereo channel vs its mono render")
+    check(st_launches == {"analysis": 2, "synth_ola_phase": 2,
+                          "resample_pv": 2, "extract_frames": 0},
+          f"stereo launches {st_launches}")
+    del out_st
+
+    # -- 17. live: B11, PvStream, the Player ---------------------------
+    kres.resample_lerp.launches = 0
+    torch.cuda.synchronize()
+    strm = mt.PvStream(wav, knots)  # the track's device: cuda
+    pulls = []
+    while not strm.exhausted:
+        pulls.append(strm.read(1024))
+    torch.cuda.synchronize()
+    reads = len(pulls)
+    b11_launches = kres.resample_lerp.launches
+    live = torch.from_numpy(np.concatenate(pulls)[: plan.n_out]).to(dev)
+    rms, env = rms_env(live, out)
+    print(f"[17] PvStream from t = 0 in 1024-sample reads: {reads} reads, B11 "
+          f"launches {b11_launches} (bar: = reads); vs the card's offline "
+          f"render rms {rms:.2e} (bar 5e-3 of max), envelope {env:.2e} (bar "
+          f"2e-2)", flush=True)
+    check(live.shape == out.shape and rms < 5e-3 and env < 2e-2,
+          "stream vs offline render")
+    check(b11_launches == reads == -(-plan.n_out // 1024),
+          f"B11 launches {b11_launches}, reads {reads}")
+    y_n, pos_n, base_n, rows_n = strm._y_norm, strm._pos, strm._base, strm._rows
+    got = kres.resample_lerp(y_n, pos_n, base_n, rows_n)
+    want = kres.resample_lerp_plain(y_n, pos_n, base_n, rows_n)
+    j_mid = (plan.n_out // 2) // kres.BLK * kres.BLK  # one read's two blocks
+    pos_r, base_r = pos_n[j_mid : j_mid + 2 * kres.BLK], base_n[
+        j_mid // kres.BLK : j_mid // kres.BLK + 2]
+    b11 = lambda: kres.resample_lerp(y_n, pos_r, base_r, rows_n)  # noqa: E731
+    b11p = lambda: kres.resample_lerp_plain(  # noqa: E731
+        y_n, pos_r, base_r, rows_n)
+    got_r, want_r = b11(), b11p()
+    torch.cuda.synchronize()
+    print(f"     B11 resample_lerp vs twin: whole padded output "
+          f"({pos_n.shape[0]} samples) equal {torch.equal(got, want)}, one "
+          f"read's two blocks equal {torch.equal(got_r, want_r)} (bars: "
+          f"equal); slab rows {rows_n}", flush=True)
+    check(torch.equal(got, want) and torch.equal(got_r, want_r), "B11 vs twin")
+    b11_full_ms = cuda_ms(lambda: kres.resample_lerp(y_n, pos_n, base_n,
+                                                     rows_n))
+    # the bytes one read needs: its positions and bases, the taps it
+    # touches, its output
+    i0 = (base_r.long().repeat_interleave(kres.BLK)
+          + torch.floor(pos_r).clamp(0, rows_n * 128 - 2).long())
+    taps = int(torch.unique(torch.cat([i0, i0 + 1])).numel())
+    record("resample_lerp", "melonix_tpu_torch/csrc/resample_lerp.cu",
+           "melonix_tpu/kernels/pallas_resample.py:248",
+           max_err(got_r, want_r), b11, b11p, None,
+           4 * taps + nbytes(pos_r, base_r, got_r), 0.0)
+    rows["resample_lerp"]["launches"] = b11_launches
+    del got, want, live, pulls
+
+    # the bench's interactive fixtures (bench.py:341-369): edit to audio
+    short = x[: 20 * SR]
+    table_s = mt.build_grain_table(short)
+    flat = mt.MapKnots.from_markers([], SR, len(short))
+    bent = mt.MapKnots.from_markers(
+        [mt.Marker(SR, 57.0, 0.0, 4.0), mt.Marker(10 * SR, 57.0, 0.0, 4.0)],
+        SR, len(short))
+    e2a, pitch_after = {}, {}
+    for engine in ("granular", "pv"):
+        player = mt.Player(short, table_s, flat, engine=engine)
+        check(isinstance(player._backlog, native.Ring),
+              "the player's backlog is not the native ring")
+        player.toggle()
+        player.callback(1024)  # warm: backlog planned / stream stretched
+        t0 = time.perf_counter()
+        player.set_knots(bent)  # the edit
+        buf = player.callback(1024)  # first fresh buffer on the new curve
+        e2a[engine] = 1e3 * (time.perf_counter() - t0)
+        check(bool(np.isfinite(buf).all()) and np.abs(buf).max() > 1e-3,
+              f"{engine}: the first buffer after the edit is silent")
+        # the same edit made on the +4 st plateau: the first buffer's pitch
+        player.set_knots(flat)
+        player.seek(5.0)
+        player.callback(1024)
+        player.set_knots(bent)
+        t_buf = player.cursor_sec
+        buf = player.callback(1024)
+        f0 = float(song_f0(np.asarray([t_buf + 512 / SR]))[0])
+        f_got = dominant_hz(buf, SR, f0 * 2 ** (-2 / 12), f0 * 2 ** (7 / 12))
+        pitch_after[engine] = 1200.0 * np.log2(f_got / (f0 * 2 ** (4 / 12)))
+        check(np.abs(buf).max() > 1e-3 and abs(pitch_after[engine]) < 50.0,
+              f"{engine}: first buffer after the edit at "
+              f"{pitch_after[engine]:+.1f} cents from the bent pitch")
+    live_stats = live_pv_sustained(mt, 15.0)
+    print(f"     edit to audio (20 s clip, +4 st edit, first 1024-sample "
+          f"buffer): edit_to_audio_pv_ms {e2a['pv']:.3f}, "
+          f"edit_to_audio_granular_ms {e2a['granular']:.3f}; the first "
+          f"buffer after the same edit on the plateau at "
+          f"{pitch_after['pv']:+.2f} (pv) and {pitch_after['granular']:+.2f} "
+          f"(granular) cents from the bent f0 (bar 50: one buffer's "
+          f"resolution); backlog: the native ring | {card}", flush=True)
+    print(f"     sustained live PV (15 s of 1024-sample pulls, bench.py:574-622"
+          f"): live_pv_underruns {live_stats['live_pv_underruns']}, "
+          f"live_pv_x_realtime {live_stats['live_pv_x_realtime']:.2f}, "
+          f"live_pv_worst_lag_ms {live_stats['live_pv_worst_lag_ms']:.3f} | "
+          f"{card}", flush=True)
+    check(live_stats["live_pv_x_realtime"] > 1.0, "live PV below realtime")
+
+    def live_reads():  # 200 pulls of 1024 (4.6 s of audio) from a restart
+        s_live = mt.PvStream(wav, knots, start_sec=60.0)
+        for _ in range(200):
+            s_live.read(1024)
+
+    # -- 18. times (CUDA events, median of 5 after a warm-up) ---------
     for r in rows.values():
         r["ms"] = cuda_ms(r.pop("run_kernel"), inner=KERNEL_INNER)
         r["plain_ms"] = cuda_ms(r.pop("run_plain"), inner=KERNEL_INNER)
@@ -1141,7 +1497,7 @@ def main() -> int:
                            else cuda_ms(lib, inner=KERNEL_INNER))
         lib_txt = ("none" if lib is None
                    else f"{r['library_ms']:.4f} ms")
-        print(f"[14] {r['name']}: kernel {r['ms']:.4f} ms, plain twin "
+        print(f"[18] {r['name']}: kernel {r['ms']:.4f} ms, plain twin "
               f"{r['plain_ms']:.4f} ms, one PyTorch call {lib_txt}, bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}); launches on its "
               f"main path {r['launches']} (mean of {KERNEL_INNER} "
@@ -1155,7 +1511,7 @@ def main() -> int:
     g_grains_ms = host_ms(lambda: mt.build_grain_table(x))
     g_plan_ms = host_ms(lambda: mt.build_render_plan(table, knots))
     g_fix_ms = host_ms(lambda: grender.seam_fixes(gplan, x, total))
-    print(f"[14] granular path ({SECONDS:.0f} s): wall {g_wall_ms:.2f} ms = "
+    print(f"[18] granular path ({SECONDS:.0f} s): wall {g_wall_ms:.2f} ms = "
           f"host grains {g_grains_ms:.2f} + plan {g_plan_ms:.2f} + seam fixes "
           f"{g_fix_ms:.2f} ms + device part (uploads, B5, B6, fixes) "
           f"{g_dev_ms:.3f} ms with the kernels, {g_dev_plain_ms:.3f} ms "
@@ -1163,7 +1519,7 @@ def main() -> int:
     path_ms = cuda_ms(pipeline)
     with plain_twins(*twins):
         plain_path_ms = cuda_ms(pipeline)
-    print(f"[14] main path (|STFT| + PV render of {SECONDS:.0f} s, host plan "
+    print(f"[18] main path (|STFT| + PV render of {SECONDS:.0f} s, host plan "
           f"included): {path_ms:.2f} ms with the kernels, {plain_path_ms:.2f} "
           f"ms all-plain | {card}", flush=True)
     pc_ms = host_ms(lambda: mt.pitch_curve(x, SR))
@@ -1171,7 +1527,7 @@ def main() -> int:
         pc_plain_ms = host_ms(lambda: mt.pitch_curve(x, SR))
     pc_names, pc_busy, pc_wall = device_profile(lambda: mt.pitch_curve(x, SR))
     top = sorted(pc_names.items(), key=lambda kv: -kv[1])[:8]
-    print(f"[14] pitch path (pitch_curve of {SECONDS:.0f} s, upload and host "
+    print(f"[18] pitch path (pitch_curve of {SECONDS:.0f} s, upload and host "
           f"float64 part included): {pc_ms:.2f} ms with B8, {pc_plain_ms:.2f} "
           f"ms all-plain; profiled: device busy {pc_busy:.3f} ms of "
           f"{pc_wall:.2f} ms wall (idle share {1.0 - pc_busy / pc_wall:.4f}), "
@@ -1186,12 +1542,35 @@ def main() -> int:
     at_ms = host_ms(lambda: mt.autotune(mel, SR))
     with plain_twins(*twins):
         at_plain_ms = host_ms(lambda: mt.autotune(mel, SR))
-    print(f"[14] autotune path ({SECONDS:.0f} s melody, defaults): {at_ms:.2f} "
+    print(f"[18] autotune path ({SECONDS:.0f} s melody, defaults): {at_ms:.2f} "
           f"ms wall with the kernels ({at_plain_ms:.2f} ms all-plain) = detect "
           f"(pitch_curve) {detect_ms:.2f} + suggest (host segmentation and "
           f"snap) {suggest_ms - detect_ms:.2f} + render (formant PV) "
           f"{render_ms:.2f} ms; formant gain device time {gain_busy:.3f} ms"
           f" | {card}", flush=True)
+    def stereo_session():
+        return mt.render_session(st, markers, SR, engine="pv",
+                                 phase_locking=True)
+
+    for label, fn in (("locked PV render", locked_render),
+                      ("PV render at 4096/1024", render_4096),
+                      ("stereo locked PV session (x 2, NumPy in and out)",
+                       stereo_session),
+                      ("live: 200 reads of 1024 from a restart at 60 s",
+                       live_reads)):
+        k_ms = cuda_ms(fn)
+        with plain_twins(*twins):
+            p_ms = cuda_ms(fn)
+        names, busy, wall = device_profile(fn)
+        top = sorted(names.items(), key=lambda kv: -kv[1])[:8]
+        print(f"[18] {label} (180 s song): {k_ms:.2f} ms with the kernels, "
+              f"{p_ms:.2f} ms all-plain; profiled: device busy {busy:.3f} ms "
+              f"of {wall:.2f} ms wall (idle share {1.0 - busy / wall:.4f}); "
+              f"device ms by name: "
+              + ", ".join(f"{k[:48]} {v:.3f}" for k, v in top) + f" | {card}",
+              flush=True)
+    print(f"[18] B11 over the whole padded output ({pos_n.shape[0]} samples): "
+          f"{b11_full_ms:.4f} ms | {card}", flush=True)
 
     print(json.dumps({"kernels": list(rows.values())}))
     print(json.dumps({"ok": True, "device": {

@@ -3,7 +3,9 @@
 The marker edit model, the granular export (grain table, render plan and the
 reference-parity render, with the native C++ host runtime), the
 phase-vocoder render (chunked stretch with exact phase carry, OLA
-normalisation, variable-rate resample, formant preservation), the Hann
+normalisation, variable-rate resample, formant preservation, identity phase
+locking, any frame size, multichannel), live playback (the streaming phase
+vocoder and the player with both engines), the Hann
 |STFT|, the spectrogram display data (reference-parity 32768-point columns,
 the tile server, the Hann |STFT| pyramid and the waveform min/max pyramid),
 and the analysis half of the editor (the pitch curve, suggested markers and
@@ -18,7 +20,10 @@ from .config import DEFAULT_CONFIG, Config
 from .engine.grains import GrainTable, build_grain_table
 from .engine.autotune import autotune, suggest_markers
 from .engine.maps import MapKnots
-from .engine.phase_vocoder import render_track_pv
+from .engine.phase_vocoder import (identity_lock, render_channels_pv,
+                                   render_track_pv)
+from .engine.player import Player
+from .engine.pv_stream import PvStream
 from .engine.pitch import PitchCurve, pitch_curve
 from .engine.render import build_render_plan, render_track
 from .engine.session import render_session
@@ -45,6 +50,10 @@ __all__ = [
     "render_track",
     "render_session",
     "render_track_pv",
+    "render_channels_pv",
+    "identity_lock",
+    "PvStream",
+    "Player",
     "PitchCurve",
     "pitch_curve",
     "suggest_markers",

@@ -1,20 +1,21 @@
 """Command-line interface of the PyTorch/CUDA port.
 
     python -m melonix_tpu_torch render in.wav --markers m.json -o out.wav \
-        [--engine pv [--formant]] [--stereo] [--device cuda|cpu]
+        [--engine pv [--formant] [--lock]] [--stereo] [--device cuda|cpu]
     python -m melonix_tpu_torch pitch in.wav -o curve.json \
         [--method nsdf|hps|hybrid] [--device cuda|cpu]
     python -m melonix_tpu_torch autotune in.wav -o tuned.wav \
         [--scale major --key c] [--engine granular] [--no-formant] \
         [--device cuda|cpu]
 
-The render of a WAV file through the granular engine (the default, mono or
-``--stereo``) or the phase vocoder (mono, ``--formant`` to keep the spectral
-envelope), the pitch curve of a WAV file as JSON, and its automatic pitch
-correction.  The flags and defaults are those of ``melonix_tpu``'s
-subcommands of the same names, plus ``--device`` (default ``cuda``; there is
-no fallback to another device).  Flags whose code is not ported yet exit
-with status 2 and name the ROADMAP item that ports them.
+The render of a WAV file through the granular engine (the default) or the
+phase vocoder (``--formant`` to keep the spectral envelope, ``--lock`` for
+identity phase locking), mono or ``--stereo``, the pitch curve of a WAV file
+as JSON, and its automatic pitch correction.  The flags and defaults are
+those of ``melonix_tpu``'s subcommands of the same names, plus ``--device``
+(default ``cuda``; there is no fallback to another device).  Flags whose
+code is not ported yet exit with status 2 and name the ROADMAP item that
+ports them.
 """
 
 from __future__ import annotations
@@ -28,8 +29,6 @@ import numpy as np
 
 # flag -> ROADMAP queue A item that ports it
 NOT_PORTED = {
-    "stereo": "item 8 (stereo / multichannel phase vocoder)",
-    "lock": "item 7 (identity phase locking)",
     "rate": "item 9 (CLI render options: --rate)",
     "trace": "item 9 (CLI render options: --trace)",
 }
@@ -42,9 +41,7 @@ def _not_wav(path: str) -> str | None:
 
 
 def _not_ported(args) -> str | None:
-    if args.stereo and args.engine == "pv":
-        return "--stereo with --engine pv: " + NOT_PORTED["stereo"]
-    for flag in ("lock", "rate", "trace"):
+    for flag in NOT_PORTED:
         if getattr(args, flag):
             return f"--{flag}: " + NOT_PORTED[flag]
     return _not_wav(args.input)
@@ -81,12 +78,14 @@ def cmd_render(args) -> int:
             markers = markers_from_json(f.read())
     t0 = time.perf_counter()
     out = render_session(wav, markers, rate, engine=args.engine,
-                         preserve_formants=args.formant, device=args.device)
+                         preserve_formants=args.formant,
+                         phase_locking=args.lock, device=args.device)
     dt = time.perf_counter() - t0
     write_wav(args.output, out, rate, dtype=args.dtype)
     ch = out.shape[1] if out.ndim == 2 else 1
     detail = ("phase-vocoder"
               + (" formant-preserving" if args.formant else "")
+              + (" phase-locked" if args.lock else "")
               if args.engine == "pv" else "granular")
     print(
         f"rendered {len(out)/rate:.2f}s x{ch}ch @{rate}Hz "

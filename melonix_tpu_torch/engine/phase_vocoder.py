@@ -25,10 +25,15 @@ Formulation for time-VARYING pitch rate ``rho(t) = 2^(bend(t)/12)``:
 The host half (segment table, frame plan, resample anchors) is the JAX
 package's float64 NumPy code, copied.  The device half runs kernels B2, B3
 and B4 on a CUDA tensor and their plain twins on a CPU tensor, in natural
-bin order with 1025-bin phase state.  Formant preservation
+bin order with (size // 2 + 1)-bin phase state.  Formant preservation
 (``preserve_formants``) warps the analysis magnitudes by a cepstral
 envelope gain in PyTorch between B2 and B3, and enters B3 with (mag, phi)
-instead of (re, im).  Identity phase locking is not ported yet.
+instead of (re, im).  Identity phase locking (``phase_locking``,
+:func:`identity_lock`) runs inside B3's synthesis launch.  Frame sizes other
+than B2/B3's 2048 take the JAX package's unfused natural path: B9's frame
+fetch, ``torch.fft.rfft``, B3's phase formulas in torch and the inverse
+rfft + overlap-add.  A multichannel render (:func:`render_channels_pv`)
+shares one plan across its channels.
 """
 
 from __future__ import annotations
@@ -39,10 +44,12 @@ import numpy as np
 import torch
 
 from ..config import DEFAULT_CONFIG, Config
+from ..kernels import frames as kframes
 from ..kernels import pv as kpv
 from ..kernels import resample as kres
+from ..kernels.pv import identity_lock  # noqa: F401  (its engine-level name)
 from .maps import MapKnots
-from .spectral import hann_window, resolve_device
+from .spectral import hann_window, resolve_device, track_on_device
 
 LN2_12 = np.log(2.0) / 12.0
 
@@ -277,29 +284,44 @@ def _chunk_arrays(plan: PVPlan, m0: int, ch: int):
 
 def _stretch_chunk_core(wav, starts_c, da_c, window, m0: int, f_real: int,
                         phi0, resid_in, phi_prev, *, size: int, hop: int,
-                        rho_c=None, formant: bool = False, n_ceps: int = 40):
+                        rho_c=None, formant: bool = False, n_ceps: int = 40,
+                        lock: bool = False):
     """Unnormalized OLA contribution of frames [m0, m0+f_real) plus carried
     phase state ``(y_c, resid_last, phi_last, phi0_eff)``.
 
     The phase prefix sum carries across chunks (``resid_in``) and OLA
     overlaps add linearly, so chunking matches a one-shot stretch up to the
     float32 rounding of the running phase sum — no phase resets, no
-    crossfades.  Frame starts are int32 (exact at any
-    track length).  Analysis is B2 and the phase/synthesis/OLA chain B3 on
-    a CUDA tensor; their plain twins on a CPU tensor.  With ``formant`` the
-    magnitudes are warped by :func:`_formant_gain` at the chunk's per-frame
-    pitch rates ``rho_c`` and B3 takes ``(mag, phi)``.
+    crossfades.  Frame starts are int32 (exact at any track length).  At
+    2048-point frames analysis is B2 and the phase/lock/synthesis/OLA chain
+    B3 on a CUDA tensor, their plain twins on a CPU tensor.  Other sizes take
+    the JAX package's unfused natural path on any device: the frame fetch
+    (B9 for the shapes ``kframes.supported`` takes, a gather otherwise),
+    ``torch.fft.rfft``, and B3's formulas in torch (its plain twin, with an
+    inverse rfft and overlap-add).  With ``formant`` the magnitudes are
+    warped by :func:`_formant_gain` at the chunk's per-frame pitch rates
+    ``rho_c`` and B3 takes ``(mag, phi)``.  With ``lock`` the synthesis
+    phases are identity-locked (:func:`identity_lock`, peaks picked on the
+    warped magnitudes): a per-frame transform, no carried state.
     """
-    re, im = kpv.analysis(wav, starts_c, window, size)
+    if size == kpv.FFT_N:
+        re, im = kpv.analysis(wav, starts_c, window, size)
+        synth = kpv.synth_ola_phase
+    else:
+        fetch = (kframes.extract_frames if kframes.supported(size, len(starts_c))
+                 else kframes.extract_frames_plain)
+        spec = torch.fft.rfft(fetch(wav, starts_c, size) * window[None, :])
+        re, im = spec.real, spec.imag
+        synth = kpv.synth_ola_phase_plain
     if not formant:
-        return kpv.synth_ola_phase(re, im, da_c, window, m0, f_real, phi0,
-                                   resid_in, phi_prev, size, hop, cart=True)
+        return synth(re, im, da_c, window, m0, f_real, phi0, resid_in,
+                     phi_prev, size, hop, cart=True, lock=lock)
     mag = torch.sqrt(re * re + im * im)
     phi = torch.atan2(im, re)
     del re, im
     mag.mul_(_formant_gain(mag, rho_c, size, n_ceps))
-    return kpv.synth_ola_phase(mag, phi, da_c, window, m0, f_real, phi0,
-                               resid_in, phi_prev, size, hop, cart=False)
+    return synth(mag, phi, da_c, window, m0, f_real, phi0, resid_in, phi_prev,
+                 size, hop, cart=False, lock=lock)
 
 
 def _formant_gain(mag, rho_m, size: int, n_ceps: int = 40):
@@ -416,33 +438,24 @@ def render_track_pv(
     to the tensor's own device, or to ``"cuda"`` for NumPy input (there is
     no fallback: CUDA absent raises).  ``device_out`` returns the render as
     a tensor on that device instead of a NumPy array.  ``preserve_formants``
-    keeps the spectral envelope (the timbre) in place while the pitch moves.
+    keeps the spectral envelope (the timbre) in place while the pitch moves;
+    ``phase_locking`` locks each bin's phase to its nearest spectral peak
+    (Laroche-Dolson identity locking, the cure for phasiness).
     """
-    if phase_locking:
-        raise NotImplementedError(
-            "phase_locking: identity phase locking is not ported yet "
-            "(ROADMAP queue A, item 7)"
-        )
-    if isinstance(wav, torch.Tensor):
-        dev = resolve_device(wav.device if device is None else device)
-        if wav.device != dev:
-            raise ValueError(f"wav is on {wav.device}, render asked for {dev}")
-        wav_dev = wav.to(torch.float32).contiguous()
-    else:
-        dev = resolve_device("cuda" if device is None else device)
-        wav_dev = torch.from_numpy(np.asarray(wav, np.float32)).to(dev)
+    wav_dev = track_on_device(wav, device)
+    dev = wav_dev.device
     n_wav = int(wav_dev.shape[0])
     plan = build_pv_plan(knots, n_wav, config=config, size=size, hop=hop)
     if plan is None:
         n_out = max(int(knots.duration() * knots.sample_rate), 0)
         zeros = torch.zeros(n_out, dtype=torch.float32, device=dev)
         return zeros if device_out else zeros.cpu().numpy()
-    return _render_with_plan(wav_dev, plan, preserve_formants,
+    return _render_with_plan(wav_dev, plan, preserve_formants, phase_locking,
                              device_out=device_out)
 
 
 def _render_with_plan(wav_dev, plan: PVPlan, preserve_formants: bool = False,
-                      device_out: bool = False):
+                      phase_locking: bool = False, device_out: bool = False):
     """One channel through a PVPlan: chunked stretch, OLA normalisation,
     variable-rate resample, all on the device of ``wav_dev``."""
     dev = wav_dev.device
@@ -469,7 +482,7 @@ def _render_with_plan(wav_dev, plan: PVPlan, preserve_formants: bool = False,
             phi0, resid, phi_prev, size=size, hop=hop,
             rho_c=torch.from_numpy(rho_c).to(dev) if preserve_formants
             else None,
-            formant=preserve_formants,
+            formant=preserve_formants, lock=phase_locking,
         )
         y = y_c if one_chunk else _accum_at(y, y_c, m0 * hop)
 
@@ -477,3 +490,33 @@ def _render_with_plan(wav_dev, plan: PVPlan, preserve_formants: bool = False,
     y = y[:stretch_len].div_(_ola_wsum(win, size, hop, n_frames, stretch_len))
     out = _resample_pv_fused(plan, y)[: plan.n_out]
     return out if device_out else out.cpu().numpy()
+
+
+def render_channels_pv(
+    wav_ch,
+    knots: MapKnots,
+    *,
+    config: Config = DEFAULT_CONFIG,
+    size: int | None = None,
+    hop: int | None = None,
+    preserve_formants: bool = False,
+    phase_locking: bool = False,
+    device=None,
+) -> np.ndarray:
+    """(C, n) channels through ONE shared PV plan: the edit model is
+    channel-independent, so the host plan is built once and each channel
+    runs :func:`_render_with_plan` on ``device`` (default ``"cuda"``; no
+    fallback), the JAX package's single-chip route
+    (``phase_vocoder.py:1079-1089``).  Returns (C, n_out) float32."""
+    wav_ch = np.asarray(wav_ch, np.float32)
+    n_ch, n_wav = wav_ch.shape
+    dev = resolve_device("cuda" if device is None else device)
+    plan = build_pv_plan(knots, n_wav, config=config, size=size, hop=hop)
+    if plan is None:
+        n_out = max(int(knots.duration() * knots.sample_rate), 0)
+        return np.zeros((n_ch, n_out), np.float32)
+    return np.stack([
+        _render_with_plan(track_on_device(wav_ch[c], dev), plan,
+                          preserve_formants, phase_locking)
+        for c in range(n_ch)
+    ])

@@ -5,8 +5,9 @@ The reference is strictly mono: libswresample downmixes on import
 (app.cpp:669-684).  Sessions keep their channels: the *edit model* (grain
 boundaries, time-warp map) is derived from the mono downmix so every
 channel splices at the same sample positions — a coherent stereo image —
-while the samples rendered come from each channel.  Multichannel PV and
-multi-device meshes are not ported yet.
+while the samples rendered come from each channel.  A multichannel PV
+session renders every channel against one shared PV plan
+(:func:`render_channels_pv`).  Multi-device meshes are not ported yet.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ from ..config import DEFAULT_CONFIG, Config
 from ..io.audio import downmix_mono
 from .grains import build_grain_table
 from .maps import MapKnots
-from .phase_vocoder import render_track_pv
+from .phase_vocoder import render_channels_pv, render_track_pv
 from .render import build_render_plan, render
 
 
@@ -53,15 +54,17 @@ def render_session(
     knots = MapKnots.from_markers(markers, sample_rate, len(mono))
 
     if engine == "pv":
-        if multi:
-            raise NotImplementedError(
-                "multichannel phase-vocoder sessions are not ported yet "
-                "(ROADMAP queue A, item 8)"
+        if not multi:
+            return render_track_pv(
+                mono, knots, config=config,
+                preserve_formants=preserve_formants,
+                phase_locking=phase_locking, device=device,
             )
-        return render_track_pv(
-            mono, knots, config=config, preserve_formants=preserve_formants,
+        out = render_channels_pv(
+            wav.T, knots, config=config, preserve_formants=preserve_formants,
             phase_locking=phase_locking, device=device,
         )
+        return np.ascontiguousarray(out.T)
 
     table = build_grain_table(mono, config)
     plan = build_render_plan(table, knots, config=config)

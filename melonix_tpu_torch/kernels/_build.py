@@ -52,9 +52,9 @@ SIGNATURES = {
     # wav, n, starts, win, tw, re, im, n_frames, stream
     "mlx_pv_analysis": (_P, _L, _P, _P, _P, _P, _P, _I, _P),
     # re, im, da, win, tw, phi0, resid_in, phi_prev,
-    # s_re, s_im, frames, y, resid_last, phi_last, phi0_eff,
-    # n_frames, m0, f_real, hop, cart, stream
-    "mlx_pv_synth_ola_phase": (_P,) * 15 + (_I, _I, _I, _I, _I, _P),
+    # s_re, s_im, s_phi, frames, y, resid_last, phi_last, phi0_eff,
+    # n_frames, m0, f_real, hop, cart, lock, stream
+    "mlx_pv_synth_ola_phase": (_P,) * 16 + (_I,) * 6 + (_P,),
     # y, n_src, base, a0, cnt, anc_j, anc_src, anc_r, anc_s, n_anc,
     # out, n_out, sr, stream
     "mlx_resample_pv": (_P, _L, _P, _P, _P, _P, _P, _P, _P, _I, _P, _L, _I, _P),
@@ -70,6 +70,10 @@ SIGNATURES = {
                                 _I, _P),
     # wav, n, tw, ac, w, n_frames, hop, stream
     "mlx_pitch_ac": (_P, _L, _P, _P, _P, _I, _I, _P),
+    # wav, n, starts, out, n_frames, size, stream
+    "mlx_extract_frames": (_P, _L, _P, _P, _I, _I, _P),
+    # y, n_src, pos, base, out, n_out, rows, stream
+    "mlx_resample_lerp": (_P, _L, _P, _P, _P, _L, _I, _P),
 }
 
 

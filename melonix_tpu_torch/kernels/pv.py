@@ -9,7 +9,10 @@ keep natural bin order and the 1025-bin half spectrum throughout.
 Each wrapper takes the device of its input: a CUDA tensor launches the
 kernel (or raises), a CPU tensor runs the ``*_plain`` twin, anything else
 raises.  The twins are the CPU path and the reference the kernels are held
-to on the card; nothing on the CUDA main path calls them.
+to on the card.  B2/B3 take 2048-point frames only; the phase vocoder at
+other frame sizes runs the natural-order formulas of
+:func:`synth_ola_phase_plain` on any device (as the JAX package runs XLA
+there, ``engine.phase_vocoder._stretch_chunk_core``).
 """
 
 from __future__ import annotations
@@ -31,8 +34,9 @@ def _no_size(size: int) -> NotImplementedError:
     return NotImplementedError(
         f"B1-B3 (B3's (re, im) and (mag, phi) entries alike) take size "
         f"{FFT_N}, got {size}: for the |STFT| at other sizes use "
-        "engine.spectral.stft_mags_device (B12); the PV path at other sizes "
-        "needs B9 (ROADMAP queue B), not ported yet"
+        "engine.spectral.stft_mags_device (B12); the phase vocoder takes "
+        "other sizes through engine.phase_vocoder (B9 and the natural-order "
+        "formulas of synth_ola_phase_plain)"
     )
 
 
@@ -142,13 +146,44 @@ analysis.launches = 0
 
 
 # ----------------------------------------------------------------------
-# B3: phase propagation + synthesis + overlap-add
+# B3: phase propagation + (identity locking) + synthesis + overlap-add
 # ----------------------------------------------------------------------
+
+
+def identity_lock(psi, phi, mag):
+    """Laroche-Dolson identity phase locking in natural bin order: the plain
+    twin of B3's ``lock=True`` (the TPU's ``_lock_psis``) and a copy of
+    ``melonix_tpu/engine/phase_vocoder.py:identity_lock``.
+
+    A bin is a peak when ``mag > 0``, strictly above bins k-1 and k-2 and at
+    least bins k+1 and k+2 (edges compare against -1).  Each bin takes the
+    region constant ``theta = psi - phi`` of its nearest peak (the lower one
+    on a tie) and returns ``phi + theta_peak``; a frame with no peak returns
+    ``phi + (psi - phi)``.  (F, n_bins) in, locked psi out; the nearest peaks
+    come from a running max / min of peak indices along the bin axis.
+    """
+    n = mag.shape[-1]
+    k = torch.arange(n, device=mag.device)
+    edge = torch.full(mag.shape[:-1] + (2,), -1.0, dtype=mag.dtype,
+                      device=mag.device)
+    m = torch.cat([edge, mag, edge], dim=-1)  # m[..., k + 2] = mag[..., k]
+    peak = ((mag > 0.0) & (mag > m[..., 1 : n + 1]) & (mag > m[..., :n])
+            & (mag >= m[..., 3 : n + 3]) & (mag >= m[..., 4:]))
+    theta = psi - phi
+    far = 1 << 30
+    pos_f = torch.cummax(torch.where(peak, k, -1), dim=-1).values
+    pos_b = torch.cummin(torch.where(peak, k, far).flip(-1),
+                         dim=-1).values.flip(-1)
+    d_f = torch.where(pos_f >= 0, k - pos_f, far)
+    d_b = torch.where(pos_b < far, pos_b - k, far)
+    th_near = torch.where(d_f <= d_b, theta.gather(-1, pos_f.clamp_min(0)),
+                          theta.gather(-1, pos_b.clamp_max(n - 1)))
+    return phi + torch.where(torch.minimum(d_f, d_b) < far, th_near, theta)
 
 
 def synth_ola_phase_plain(a, b, da, window, m0: int, f_real: int, phi0,
                           resid_in, phi_prev, size: int, hop: int,
-                          cart: bool = True):
+                          cart: bool = True, lock: bool = False):
     """One stretch chunk from its natural-order analysis spectrum: ``(a, b)``
     is ``(re, im)`` with ``cart`` (the default here; the TPU kernel's default
     is the other entry) and ``(mag, phi)`` without, as the formant path
@@ -156,10 +191,12 @@ def synth_ola_phase_plain(a, b, da, window, m0: int, f_real: int, phi0,
 
     Formulas of ``melonix_tpu/engine/phase_vocoder.py:_stretch_chunk_core``
     (natural path): princarg residual against omega * da, prefix sum over
-    frames from ``resid_in``, exact int mod-size ramp, live-frame mask,
-    inverse rfft, window and overlap-add.  Returns ``(y, resid_last,
-    phi_last, phi0_eff)``: the unnormalised OLA signal of length
-    ``(F - 1) * hop + size`` and the carries of frame ``f_real - 1``.
+    frames from ``resid_in``, exact int mod-size ramp, with ``lock``
+    :func:`identity_lock` on the unmasked magnitudes, live-frame mask,
+    inverse rfft, window and overlap-add (``istft_device`` without
+    normalisation).  Any frame size.  Returns ``(y, resid_last, phi_last,
+    phi0_eff)``: the unnormalised OLA signal of length ``(F - 1) * hop +
+    size`` and the carries of frame ``f_real - 1``.
     """
     dev = a.device
     f, n_bins = a.shape
@@ -181,6 +218,8 @@ def synth_ola_phase_plain(a, b, da, window, m0: int, f_real: int, phi0,
     ramp = ((hm[:, None] * k_idx[None, :]) % size).to(torch.float32) * step
     phi0_eff = phi[0] if m0 == 0 else phi0
     psi = phi0_eff[None, :] + ramp + resid
+    if lock:
+        psi = identity_lock(psi, phi, mag)
     live = (torch.arange(f, device=dev) < f_real)[:, None]
     mag_live = torch.where(live, mag, torch.zeros((), device=dev))
     t = torch.fft.irfft(torch.polar(mag_live, psi), n=size) * window[None, :]
@@ -194,14 +233,16 @@ def synth_ola_phase_plain(a, b, da, window, m0: int, f_real: int, phi0,
 
 
 def synth_ola_phase(a, b, da, window, m0: int, f_real: int, phi0,
-                    resid_in, phi_prev, size: int, hop: int, cart: bool = True):
+                    resid_in, phi_prev, size: int, hop: int, cart: bool = True,
+                    lock: bool = False):
     """B3 (``csrc/pv_synth_ola_phase.cu``, three launches on one stream);
     contract of :func:`synth_ola_phase_plain`.  ``cart`` picks the phase
-    scan's entry: ``(re, im)`` or ``(mag, phi)``; one wrapper call, one
-    count, either way."""
+    scan's entry, ``(re, im)`` or ``(mag, phi)``, and ``lock`` adds identity
+    locking to the synthesis launch; one wrapper call, one count, either
+    way."""
     if a.device.type == "cpu":
         return synth_ola_phase_plain(a, b, da, window, m0, f_real, phi0,
-                                     resid_in, phi_prev, size, hop, cart)
+                                     resid_in, phi_prev, size, hop, cart, lock)
     dev = _build.cuda_device(a)
     if size != FFT_N:
         raise _no_size(size)
@@ -216,8 +257,10 @@ def synth_ola_phase(a, b, da, window, m0: int, f_real: int, phi0,
                            ("phi0", phi0, (nb,)), ("resid_in", resid_in, (nb,)),
                            ("phi_prev", phi_prev, (nb,))):
         _build.require(t, name, f32, shape, dev)
-    s_re = torch.empty((f, nb), dtype=f32, device=dev)  # scratch
-    s_im = torch.empty_like(s_re)  # scratch
+    # scratch: the scan's half spectrum, or with lock (mag, psi) and phi
+    s_re = torch.empty((f, nb), dtype=f32, device=dev)
+    s_im = torch.empty_like(s_re)
+    s_phi = torch.empty_like(s_re) if lock else None
     frames = torch.empty((f, size), dtype=f32, device=dev)  # scratch
     y = torch.empty(((f - 1) * hop + size,), dtype=f32, device=dev)
     resid_last = torch.empty((nb,), dtype=f32, device=dev)
@@ -228,8 +271,11 @@ def synth_ola_phase(a, b, da, window, m0: int, f_real: int, phi0,
         err = lib.mlx_pv_synth_ola_phase(
             *(t.data_ptr() for t in (
                 a, b, da, window, twiddles(dev), phi0, resid_in, phi_prev,
-                s_re, s_im, frames, y, resid_last, phi_last, phi0_eff)),
-            f, int(m0), int(f_real), hop, int(bool(cart)),
+                s_re, s_im)),
+            s_phi.data_ptr() if lock else None,
+            *(t.data_ptr() for t in (
+                frames, y, resid_last, phi_last, phi0_eff)),
+            f, int(m0), int(f_real), hop, int(bool(cart)), int(bool(lock)),
             _build.stream(dev),
         )
     _build.check("synth_ola_phase", err)

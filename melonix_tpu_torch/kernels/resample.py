@@ -1,13 +1,16 @@
-"""Variable-rate PV resample: kernel B4 and its plain PyTorch twin.
+"""Variable-rate resamples: kernels B4 and B11 and their plain PyTorch twins.
 
 Counterpart of ``melonix_tpu/kernels/pallas_resample.py``.  Positions are
 **block-relative**: an int32 source base per 2048-sample output block (host
-float64, with slack) plus a small float32 offset evaluated from the block's
-piecewise-analytic anchors.  Absolute float32 positions would lose
-sub-sample precision past 2^23 source samples (~3 min at 44.1 kHz).
+float64, with slack) plus a small float32 offset.  Absolute float32
+positions would lose sub-sample precision past 2^23 source samples (~3 min
+at 44.1 kHz).
 
-``resample_pv`` launches ``csrc/resample_pv.cu`` for CUDA tensors and runs
-``resample_pv_plain`` for CPU tensors.
+``resample_pv`` (B4, ``csrc/resample_pv.cu``) evaluates the offsets from
+the block's piecewise-analytic anchors, the offline PV render's tail;
+``resample_lerp`` (B11, ``csrc/resample_lerp.cu``) takes them as given,
+every read of the live ``PvStream``.  Each launches its kernel for CUDA
+tensors and runs its ``*_plain`` twin for CPU tensors.
 """
 
 from __future__ import annotations
@@ -30,6 +33,14 @@ def expm1_precise(x: torch.Tensor) -> torch.Tensor:
     for k in (8.0, 7.0, 6.0, 5.0, 4.0, 3.0, 2.0):
         p = 1.0 + x * p / k
     return torch.where(x.abs() <= 0.7, x * p, torch.exp(x) - 1.0)
+
+
+def rows_for(max_rate: float) -> int:
+    """Slab rows (of 128 samples) covering one block's span at ``max_rate``
+    plus guards (``pallas_resample.rows_for``): B11's bound on a relative
+    position is ``rows * 128 - 2``."""
+    span = int(BLK * max(max_rate, 0.01)) + 2 * SLACK + 256
+    return 8 * -(-(span // 128 + 2) // 8)
 
 
 def block_bases(pos_block_starts: np.ndarray, n_src: int) -> np.ndarray:
@@ -69,19 +80,33 @@ def positions_rel_plain(anc_j, anc_src, anc_r, anc_s, sr: int, n_out: int):
     return (anc_src[a] + anc_r[a] * (delta_p * srf - em1)).clamp_min(0.0)
 
 
+def lerp(frac, lo, hi) -> torch.Tensor:
+    """float32 ``(1 - frac) * lo + frac * hi`` rounded as the TPU kernel
+    B11 rounds it in interpret mode on the CPU: one fused multiply-add over
+    the rounded ``frac * hi``.  The first product is exact in float64, so
+    one float64 sum rounded to float32 gives the same value, except where
+    that float64 sum itself rounds onto a float32 tie."""
+    return ((1.0 - frac).double() * lo.double() + (frac * hi).double()).float()
+
+
+def lerp_resample_rel(y, src_rel, base, stretch_len: int) -> torch.Tensor:
+    """(n,) float32 lerp of ``y`` at base[j // BLK] + src_rel[j], indices
+    clamped to [0, stretch_len - 1]
+    (``melonix_tpu/engine/phase_vocoder.py:_lerp_resample_rel_xla``)."""
+    b = base.to(torch.int64).repeat_interleave(BLK)[: src_rel.shape[0]]
+    rel = torch.floor(src_rel)
+    frac = src_rel - rel
+    i0 = b + rel.to(torch.int64)
+    return lerp(frac, y[i0.clamp(0, stretch_len - 1)],
+                y[(i0 + 1).clamp(0, stretch_len - 1)])
+
+
 def resample_pv_plain(y, base, anc_j, anc_src, anc_r, anc_s, sr: int,
                       n_out: int) -> torch.Tensor:
-    """(n_out,) float32 lerp of ``y`` at base[j // BLK] + position, indices
-    clamped to [0, len(y) - 1] (``_lerp_resample_rel_xla``)."""
+    """(n_out,) float32: :func:`positions_rel_plain`, then
+    :func:`lerp_resample_rel` over the whole of ``y``."""
     pos = positions_rel_plain(anc_j, anc_src, anc_r, anc_s, sr, n_out)
-    b = base.to(torch.int64).repeat_interleave(BLK)[:n_out]
-    rel = torch.floor(pos)
-    frac = pos - rel
-    i0 = b + rel.to(torch.int64)
-    last = y.shape[0] - 1
-    lo = y[i0.clamp(0, last)]
-    hi = y[(i0 + 1).clamp(0, last)]
-    return (1.0 - frac) * lo + frac * hi
+    return lerp_resample_rel(y, pos, base, y.shape[0])
 
 
 def resample_pv(y, base, a0, cnt, anc_j, anc_src, anc_r, anc_s, sr: int,
@@ -120,3 +145,49 @@ def resample_pv(y, base, a0, cnt, anc_j, anc_src, anc_r, anc_s, sr: int,
 
 
 resample_pv.launches = 0
+
+
+def resample_lerp_plain(y, pos, base, rows: int) -> torch.Tensor:
+    """(n_out,) float32 lerp at block-relative positions, the TPU kernel's
+    contract (``pallas_resample.resample_lerp_pallas``): r = floor(pos),
+    rel = clip(r, 0, rows * 128 - 2), g[i] = y[base[j // BLK] + i] (0 past
+    the end), out = :func:`lerp` of g[rel] and g[rel + 1]."""
+    n = y.shape[0]
+    fl = torch.floor(pos)
+    frac = pos - fl
+    rel = fl.clamp(0, rows * 128 - 2).to(torch.int64)
+    i0 = base.to(torch.int64).repeat_interleave(BLK)[: pos.shape[0]] + rel
+
+    def tap(i):
+        return torch.where(i < n, y[i.clamp_max(n - 1)], 0.0)
+
+    return lerp(frac, tap(i0), tap(i0 + 1))
+
+
+def resample_lerp(y, pos, base, rows: int) -> torch.Tensor:
+    """B11 (``csrc/resample_lerp.cu``): contract of
+    :func:`resample_lerp_plain`; ``len(pos)`` is a multiple of BLK and
+    ``base`` holds one int32 per block."""
+    if y.device.type == "cpu":
+        return resample_lerp_plain(y, pos, base, rows)
+    dev = _build.cuda_device(y)
+    n_out = pos.shape[0]
+    if n_out % BLK != 0 or rows < 1:
+        raise ValueError(f"n_out {n_out} (a multiple of {BLK}), rows {rows}")
+    if y.shape[0] == 0:
+        raise ValueError("empty source")
+    _build.require(y, "y", torch.float32, (y.shape[0],), dev)
+    _build.require(pos, "pos", torch.float32, (n_out,), dev)
+    _build.require(base, "base", torch.int32, (n_out // BLK,), dev)
+    out = torch.empty((n_out,), dtype=torch.float32, device=dev)
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        err = lib.mlx_resample_lerp(y.data_ptr(), y.shape[0], pos.data_ptr(),
+                                    base.data_ptr(), out.data_ptr(), n_out,
+                                    int(rows), _build.stream(dev))
+    _build.check("resample_lerp", err)
+    resample_lerp.launches += 1
+    return out
+
+
+resample_lerp.launches = 0

@@ -1,8 +1,10 @@
-"""ctypes bindings to the native C++ host runtime: grain chain and render plan.
+"""ctypes bindings to the native C++ host runtime: grain chain, render plan
+and the playback ring.
 
 Counterpart of ``melonix_tpu/runtime/native.py``, limited to
 ``mlx_build_grains`` and ``mlx_build_plan`` (the granular export's host
-half).  The library is built from ``native/melonix_native.cpp`` alone with
+half) and ``mlx_ring_*`` (:class:`Ring`, the live player's backlog).  The
+library is built from ``native/melonix_native.cpp`` alone with
 ``g++ -O3 -std=c++20 -fPIC -shared`` (the flags of ``native/Makefile``) into
 ``build/native/libmelonix_torch_native.so`` at first use, and rebuilt when
 the hash of the source and flags changes.  A library that ``make -C native``
@@ -106,6 +108,62 @@ def _declare(lib: ctypes.CDLL) -> None:
         ctypes.c_int64,  # cap
         i32p,  # tail_zeros
     ]
+
+    vp = ctypes.c_void_p
+    lib.mlx_ring_new.restype = vp
+    lib.mlx_ring_new.argtypes = [ctypes.c_int64]
+    lib.mlx_ring_free.restype = None
+    lib.mlx_ring_free.argtypes = [vp]
+    lib.mlx_ring_avail.restype = ctypes.c_int64
+    lib.mlx_ring_avail.argtypes = [vp]
+    lib.mlx_ring_write.restype = ctypes.c_int64
+    lib.mlx_ring_write.argtypes = [vp, f32p, ctypes.c_int64]
+    lib.mlx_ring_read.restype = ctypes.c_int64
+    lib.mlx_ring_read.argtypes = [vp, f32p, ctypes.c_int64]
+    lib.mlx_ring_clear.restype = None
+    lib.mlx_ring_clear.argtypes = [vp]
+
+
+class Ring:
+    """Lock-free single-producer single-consumer float32 ring
+    (``mlx_ring_*``): the render producer and the audio-callback consumer
+    never contend.  ``clear`` may come from any thread; the consumer applies
+    it at its next ``avail``/``read``.  A write that does not fit raises:
+    losing audio must be loud."""
+
+    def __init__(self, lib: ctypes.CDLL, capacity: int):
+        self._lib = lib
+        self._h = lib.mlx_ring_new(capacity)
+
+    def avail(self) -> int:
+        return int(self._lib.mlx_ring_avail(self._h))
+
+    __len__ = avail
+
+    def write(self, chunk: np.ndarray) -> None:
+        chunk = np.ascontiguousarray(chunk, np.float32)
+        wrote = int(self._lib.mlx_ring_write(
+            self._h, chunk.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+            len(chunk)))
+        if wrote != len(chunk):
+            raise RuntimeError(
+                f"playback ring overflow: wrote {wrote}/{len(chunk)} samples")
+
+    def read(self, n: int) -> np.ndarray:
+        out = np.zeros(n, np.float32)
+        got = int(self._lib.mlx_ring_read(
+            self._h, out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), n))
+        return out[:got]
+
+    def clear(self) -> None:
+        self._lib.mlx_ring_clear(self._h)
+
+    def close(self) -> None:
+        if getattr(self, "_h", None) is not None:
+            self._lib.mlx_ring_free(self._h)
+            self._h = None
+
+    __del__ = close
 
 
 def build_plan(lib: ctypes.CDLL, grains, knots, start_cursor: float, min_out,

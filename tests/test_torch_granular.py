@@ -333,6 +333,18 @@ def test_render_track_device_out_keeps_the_tensor(chirp):
 # ----------------------------------------------------------------------
 
 
+def _assert_pv_close(got, want):
+    """The JAX suite's PV convention (test_pallas.py:473-523): equal length,
+    rms < 5e-3 of the peak, spectral-envelope error < 2e-2."""
+    assert len(got) == len(want)
+    scale = float(np.abs(want).max())
+    assert float(np.sqrt(np.mean((got - want) ** 2))) < 5e-3 * scale
+    nseg = len(want) // 2048
+    f_g = np.abs(np.fft.rfft(got[: nseg * 2048].reshape(nseg, 2048), axis=1))
+    f_w = np.abs(np.fft.rfft(want[: nseg * 2048].reshape(nseg, 2048), axis=1))
+    assert np.abs(f_g - f_w).max() / f_w.max() < 2e-2
+
+
 def _stereo(chirp):
     x, _sr = chirp
     noise = np.random.default_rng(11).standard_normal(len(x)) * 0.01
@@ -371,11 +383,30 @@ def test_mono_sessions_match_render_track(chirp):
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"engine": "pv", "stereo": True}, "item 8"),
     ({"mesh": object()}, "item 15"),
 ])
 def test_unported_session_options_raise(chirp, kw, item):
     x, sr = chirp
-    wav = _stereo(chirp) if kw.pop("stereo", False) else x
     with pytest.raises(NotImplementedError, match=item):
-        mt.render_session(wav, [], sr, device="cpu", **kw)
+        mt.render_session(x, [], sr, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("lock", [False, True])
+def test_ported_session_options_stereo_pv_matches_jax(chirp, lock):
+    """A stereo phase-vocoder session (once unported): (n, 2) out, each
+    channel against JAX's by the PV convention and equal to its own mono
+    render through the shared plan."""
+    _x, sr = chirp
+    st = _stereo(chirp)
+    markers = MARKER_CASES[3]
+    got = mt.render_session(st, [mt.Marker(*m) for m in markers], sr,
+                            engine="pv", phase_locking=lock, device="cpu")
+    want = j_render_session(st, [JMarker(*m) for m in markers], sr,
+                            engine="pv", phase_locking=lock, mesh=None)
+    assert got.shape == want.shape and got.shape[1] == 2
+    _jk, pk = _knots(markers, sr, len(st))
+    for c in range(2):
+        _assert_pv_close(got[:, c], want[:, c])
+        np.testing.assert_array_equal(
+            got[:, c], mt.render_track_pv(np.ascontiguousarray(st[:, c]), pk,
+                                          phase_locking=lock, device="cpu"))

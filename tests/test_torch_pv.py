@@ -178,11 +178,15 @@ def test_short_track_renders_silence_like_jax():
     assert np.array_equal(got, want) and not got.any()
 
 
-@pytest.mark.parametrize("option", ["phase_locking"])
-def test_unported_render_options_raise(option):
-    _jk, pk = _knots(_markers(1))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mt.render_track_pv(_song(), pk, device="cpu", **{option: True})
+@pytest.mark.parametrize("count", [1, 9])
+def test_ported_render_options_phase_locking_matches_jax(count):
+    """Identity phase locking (once an unported option): the port's render
+    against JAX's, by the PV convention."""
+    w = _song()
+    jk, pk = _knots(_markers(count))
+    want = np.asarray(jpv.render_track_pv(w, jk, phase_locking=True))
+    got = mt.render_track_pv(w, pk, device="cpu", phase_locking=True)
+    _assert_pv_close(got, want)
 
 
 @pytest.mark.parametrize("count", [1, 9])
@@ -239,6 +243,33 @@ def test_cli_ported_flags_formant_matches_jax_cli(tmp_path, capsys):
     _assert_pv_close(got, want)
 
 
+@pytest.mark.parametrize("extra,label", [
+    (["--lock"], "phase-locked"),
+    (["--stereo"], "x2ch"),
+    (["--stereo", "--lock", "--formant"], "phase-locked"),
+])
+def test_cli_ported_flags_lock_stereo_match_jax_cli(tmp_path, capsys, extra,
+                                                    label):
+    """``render --engine pv`` with ``--lock`` and/or ``--stereo`` (once
+    unported flags) against the JAX CLI's, float32 output, by the PV
+    convention on each channel."""
+    wav_path, markers_path = _cli_files(tmp_path, channels=2)
+    out_t, out_j = str(tmp_path / "t.wav"), str(tmp_path / "j.wav")
+    flags = ["--engine", "pv", "--dtype", "float32", *extra]
+    assert t_main(["render", wav_path, "--markers", markers_path, "-o", out_t,
+                   "--device", "cpu", *flags]) == 0
+    assert label in capsys.readouterr().out
+    assert j_main(["render", wav_path, "--markers", markers_path, "-o", out_j,
+                   *flags]) == 0
+    got, rate = mt.read_wav(out_t)
+    want, rate_j = j_read_wav(out_j)
+    assert rate == rate_j == SR and got.shape == want.shape
+    assert got.ndim == (2 if "--stereo" in extra else 1)
+    for c in range(got.shape[1] if got.ndim == 2 else 1):
+        _assert_pv_close(got[:, c] if got.ndim == 2 else got,
+                         want[:, c] if want.ndim == 2 else want)
+
+
 @pytest.mark.parametrize("stereo", [False, True])
 def test_cli_render_granular_matches_jax_cli(tmp_path, capsys, stereo):
     """The default engine (granular), mono downmix or --stereo: float32
@@ -270,9 +301,7 @@ def test_cli_render_granular_matches_jax_cli(tmp_path, capsys, stereo):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--engine", "pv", "--stereo"],
-    ["--engine", "pv", "--lock"], ["--engine", "pv", "--rate", "16000"],
-    ["--engine", "pv", "--trace", "tr"],
+    ["--engine", "pv", "--rate", "16000"], ["--engine", "pv", "--trace", "tr"],
 ])
 def test_cli_unported_flags_exit_nonzero(tmp_path, capsys, extra):
     wav_path, _m = _cli_files(tmp_path)
