@@ -38,6 +38,7 @@ import dataclasses
 import importlib.util
 import json
 import os
+import socket
 import subprocess
 import sys
 import tempfile
@@ -442,6 +443,234 @@ def live_pv_sustained(mt, seconds: float = 15.0) -> dict:
     wall = time.perf_counter() - t0
     return {"live_pv_underruns": under, "live_pv_x_realtime": audio / wall,
             "live_pv_worst_lag_ms": 1e3 * worst}
+
+
+def rms_rel_env(got: np.ndarray, want: np.ndarray, sr: int) -> tuple:
+    """(rms(got - want) / rms(want), worst quarter-second spectral-envelope
+    error): the seq-parallel PV bars of the JAX suite
+    (test_parallel.py:219-231; bars 2e-3 and 0.02)."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    rms = float(np.sqrt(np.mean((got - want) ** 2))
+                / (np.sqrt(np.mean(want ** 2)) + 1e-12))
+    win_n, worst = sr // 4, 0.0
+    for w0 in range(0, len(want) - win_n, win_n):
+        a = np.abs(np.fft.rfft(want[w0 : w0 + win_n] * np.hanning(win_n)))
+        b = np.abs(np.fft.rfft(got[w0 : w0 + win_n] * np.hanning(win_n)))
+        worst = max(worst, float(np.sqrt(np.sum((a - b) ** 2))
+                                 / (np.sqrt(np.sum(a ** 2)) + 1e-12)))
+    return rms, worst
+
+
+def pv_sum_order_render(mt, x: np.ndarray, markers, dev,
+                        split: int | None = None) -> np.ndarray:
+    """The PV render of ``x`` by the seq-parallel path's formulas in torch
+    on ``dev`` (the path's own analysis, B2 on CUDA, whose float32 rounding
+    carried through thousands of frames of phase sums would otherwise be
+    read as the sum's; B10's twin, the masked normaliser, the path's
+    positions and lerp), its phase sum formed in a chosen order:
+    ``split=None`` sums the increments exactly (float64, rounded once to
+    float32), the reference the sharded sum is held to; ``split=s`` sums
+    frames [0, s) and [s, F) each from zero in float32 and adds the first
+    part's total to the second (the JAX package's two-rank order);
+    ``split=0`` is one serial float32 sum (the single render's order, B3's
+    scan)."""
+    import torch
+
+    from melonix_tpu_torch.engine import phase_vocoder as pv
+    from melonix_tpu_torch.engine.spectral import hann_window
+    from melonix_tpu_torch.kernels import pv as kpv
+    from melonix_tpu_torch.kernels import resample as kres
+    from melonix_tpu_torch.parallel import sharded
+
+    plan = pv.build_pv_plan(mt.MapKnots.from_markers(markers, SR, len(x)),
+                            len(x))
+    kw, (starts, da, _rho, f_real, anc_j, src, rr, ss, base) = \
+        sharded.seq_pv_args(plan, 1)
+    size, hop, n_f, fr = kw["size"], kw["hop"], kw["n_frames"], int(f_real)
+    mesh = mt.make_audio_mesh(1, device=dev)
+    f32 = torch.float32
+    win = sharded._on(mesh, hann_window(size), f32)
+    re, im = kpv.analysis(sharded._on(mesh, x, f32),
+                          sharded._on(mesh, starts, torch.int32), win, size)
+    mag, phi = torch.sqrt(re * re + im * im), torch.atan2(im, re)
+    del re, im
+    k = torch.arange(size // 2 + 1, device=mag.device)
+    step = float(np.float32(2.0 * np.pi / size))
+    d = sharded._on(mesh, da, f32).clamp_min(1e-3)[:, None]
+    prev = torch.cat([phi[:1], phi[:-1]])  # frame 0's increment is zeroed
+    dphi = torch.remainder(phi - prev - (k.to(f32) * step)[None, :] * d
+                           + kpv.PI, kpv.TWO_PI) - kpv.PI
+    incr = (hop * dphi / d).cpu().numpy()
+    incr[0] = 0.0
+    # NumPy's cumsum adds in sequence at the dtype it is given (torch's, on
+    # the CPU, accumulates float32 in float64)
+    if split is None:
+        resid = np.cumsum(incr, axis=0, dtype=np.float64).astype(np.float32)
+    else:
+        resid = np.cumsum(incr, axis=0, dtype=np.float32)
+        if split:
+            resid[split:] = resid[split - 1] + np.cumsum(
+                incr[split:], axis=0, dtype=np.float32)
+    resid = torch.from_numpy(resid).to(mag.device)
+    m = torch.arange(n_f, device=mag.device)
+    ramp = ((((m * hop) % size)[:, None] * k[None, :]) % size).to(f32)
+    psi = phi[0][None, :] + ramp * step + resid
+    mag = torch.where((m < fr)[:, None], mag, torch.zeros((), device=mag.device))
+    span = n_f * hop
+    y = (kpv.synth_ola_plain(mag, psi, win, size, hop)[:span]
+         / sharded._wsum_masked(win, fr, size, hop, n_f, span))
+    anc = sharded._anchors(mesh, anc_j, src, rr, ss)
+    pos = kres.positions_rel_plain(*anc, plan.sr, kw["n_out_pad"], j0=0)
+    out = kres.lerp_resample_rel(y, pos, sharded._on(mesh, base, torch.int32),
+                                 span)
+    return out[: plan.n_out].cpu().numpy()
+
+
+def snr_np(got, want) -> float:
+    err = np.asarray(got, np.float64) - np.asarray(want, np.float64)
+    return float(10 * np.log10((np.mean(err ** 2) + 1e-30)
+                               / (np.mean(np.asarray(want, np.float64) ** 2)
+                                  + 1e-30)))
+
+
+def batch_jobs(mt, x: np.ndarray):
+    """Four jobs of the serving path at the song's scale: the song with the
+    bench edit, reversed with the edit shifted, its first 120 s with the
+    first six markers, and 0.8 x the song with no edit."""
+    n = len(x)
+    ms = bench_markers(mt, n)
+    shifted = [mt.Marker(sample=m.sample + SR // 3, note=m.note,
+                         d_time=m.d_time, pitch_bend=-m.pitch_bend)
+               for m in ms]
+    tracks = [x, np.ascontiguousarray(x[::-1]), x[: 120 * SR].copy(),
+              (0.8 * x).astype(np.float32)]
+    return tracks, [ms, shifted, ms[:6], []]
+
+
+def rank_main(argv) -> int:
+    """One rank of phase 20's gloo group on the card (the parent runs
+    ``chip_smoke.py --rank R --world W --port P --out DIR`` per rank): the
+    sequence-parallel PV of the song on a (1, W) mesh, the batch of four
+    jobs and a stereo session on a (W, 1) mesh, each rank computing on
+    cuda:0; writes its numbers and rank 0's reference checks to DIR."""
+    import argparse
+
+    import torch
+    import torch.distributed as dist
+
+    ap = argparse.ArgumentParser()
+    for flag in ("--rank", "--world", "--port"):
+        ap.add_argument(flag, type=int, required=True)
+    ap.add_argument("--out", required=True)
+    a = ap.parse_args(argv)
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import melonix_tpu_torch as mt
+    from melonix_tpu_torch.kernels import pv as kpv
+    from melonix_tpu_torch.kernels import resample as kres
+    from melonix_tpu_torch.utils import Timer, registry
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{a.port}",
+                            world_size=a.world, rank=a.rank)
+    seq_mesh = mt.make_audio_mesh(a.world, data=1)
+    data_mesh = mt.make_audio_mesh(a.world, data=a.world)
+    x = make_song(SR, SECONDS)
+    markers = bench_markers(mt, len(x))
+    gather = registry("parallel.gather", Timer)
+    sent = registry("parallel.gather_bytes")
+    counters = (kpv.analysis, kpv.synth_ola, kpv.synth_ola_phase,
+                kres.resample_pv)
+    res = {"rank": a.rank, "kind": torch.cuda.get_device_name(0)}
+
+    def run(label, fn):
+        """fn() once counted and timed (after all ranks arrive), with its
+        kernel launches and all-gathers, then once more under the profiler
+        (device busy and idle share)."""
+        for c in counters:
+            c.launches = 0
+        g_s, g_n, g_b = gather.total, gather.count, sent.value
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        res[label] = {
+            "wall_ms": 1e3 * (time.perf_counter() - t0),
+            "gather_ms": 1e3 * (gather.total - g_s),
+            "gathers": gather.count - g_n, "gather_bytes": sent.value - g_b,
+            "launches": {c.__name__: c.launches for c in counters}}
+        dist.barrier()
+        names, busy, wall = device_profile(fn)
+        top = sorted(names.items(), key=lambda kv: -kv[1])[:6]
+        res[label]["profile"] = {"busy_ms": busy, "wall_ms": wall,
+                                 "top": [[k[:48], v] for k, v in top]}
+        return out
+
+    def seq_pv():
+        return mt.render_session(x, markers, SR, engine="pv", mesh=seq_mesh)
+
+    # warm-up (cuFFT plans, the caching allocator), keeping B10's operands:
+    # this rank's live magnitudes and synthesis phases, held below against
+    # B10's twin on the same inputs
+    b10, seen = kpv.synth_ola, []
+
+    def b10_seen(mag, psi, window, size, hop):
+        y = b10(mag, psi, window, size, hop)
+        seen.append((mag, psi, window, size, hop, y))
+        return y
+
+    b10_seen.launches = 0  # the wrapper counts on the module's name
+    kpv.synth_ola = b10_seen
+    try:
+        seq_pv()
+    finally:
+        kpv.synth_ola = b10
+    (mag, psi, window, size, hop, y), = seen
+    want = kpv.synth_ola_plain(mag, psi, window, size, hop)
+    err = (y.double() - want.double()).square().sum()
+    res["b10_vs_twin"] = {
+        "frames": int(mag.shape[0]),
+        "live": int((mag.abs().amax(dim=1) > 0).sum()),
+        "max_abs_psi": float(psi.abs().max()),
+        "same_shape": y.shape == want.shape,
+        "snr_db": float(10.0 * torch.log10(
+            err.clamp_min(1e-300) / want.double().square().sum())),
+        "max_abs_err": float((y - want).abs().max())}
+    del seen, mag, psi, y, want
+    out = run("seq_pv", seq_pv)
+    np.save(os.path.join(a.out, f"seq_pv_rank{a.rank}.npy"), out)
+
+    tracks, ms_l = batch_jobs(mt, x)
+    for engine in ("granular", "pv"):
+        outs = run(f"batch_{engine}", lambda: mt.render_batch(
+            tracks, ms_l, SR, engine=engine, mesh=data_mesh))
+        if a.rank == 0:
+            errs = []
+            for t, ms, o in zip(tracks, ms_l, outs):
+                want = mt.render_session(t, ms, SR, engine=engine, mesh=None)
+                same_len = o.shape == want.shape
+                if engine == "granular":
+                    errs.append([same_len, float(np.abs(o - want).max()),
+                                 bool(np.array_equal(o == 0.0, want == 0.0))])
+                else:
+                    errs.append([same_len, snr_np(o, want)])
+            res[f"batch_{engine}"]["vs_render_session"] = errs
+    st = np.ascontiguousarray(np.stack([x, 0.8 * x[::-1]], axis=1),
+                              dtype=np.float32)
+    for engine in ("granular", "pv"):
+        got = run(f"stereo_{engine}", lambda: mt.render_session(
+            st, markers, SR, engine=engine, mesh=data_mesh))
+        if a.rank == 0:
+            want = mt.render_session(st, markers, SR, engine=engine,
+                                     mesh=None)
+            res[f"stereo_{engine}"]["vs_no_mesh"] = [
+                got.shape == want.shape, float(np.abs(got - want).max()),
+                bool(np.array_equal(got == 0.0, want == 0.0))]
+    with open(os.path.join(a.out, f"rank{a.rank}.json"), "w") as f:
+        json.dump(res, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
 
 
 def main() -> int:
@@ -1488,7 +1717,281 @@ def main() -> int:
         for _ in range(200):
             s_live.read(1024)
 
-    # -- 18. times (CUDA events, median of 5 after a warm-up) ---------
+    # -- 18. B10 against its twin at the song's shapes ---------------
+    # mag: the song's analysis magnitudes (B2 above); psi: their phases plus
+    # seeded offsets of the size the residual phase sums reach (median
+    # |resid| ~3.4e4 rad, phase 13)
+    mag10 = torch.sqrt(re_k * re_k + im_k * im_k)
+    psi10 = torch.atan2(im_k, re_k) + torch.from_numpy(
+        np.random.default_rng(10).uniform(-4e4, 4e4, tuple(mag10.shape))
+        .astype(np.float32)).to(dev)
+    kpv.synth_ola.launches = 0
+    b10 = lambda: kpv.synth_ola(mag10, psi10, win, size, hop)  # noqa: E731
+    b10p = lambda: kpv.synth_ola_plain(mag10, psi10, win, size, hop)  # noqa: E731
+    got, want = b10(), b10p()
+    torch.cuda.synchronize()
+    s, e = snr_db(got, want), max_err(got, want)
+    b10_calls = kpv.synth_ola.launches
+    print(f"[18] B10 synth_ola ({mag10.shape[0]} frames, |psi| up to 4e4): "
+          f"SNR {s:.1f} dB (bar < -100), max abs err {e:.3e}; launches "
+          f"{b10_calls} (bar 1 a call)", flush=True)
+    check(got.shape == ((mag10.shape[0] - 1) * hop + size,) and s < -100.0,
+          "B10 vs twin")
+    check(b10_calls == 1, f"B10 launches {b10_calls} in one call")
+    spec_b10 = torch.polar(mag10, psi10)
+    record("pv_synth_ola", "melonix_tpu_torch/csrc/pv_synth_ola.cu",
+           "melonix_tpu/kernels/pallas_pv.py:492", e, b10, b10p,
+           lambda: torch.fft.irfft(spec_b10, n=size),
+           nbytes(mag10, psi10, win, got), fft_flops(mag10.shape[0], size))
+    del got, want
+
+    # -- 19. B7 and B12 above 49,152 points: the four-step route -------
+    big = 65536
+    ends65 = np.linspace(big // 2, n - 1, 64).astype(np.int64)
+    cs65, ce65 = put((ends65 - span).astype(np.int32)), put(
+        ends65.astype(np.int32))
+    b7b = lambda: kcols.spectrogram_columns_fused(  # noqa: E731
+        wav, cs65, ce65, kgain, size=big, colormap=False)
+    b7bp = lambda: kcols.spectrogram_columns_plain(  # noqa: E731
+        wav, cs65, ce65, kgain, size=big, colormap=False)
+    mk, mp = b7b(), b7bp()
+    pk = kcols.spectrogram_columns_fused(wav, cs65, ce65, kgain, size=big)
+    pp = kcols.spectrogram_columns_plain(wav, cs65, ce65, kgain, size=big)
+    torch.cuda.synchronize()
+    s7, e7 = snr_db(mk, mp), max_err(mk, mp)
+    eq, dmax = planes_close(unpack_rgb(pk).cpu().numpy(),
+                            unpack_rgb(pp).cpu().numpy())
+    o_end = np.linspace(big, n - 1, 12).astype(np.int64)
+    cfg65 = dataclasses.replace(cfg, spectr_size=big)
+    kcols.spectrogram_columns_fused.launches = 0
+    got = mt.spectrogram_columns(x, o_end - span, o_end, cfg65)  # NumPy, cuda
+    b7b_launches = kcols.spectrogram_columns_fused.launches
+    want = np.stack([column_f64(x, int(a), int(b), big)
+                     for a, b in zip(o_end - span, o_end)])
+    s7o = 10.0 * np.log10(np.sum((got - want) ** 2) / np.sum(want ** 2))
+    print(f"[19] B7 at {big} points (four-step, 64 columns): SNR {s7:.1f} dB "
+          f"vs twin (bar < -100), max abs err {e7:.3e}; packed RGB equal on "
+          f"{100 * eq:.4f}% (bar 99.9), max diff {dmax} (bar 1); "
+          f"spectrogram_columns (12 columns) vs float64 oracle {s7o:.1f} dB "
+          f"(bar < -60), B7 launches {b7b_launches} (bar 1)", flush=True)
+    check(mk.shape == (64, big // 2) and s7 < -100.0, "B7 65536 vs twin")
+    check(eq >= 0.999 and dmax <= 1, "B7 65536 texels vs twin")
+    check(got.shape == (12, big // 2) and s7o < -60.0 and b7b_launches == 1,
+          "B7 65536 vs float64 oracle")
+    frames_b7b = kcols.extract_frames(wav, cs65, ce65, big, cfg.spec_decay)
+    record("spectrogram_columns_65536",
+           "melonix_tpu_torch/csrc/spectrogram_columns.cu",
+           "melonix_tpu/kernels/pallas_columns.py:168", e7, b7b, b7bp,
+           lambda: torch.fft.rfft(frames_b7b),
+           4 * covered_len(ends65 - big, ends65, n) + nbytes(cs65, ce65, mk),
+           fft_flops(64, big))
+    rows["spectrogram_columns_65536"]["launches"] = b7b_launches
+    hop65 = big // 8
+    win65, nf65 = put(hann_window(big)), num_frames(n, big, hop65)
+    b12b = lambda: kstft.stft_mag(wav, win65, big, hop65, nf65)  # noqa: E731
+    b12bp = lambda: kstft.stft_mag_plain(  # noqa: E731
+        wav, win65, big, hop65, nf65)
+    got, want = b12b(), b12bp()
+    torch.cuda.synchronize()
+    s12, e12b = snr_db(got, want), max_err(got, want)
+    pick = np.linspace(0, nf65 - 1, 8).astype(np.int64)
+    fr64 = np.stack([x[f * hop65 : f * hop65 + big] for f in pick]
+                    ).astype(np.float64) * hann_window(big).astype(np.float64)
+    o64 = np.abs(np.fft.rfft(fr64)[:, : big // 2])
+    s12o = 10.0 * np.log10(np.sum((got[pick].cpu().numpy() - o64) ** 2)
+                           / np.sum(o64 ** 2))
+    kstft.stft_mag.launches = 0
+    mags65 = mt.stft_mags_device(wav, win65, big, hop65, nf65)
+    torch.cuda.synchronize()
+    b12b_launches = kstft.stft_mag.launches
+    print(f"     B12 at {big}/{hop65} (four-step, {nf65} frames): SNR "
+          f"{s12:.1f} dB vs twin (bar < -80), max abs err {e12b:.3e}; 8 frames "
+          f"vs float64 |rfft| {s12o:.1f} dB (bar < -60); stft_mags_device "
+          f"launches {b12b_launches} (bar 1)", flush=True)
+    check(got.shape == (nf65, big // 2) and s12 < -80.0, "B12 65536 vs twin")
+    check(s12o < -60.0 and b12b_launches == 1
+          and bool(torch.equal(mags65, got)), "B12 65536 vs float64 oracle")
+    frames_b12b = kpv.hop_frames(wav, big, hop65, nf65) * win65[None, :]
+    record("stft_mag_sizes_65536", "melonix_tpu_torch/csrc/stft_mag_sizes.cu",
+           "melonix_tpu/kernels/pallas_stft.py:106", e12b, b12b, b12bp,
+           lambda: torch.fft.rfft(frames_b12b),
+           4 * (min(n, (nf65 - 1) * hop65 + big) + big + nf65 * big // 2),
+           fft_flops(nf65, big))
+    rows["stft_mag_sizes_65536"]["launches"] = b12b_launches
+    del got, want, mk, mp, pk, pp, mags65
+    # an odd factor above 12,288: the four-step route's direct column sums
+    odd = 512 * 12289  # N1 512, N2 12,289 (prime)
+    hop_o, nf_o = odd // 4, 2
+    win_o = put(hann_window(odd))
+    b12o = lambda: kstft.stft_mag(wav, win_o, odd, hop_o, nf_o)  # noqa: E731
+    b12op = lambda: kstft.stft_mag_plain(  # noqa: E731
+        wav, win_o, odd, hop_o, nf_o)
+    kstft.stft_mag.launches = 0
+    got, want = b12o(), b12op()
+    torch.cuda.synchronize()
+    b12o_launches = kstft.stft_mag.launches
+    so, eo = snr_db(got, want), max_err(got, want)
+    fr64 = np.stack([x[f * hop_o : f * hop_o + odd] for f in range(nf_o)]
+                    ).astype(np.float64) * hann_window(odd).astype(np.float64)
+    o64 = np.abs(np.fft.rfft(fr64)[:, : odd // 2])
+    soo = 10.0 * np.log10(np.sum((got.cpu().numpy() - o64) ** 2)
+                          / np.sum(o64 ** 2))
+    o_ms, op_ms = cuda_ms(b12o), cuda_ms(b12op)
+    print(f"     B12 at {odd}/{hop_o} (odd factor 12,289: plan "
+          f"{kstft.four_step_plan(odd)}, direct column sums; {nf_o} frames): "
+          f"SNR {so:.1f} dB vs twin (bar < -80), max abs err {eo:.3e}; vs "
+          f"float64 |rfft| {soo:.1f} dB (bar < -60); launches {b12o_launches}"
+          f" (bar 1); kernel {o_ms:.3f} ms, twin {op_ms:.3f} ms (median of "
+          f"{REPS}) | {card}", flush=True)
+    check(kstft.four_step_plan(odd) == (512, 12289)
+          and got.shape == (nf_o, odd // 2) and so < -80.0 and soo < -60.0
+          and b12o_launches == 1, "B12 direct column sums")
+    del got, want, fr64, o64
+
+    # -- 20. two ranks on gloo, each on this card ----------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        with contextlib.closing(socket.socket()) as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        world = 2
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--rank", str(r),
+             "--world", str(world), "--port", str(port), "--out", tmp])
+            for r in range(world)]
+        try:
+            codes = [p.wait(timeout=420) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        check(codes == [0] * world, f"gloo ranks exited {codes}")
+        rk = []
+        for r in range(world):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                rk.append(json.load(f))
+        seq_out = [np.load(os.path.join(tmp, f"seq_pv_rank{r}.npy"))
+                   for r in range(world)]
+    # The reference: the same formulas with the phase sum formed exactly
+    # (float64, rounded once), held in the JAX suite's quarter-second form
+    # at its bars (test_parallel.py:219-231).  The single render's serial
+    # float32 sum is itself ~5e-3 of rms off the exact sum on this track,
+    # so it is held in this script's peak form (2e-3 of max, 2e-2) and read
+    # in both forms.
+    exact = pv_sum_order_render(mt, x, bench_markers(mt, n), dev)
+    want = out.cpu().numpy()  # render_track_pv of the song on the card
+    rms_x, env_x = rms_rel_env(seq_out[0], exact, SR)
+    rms_1, env_1 = rms_rel_env(want, exact, SR)
+    rms_s, env_s = rms_env(torch.from_numpy(seq_out[0]), out.cpu())
+    rms_q, env_q = rms_rel_env(seq_out[0], want, SR)
+    same_ranks = all(np.array_equal(o, seq_out[0]) for o in seq_out)
+    print(f"[20] seq-parallel PV of the {SECONDS:.0f} s song on 2 gloo ranks "
+          f"(data=1, seq=2, each rank on cuda:0): vs the exact phase sum rms "
+          f"{rms_x:.3e} of rms (bar 2e-3), envelope {env_x:.3e} (bar 2e-2) "
+          f"(render_track_pv vs the exact sum: rms {rms_1:.3e} of rms, "
+          f"envelope {env_1:.3e}); vs render_track_pv rms {rms_s:.3e} of "
+          f"max (bar 2e-3), envelope {env_s:.3e} (bar 2e-2), quarter-second "
+          f"form rms {rms_q:.3e} of rms, envelope {env_q:.3e}; both ranks "
+          f"return the whole track, equal {same_ranks}", flush=True)
+    for r in rk:
+        b = r["b10_vs_twin"]
+        print(f"     rank {r['rank']}: B10 on its own operands ({b['frames']} "
+              f"frames, {b['live']} live, |psi| up to {b['max_abs_psi']:.4g}) "
+              f"vs its twin: SNR {b['snr_db']:.1f} dB (bar < -100), max abs "
+              f"err {b['max_abs_err']:.3e}", flush=True)
+        check(b["same_shape"] and b["snr_db"] < -100.0,
+              f"rank {r['rank']}: B10 vs twin on the seq path's operands")
+        q = r["seq_pv"]
+        print(f"     rank {r['rank']}: wall {q['wall_ms']:.2f} ms, of it "
+              f"{q['gathers']} host-staged all-gathers {q['gather_ms']:.2f} ms "
+              f"({q['gather_bytes'] / 2**20:.1f} MiB sent); launches "
+              f"{q['launches']} (bars: B2 1, B10 1, B3 0) | {card}",
+              flush=True)
+        pr = q["profile"]
+        print(f"       profiled: device busy {pr['busy_ms']:.3f} ms of "
+              f"{pr['wall_ms']:.2f} ms wall (idle share "
+              f"{1.0 - pr['busy_ms'] / pr['wall_ms']:.4f}); device ms by "
+              f"name: " + ", ".join(f"{k} {v:.3f}" for k, v in pr["top"]),
+              flush=True)
+        check(q["launches"]["analysis"] == 1 and q["launches"]["synth_ola"] == 1
+              and q["launches"]["synth_ola_phase"] == 0,
+              f"rank {r['rank']} seq PV launches {q['launches']}")
+    check(seq_out[0].shape == want.shape == exact.shape and same_ranks
+          and rms_x < 2e-3 and env_x < 2e-2, "seq-parallel PV vs exact sum")
+    check(rms_s < 2e-3 and env_s < 2e-2, "seq-parallel PV vs single")
+    rows["pv_synth_ola"]["launches"] = rk[0]["seq_pv"]["launches"]["synth_ola"]
+    r0 = rk[0]
+    g_ok = all(a and e <= 2e-6 and z for a, e, z in
+               r0["batch_granular"]["vs_render_session"])
+    p_ok = all(a and v < -60.0 for a, v in r0["batch_pv"]["vs_render_session"])
+    for engine in ("granular", "pv"):
+        for r in rk:
+            q = r[f"batch_{engine}"]
+            print(f"     render_batch of 4 jobs, {engine}, (data=2, seq=1), "
+                  f"rank {r['rank']}: wall {q['wall_ms']:.2f} ms, gathers "
+                  f"{q['gather_ms']:.2f} ms ({q['gather_bytes'] / 2**20:.1f} "
+                  f"MiB); launches {q['launches']} | {card}", flush=True)
+            pr = q["profile"]
+            print(f"       profiled: device busy {pr['busy_ms']:.3f} ms of "
+                  f"{pr['wall_ms']:.2f} ms wall (idle share "
+                  f"{1.0 - pr['busy_ms'] / pr['wall_ms']:.4f}); device ms by "
+                  f"name: " + ", ".join(f"{k} {v:.3f}" for k, v in pr["top"]),
+                  flush=True)
+    print(f"     batch vs per-job render_session: granular [len ok, max err, "
+          f"zeros equal] {r0['batch_granular']['vs_render_session']} (bar "
+          f"2e-6); pv [len ok, SNR dB] {r0['batch_pv']['vs_render_session']} "
+          f"(bar < -60)", flush=True)
+    check(g_ok and p_ok, "render_batch on 2 ranks vs render_session")
+    for engine in ("granular", "pv"):
+        ok, e, z = r0[f"stereo_{engine}"]["vs_no_mesh"]
+        q = r0[f"stereo_{engine}"]
+        print(f"     stereo {engine} session, channels over data: vs "
+              f"mesh=None max err {e:.3e} (bar {'2e-6' if engine == 'granular' else 'equal'}), "
+              f"zeros equal {z}; rank 0 wall {q['wall_ms']:.2f} ms", flush=True)
+        check(ok and z and (e <= 2e-6 if engine == "granular" else e == 0.0),
+              f"stereo {engine} session over data")
+
+    # -- 21. world size 1: render_batch and the CLI's batch ------------
+    tracks_b, ms_b = batch_jobs(mt, x)
+    for engine in ("granular", "pv"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = mt.render_batch(tracks_b, ms_b, SR, engine=engine)
+        b1_ms = 1e3 * (time.perf_counter() - t0)
+        same = [np.array_equal(o, mt.render_session(t, m, SR, engine=engine,
+                                                    mesh=None))
+                for t, m, o in zip(tracks_b, ms_b, outs)]
+        print(f"[21] render_batch of 4 jobs at world size 1 ({engine}): "
+              f"{b1_ms:.2f} ms wall (one run, NumPy in and out); each equal "
+              f"to its render_session {same} (bar: equal) | {card}",
+              flush=True)
+        check(all(same), f"render_batch {engine} at world 1")
+    with tempfile.TemporaryDirectory() as tmp:
+        for i in range(3):
+            mt.write_wav(os.path.join(tmp, f"take{i}.wav"),
+                         x[i * 20 * SR : (i + 1) * 20 * SR], SR,
+                         dtype="float32")
+        mjson = os.path.join(tmp, "m.json")
+        with open(mjson, "w") as f:
+            f.write(mt.markers_to_json(bench_markers(mt, 20 * SR)[:4]))
+        outdir = os.path.join(tmp, "out")
+        check(cli_main(["batch", os.path.join(tmp, "take*.wav"), "--markers",
+                        mjson, "-o", outdir]) == 0, "CLI batch")
+        same = []
+        for i in range(3):
+            one = os.path.join(tmp, f"one{i}.wav")
+            check(cli_main(["render", os.path.join(tmp, f"take{i}.wav"),
+                            "--markers", mjson, "--engine", "pv", "--formant",
+                            "-o", one]) == 0, "CLI render")
+            a_, _r = mt.read_wav(os.path.join(outdir, f"take{i}.wav"))
+            b_, _r = mt.read_wav(one)
+            same.append(bool(np.array_equal(a_, b_)))
+    print(f"     CLI batch of 3 WAVs (pv with formants, the default) vs per-"
+          f"file render --engine pv --formant: equal {same} (bar: equal)",
+          flush=True)
+    check(all(same), "CLI batch vs render")
+
+    # -- 22. times (CUDA events, median of 5 after a warm-up) ---------
     for r in rows.values():
         r["ms"] = cuda_ms(r.pop("run_kernel"), inner=KERNEL_INNER)
         r["plain_ms"] = cuda_ms(r.pop("run_plain"), inner=KERNEL_INNER)
@@ -1497,7 +2000,7 @@ def main() -> int:
                            else cuda_ms(lib, inner=KERNEL_INNER))
         lib_txt = ("none" if lib is None
                    else f"{r['library_ms']:.4f} ms")
-        print(f"[18] {r['name']}: kernel {r['ms']:.4f} ms, plain twin "
+        print(f"[22] {r['name']}: kernel {r['ms']:.4f} ms, plain twin "
               f"{r['plain_ms']:.4f} ms, one PyTorch call {lib_txt}, bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}); launches on its "
               f"main path {r['launches']} (mean of {KERNEL_INNER} "
@@ -1511,7 +2014,7 @@ def main() -> int:
     g_grains_ms = host_ms(lambda: mt.build_grain_table(x))
     g_plan_ms = host_ms(lambda: mt.build_render_plan(table, knots))
     g_fix_ms = host_ms(lambda: grender.seam_fixes(gplan, x, total))
-    print(f"[18] granular path ({SECONDS:.0f} s): wall {g_wall_ms:.2f} ms = "
+    print(f"[22] granular path ({SECONDS:.0f} s): wall {g_wall_ms:.2f} ms = "
           f"host grains {g_grains_ms:.2f} + plan {g_plan_ms:.2f} + seam fixes "
           f"{g_fix_ms:.2f} ms + device part (uploads, B5, B6, fixes) "
           f"{g_dev_ms:.3f} ms with the kernels, {g_dev_plain_ms:.3f} ms "
@@ -1519,7 +2022,7 @@ def main() -> int:
     path_ms = cuda_ms(pipeline)
     with plain_twins(*twins):
         plain_path_ms = cuda_ms(pipeline)
-    print(f"[18] main path (|STFT| + PV render of {SECONDS:.0f} s, host plan "
+    print(f"[22] main path (|STFT| + PV render of {SECONDS:.0f} s, host plan "
           f"included): {path_ms:.2f} ms with the kernels, {plain_path_ms:.2f} "
           f"ms all-plain | {card}", flush=True)
     pc_ms = host_ms(lambda: mt.pitch_curve(x, SR))
@@ -1527,7 +2030,7 @@ def main() -> int:
         pc_plain_ms = host_ms(lambda: mt.pitch_curve(x, SR))
     pc_names, pc_busy, pc_wall = device_profile(lambda: mt.pitch_curve(x, SR))
     top = sorted(pc_names.items(), key=lambda kv: -kv[1])[:8]
-    print(f"[18] pitch path (pitch_curve of {SECONDS:.0f} s, upload and host "
+    print(f"[22] pitch path (pitch_curve of {SECONDS:.0f} s, upload and host "
           f"float64 part included): {pc_ms:.2f} ms with B8, {pc_plain_ms:.2f} "
           f"ms all-plain; profiled: device busy {pc_busy:.3f} ms of "
           f"{pc_wall:.2f} ms wall (idle share {1.0 - pc_busy / pc_wall:.4f}), "
@@ -1542,7 +2045,7 @@ def main() -> int:
     at_ms = host_ms(lambda: mt.autotune(mel, SR))
     with plain_twins(*twins):
         at_plain_ms = host_ms(lambda: mt.autotune(mel, SR))
-    print(f"[18] autotune path ({SECONDS:.0f} s melody, defaults): {at_ms:.2f} "
+    print(f"[22] autotune path ({SECONDS:.0f} s melody, defaults): {at_ms:.2f} "
           f"ms wall with the kernels ({at_plain_ms:.2f} ms all-plain) = detect "
           f"(pitch_curve) {detect_ms:.2f} + suggest (host segmentation and "
           f"snap) {suggest_ms - detect_ms:.2f} + render (formant PV) "
@@ -1563,15 +2066,16 @@ def main() -> int:
             p_ms = cuda_ms(fn)
         names, busy, wall = device_profile(fn)
         top = sorted(names.items(), key=lambda kv: -kv[1])[:8]
-        print(f"[18] {label} (180 s song): {k_ms:.2f} ms with the kernels, "
+        print(f"[22] {label} (180 s song): {k_ms:.2f} ms with the kernels, "
               f"{p_ms:.2f} ms all-plain; profiled: device busy {busy:.3f} ms "
               f"of {wall:.2f} ms wall (idle share {1.0 - busy / wall:.4f}); "
               f"device ms by name: "
               + ", ".join(f"{k[:48]} {v:.3f}" for k, v in top) + f" | {card}",
               flush=True)
-    print(f"[18] B11 over the whole padded output ({pos_n.shape[0]} samples): "
+    print(f"[22] B11 over the whole padded output ({pos_n.shape[0]} samples): "
           f"{b11_full_ms:.4f} ms | {card}", flush=True)
 
+    print(card)  # the card's name and power limit, near the end again
     print(json.dumps({"kernels": list(rows.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
@@ -1579,4 +2083,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(rank_main(sys.argv[1:]) if len(sys.argv) > 1 else main())

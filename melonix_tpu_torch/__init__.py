@@ -9,7 +9,9 @@ vocoder and the player with both engines), the Hann
 |STFT|, the spectrogram display data (reference-parity 32768-point columns,
 the tile server, the Hann |STFT| pyramid and the waveform min/max pyramid),
 and the analysis half of the editor (the pitch curve, suggested markers and
-autotune), on an NVIDIA GPU
+autotune), batch rendering, and the multi-device renders and analyses on
+torch.distributed (``parallel/``: tracks or channels over a mesh's ``data``
+ranks, one track's frames over its ``seq`` ranks), on an NVIDIA GPU
 through hand-written CUDA kernels (``kernels/``, sources in ``csrc/``).
 Every public function runs on the device it is given: a CUDA tensor
 launches the kernels, a CPU tensor runs their plain PyTorch twins.  The
@@ -19,6 +21,7 @@ package imports neither JAX nor ``melonix_tpu``.
 from .config import DEFAULT_CONFIG, Config
 from .engine.grains import GrainTable, build_grain_table
 from .engine.autotune import autotune, suggest_markers
+from .engine.batch import render_batch
 from .engine.maps import MapKnots
 from .engine.phase_vocoder import (identity_lock, render_channels_pv,
                                    render_track_pv)
@@ -31,6 +34,10 @@ from .engine.pyramid import build_pyramid
 from .engine.spectral import spectrogram_columns, stft_mags_device
 from .io.wav import read_wav, write_wav
 from .markers import Marker, markers_from_json, markers_to_json, sort_markers
+from .parallel import (AudioMesh, data_parallel_pv, data_parallel_render,
+                       make_audio_mesh, seq_parallel_pv, seq_parallel_render,
+                       session_step, session_step_full, sharded_pitch,
+                       sharded_spectrogram_columns, sharded_stft_mags)
 from .runtime.spec_pyramid import SpecPyramid
 from .runtime.tiles import TileServer
 
@@ -49,6 +56,18 @@ __all__ = [
     "build_render_plan",
     "render_track",
     "render_session",
+    "render_batch",
+    "AudioMesh",
+    "make_audio_mesh",
+    "sharded_stft_mags",
+    "sharded_pitch",
+    "sharded_spectrogram_columns",
+    "data_parallel_render",
+    "seq_parallel_render",
+    "data_parallel_pv",
+    "seq_parallel_pv",
+    "session_step",
+    "session_step_full",
     "render_track_pv",
     "render_channels_pv",
     "identity_lock",

@@ -7,11 +7,17 @@
     python -m melonix_tpu_torch autotune in.wav -o tuned.wav \
         [--scale major --key c] [--engine granular] [--no-formant] \
         [--device cuda|cpu]
+    python -m melonix_tpu_torch batch 'songs/*.wav' -o outdir \
+        [--engine granular] [--markers m.json] [--autotune] [--lock] \
+        [--device cuda|cpu]
 
 The render of a WAV file through the granular engine (the default) or the
 phase vocoder (``--formant`` to keep the spectral envelope, ``--lock`` for
 identity phase locking), mono or ``--stereo``, the pitch curve of a WAV file
-as JSON, and its automatic pitch correction.  The flags and defaults are
+as JSON, its automatic pitch correction, and the batch render of many WAV
+files (``render_batch``, which splits the jobs over the ranks of a
+torch.distributed process group when the caller has one of world size
+above 1).  The flags and defaults are
 those of ``melonix_tpu``'s subcommands of the same names, plus ``--device``
 (default ``cuda``; there is no fallback to another device).  Flags whose
 code is not ported yet exit with status 2 and name the ROADMAP item that
@@ -148,6 +154,75 @@ def cmd_autotune(args) -> int:
     return 0
 
 
+def cmd_batch(args) -> int:
+    """Serving path: render a fleet of files in slices of the batch path."""
+    import glob
+    import os
+
+    from .engine.autotune import suggest_markers
+    from .engine.batch import render_batch
+    from .io.wav import write_wav
+    from .markers import markers_from_json, sort_markers
+    from .parallel.sharded import world_size
+
+    if args.format != "wav":
+        return _refuse(f"--format {args.format}: only WAV output is ported "
+                       "(ROADMAP queue A, item 14)")
+    files = sorted({f for pat in args.inputs for f in glob.glob(pat)})
+    if not files:
+        print(f"batch: no files match {args.inputs}", file=sys.stderr)
+        return 2
+    for f in files:
+        missing = _not_wav(f)
+        if missing is not None:
+            return _refuse(missing)
+    os.makedirs(args.outdir, exist_ok=True)
+    shared = []
+    if args.markers:
+        with open(args.markers) as fh:
+            shared = markers_from_json(fh.read())
+
+    t0 = time.perf_counter()
+    by_rate: dict[int, list] = {}
+    for f in files:
+        wav, rate = _read_mono(f)
+        by_rate.setdefault(rate, []).append((f, wav))
+    slice_n = max(4 * world_size(), 8)
+    written, used_names = [], set()
+    for rate, group in sorted(by_rate.items()):
+        for g0 in range(0, len(group), slice_n):
+            chunk = group[g0 : g0 + slice_n]
+            tracks = [w for _f, w in chunk]
+            if args.autotune:  # suggestions layer on top of the shared edit
+                markers_l = [sort_markers(shared + suggest_markers(
+                    w, rate, scale=args.scale, key=args.key,
+                    strength=args.strength, vibrato=args.vibrato,
+                    device=args.device)) for w in tracks]
+            else:
+                markers_l = [shared] * len(tracks)
+            outs = render_batch(
+                tracks, markers_l, rate, engine=args.engine,
+                preserve_formants=args.engine == "pv" and not args.no_formant,
+                phase_locking=args.engine == "pv" and args.lock,
+                device=args.device,
+            )
+            for (f, _w), out in zip(chunk, outs):
+                stem = os.path.splitext(os.path.basename(f))[0]
+                name, k = f"{stem}.wav", 2
+                while name in used_names:  # the same stem from another dir
+                    name = f"{stem}-{k}.wav"
+                    k += 1
+                used_names.add(name)
+                outp = os.path.join(args.outdir, name)
+                write_wav(outp, out, rate)
+                written.append(outp)
+    dt = time.perf_counter() - t0
+    print(f"batch: {len(written)} files ({len(by_rate)} rate group(s), "
+          f"engine {args.engine} on {args.device}) in {dt:.2f}s -> "
+          f"{args.outdir}")
+    return 0
+
+
 def _device_flag(p) -> None:
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (cuda, cuda:N or cpu)")
@@ -203,6 +278,26 @@ def build_parser() -> argparse.ArgumentParser:
     a.add_argument("--dtype", choices=["int16", "float32"], default="int16")
     _device_flag(a)
     a.set_defaults(fn=cmd_autotune)
+
+    b = sub.add_parser("batch", help="render many WAV files")
+    b.add_argument("inputs", nargs="+", help="file globs")
+    b.add_argument("-o", "--outdir", required=True)
+    b.add_argument("--engine", choices=["granular", "pv"], default="pv")
+    b.add_argument("--markers", help="shared markers JSON applied to every file")
+    b.add_argument("--autotune", action="store_true",
+                   help="derive per-file markers from pitch correction")
+    b.add_argument("--scale", choices=["chromatic", "major", "minor"],
+                   default="chromatic")
+    b.add_argument("--key", default="a")
+    b.add_argument("--strength", type=float, default=1.0)
+    b.add_argument("--vibrato", type=float, default=0.0)
+    b.add_argument("--no-formant", action="store_true")
+    b.add_argument("--lock", action="store_true",
+                   help="identity phase locking (pv jobs)")
+    b.add_argument("--format", default="wav",
+                   help="output format (only wav is ported)")
+    _device_flag(b)
+    b.set_defaults(fn=cmd_batch)
     return p
 
 

@@ -17,7 +17,15 @@
 // Shared memory is 4*N bytes (the wrapper caps N, kernels/stft.py).  At
 // 4096/1024 on a 180 s track the frames read 32 MB and write 64 MB: device
 // memory bounds it (~28 us at 3.35 TB/s), not the ~0.15 MFLOP per frame.
-#include "fft_real.cuh"
+//
+// Above 49,152 points the frame takes the four-step route of
+// fft_fourstep.cuh: stft_four_step_cols (one block per (frame, n1): the
+// windowed strided samples' real N2-point transforms, into a scratch
+// buffer; stft_four_step_cols_direct, by direct sums, where N's odd factor
+// is above 12,288) then stft_four_step_rows (a block per (frame, k2):
+// twiddles, the complex N1-point transform, |X| * scale for the bins below
+// N/2).
+#include "fft_fourstep.cuh"
 
 namespace {
 
@@ -45,6 +53,61 @@ stft_mag_sizes_kernel(const float* __restrict__ wav, long long n,
   }
 }
 
+// Four-step route, step 1: grid (frames, N1).
+__global__ void __launch_bounds__(kThreads)
+stft_four_step_cols(const float* __restrict__ wav, long long n,
+                    const float* __restrict__ win,
+                    const float2* __restrict__ tw2, mlx::FourStep f, int hop,
+                    float2* __restrict__ scratch) {
+  extern __shared__ float2 s[];
+  const long long start = static_cast<long long>(blockIdx.x) * hop;
+  mlx::four_step_column(
+      s, f, tw2, blockIdx.y,
+      [&](int i) {
+        const long long idx = start + i;
+        return (idx < n ? wav[idx] : 0.0f) * win[i];
+      },
+      scratch + blockIdx.x * mlx::four_step_scratch(f));
+}
+
+// Four-step route, step 1 by direct sums (mlx::four_step_direct): grid
+// (frames, N1); `circle` the whole N2-point table.
+__global__ void __launch_bounds__(kThreads)
+stft_four_step_cols_direct(const float* __restrict__ wav, long long n,
+                           const float* __restrict__ win,
+                           const float2* __restrict__ circle, mlx::FourStep f,
+                           int hop, float2* __restrict__ scratch) {
+  __shared__ float s[mlx::kDirectTile];
+  const long long start = static_cast<long long>(blockIdx.x) * hop;
+  mlx::four_step_column_direct(
+      s, f, circle, blockIdx.y,
+      [&](int i) {
+        const long long idx = start + i;
+        return (idx < n ? wav[idx] : 0.0f) * win[i];
+      },
+      scratch + blockIdx.x * mlx::four_step_scratch(f));
+}
+
+// Four-step route, steps 2-3: grid (frames, min(N2, 65535)), rows k2 =
+// blockIdx.y + j * gridDim.y (the direct route's N2 can pass the grid's
+// y limit).
+__global__ void __launch_bounds__(kThreads)
+stft_four_step_rows(const float2* __restrict__ tw, mlx::FourStep f,
+                    const float2* __restrict__ scratch,
+                    float* __restrict__ out, float scale) {
+  extern __shared__ float2 s[];
+  float* row = out + static_cast<long long>(blockIdx.x) * (f.n / 2);
+  for (int k2 = blockIdx.y; k2 < f.n2; k2 += gridDim.y) {
+    if (k2 != static_cast<int>(blockIdx.y)) __syncthreads();  // row read
+    mlx::four_step_row(s, f, tw, k2,
+                       scratch + blockIdx.x * mlx::four_step_scratch(f),
+                       [&](int k, float2 v) {
+                         row[k] = sqrtf(v.x * v.x + v.y * v.y) * scale;
+                       });
+  }
+}
+
+
 }  // namespace
 
 extern "C" int mlx_stft_mag_sizes(const float* wav, long long n,
@@ -65,6 +128,41 @@ extern "C" int mlx_stft_mag_sizes(const float* wav, long long n,
     }
     stft_mag_sizes_kernel<<<n_frames, kThreads, smem, stream>>>(
         wav, n, win, tw, out, d, hop, scale);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// B12 above 49,152 points: the four-step route.  `scratch` holds n_frames *
+// (size / n1 / 2 + 1) * n1 float2 values; tw the size-point table, tw2 the
+// (size / n1)-point one: half the circle, or the whole circle where the
+// columns take the direct sums (mlx::four_step_direct).
+extern "C" int mlx_stft_mag_4step(const float* wav, long long n,
+                                  const float* win, const float2* tw,
+                                  const float2* tw2, float2* scratch,
+                                  float* out, int n_frames, int size, int n1,
+                                  int hop, float scale, cudaStream_t stream) {
+  if (n_frames > 0) {
+    const mlx::FourStep f = mlx::make_four_step(size, n1);
+    const bool direct = mlx::four_step_direct(f);
+    const size_t smem_cols = direct ? 0 : mlx::real_dft_smem(f.col);
+    const size_t smem_rows = static_cast<size_t>(n1) * sizeof(float2);
+    cudaError_t err = mlx::allow_smem(stft_four_step_cols, smem_cols);
+    if (err == cudaSuccess) {
+      err = mlx::allow_smem(stft_four_step_rows, smem_rows);
+    }
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (direct) {
+      stft_four_step_cols_direct<<<dim3(n_frames, f.n1), kThreads, 0,
+                                   stream>>>(wav, n, win, tw2, f, hop,
+                                             scratch);
+    } else {
+      stft_four_step_cols<<<dim3(n_frames, f.n1), kThreads, smem_cols,
+                            stream>>>(wav, n, win, tw2, f, hop, scratch);
+    }
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    stft_four_step_rows<<<dim3(n_frames, min(f.n2, 65535)), kThreads,
+                          smem_rows, stream>>>(tw, f, scratch, out, scale);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -187,6 +187,15 @@ class PVPlan:
     base: np.ndarray  # int32 resample block bases
     rho_max: float  # knot-wise max rate
 
+    @property
+    def anc_args(self) -> tuple:
+        """The padded anchor arrays as the JAX package's ``anc_args`` hands
+        them to its sharded builders: (anc_j, src, rho, slope), the float
+        values as their int32 bit patterns (NumPy)."""
+        anc_j_p, src_f, r_f, s_f, _ = self.anc_np
+        return (anc_j_p, src_f.view(np.int32), r_f.view(np.int32),
+                s_f.view(np.int32))
+
 
 def build_pv_plan(
     knots: MapKnots,
@@ -304,15 +313,9 @@ def _stretch_chunk_core(wav, starts_c, da_c, window, m0: int, f_real: int,
     phases are identity-locked (:func:`identity_lock`, peaks picked on the
     warped magnitudes): a per-frame transform, no carried state.
     """
-    if size == kpv.FFT_N:
-        re, im = kpv.analysis(wav, starts_c, window, size)
-        synth = kpv.synth_ola_phase
-    else:
-        fetch = (kframes.extract_frames if kframes.supported(size, len(starts_c))
-                 else kframes.extract_frames_plain)
-        spec = torch.fft.rfft(fetch(wav, starts_c, size) * window[None, :])
-        re, im = spec.real, spec.imag
-        synth = kpv.synth_ola_phase_plain
+    re, im = _analysis(wav, starts_c, window, size)
+    synth = (kpv.synth_ola_phase if size == kpv.FFT_N
+             else kpv.synth_ola_phase_plain)
     if not formant:
         return synth(re, im, da_c, window, m0, f_real, phi0, resid_in,
                      phi_prev, size, hop, cart=True, lock=lock)
@@ -322,6 +325,19 @@ def _stretch_chunk_core(wav, starts_c, da_c, window, m0: int, f_real: int,
     mag.mul_(_formant_gain(mag, rho_c, size, n_ceps))
     return synth(mag, phi, da_c, window, m0, f_real, phi0, resid_in, phi_prev,
                  size, hop, cart=False, lock=lock)
+
+
+def _analysis(wav, starts, window, size: int):
+    """Natural-order (re, im) of the windowed frames at ``starts``: B2 at
+    2048 points, otherwise the frame fetch (B9 for the shapes
+    ``kframes.supported`` takes, a gather otherwise) and ``torch.fft.rfft``;
+    a CPU tensor runs the twins."""
+    if size == kpv.FFT_N:
+        return kpv.analysis(wav, starts, window, size)
+    fetch = (kframes.extract_frames if kframes.supported(size, len(starts))
+             else kframes.extract_frames_plain)
+    spec = torch.fft.rfft(fetch(wav, starts, size) * window[None, :])
+    return spec.real, spec.imag
 
 
 def _formant_gain(mag, rho_m, size: int, n_ceps: int = 40):
@@ -501,22 +517,37 @@ def render_channels_pv(
     hop: int | None = None,
     preserve_formants: bool = False,
     phase_locking: bool = False,
+    mesh=None,
     device=None,
 ) -> np.ndarray:
     """(C, n) channels through ONE shared PV plan: the edit model is
     channel-independent, so the host plan is built once and each channel
     runs :func:`_render_with_plan` on ``device`` (default ``"cuda"``; no
     fallback), the JAX package's single-chip route
-    (``phase_vocoder.py:1079-1089``).  Returns (C, n_out) float32."""
+    (``phase_vocoder.py:1079-1089``).  With ``mesh`` (a
+    ``parallel.AudioMesh``) the channels, zero-padded to a multiple of its
+    ``data`` axis, split over the data ranks, each rendering its own on the
+    mesh's device, and are gathered.  Returns (C, n_out) float32."""
     wav_ch = np.asarray(wav_ch, np.float32)
     n_ch, n_wav = wav_ch.shape
-    dev = resolve_device("cuda" if device is None else device)
+    dev = resolve_device(mesh.device if mesh is not None
+                         else "cuda" if device is None else device)
     plan = build_pv_plan(knots, n_wav, config=config, size=size, hop=hop)
     if plan is None:
         n_out = max(int(knots.duration() * knots.sample_rate), 0)
         return np.zeros((n_ch, n_out), np.float32)
-    return np.stack([
-        _render_with_plan(track_on_device(wav_ch[c], dev), plan,
-                          preserve_formants, phase_locking)
-        for c in range(n_ch)
-    ])
+
+    def one(c):
+        return _render_with_plan(track_on_device(wav_ch[c], dev), plan,
+                                 preserve_formants, phase_locking,
+                                 device_out=mesh is not None)
+
+    if mesh is None:
+        return np.stack([one(c) for c in range(n_ch)])
+    from ..parallel.sharded import _data_rows, _gather_data
+
+    d = mesh.shape["data"]
+    n_b = d * -(-n_ch // d)
+    wav_ch = np.pad(wav_ch, ((0, n_b - n_ch), (0, 0)))
+    mine = torch.stack([one(c) for c in _data_rows(mesh, n_b)])
+    return torch.cat(_gather_data(mesh, mine))[:n_ch].cpu().numpy()

@@ -74,6 +74,16 @@ SIGNATURES = {
     "mlx_extract_frames": (_P, _L, _P, _P, _I, _I, _P),
     # y, n_src, pos, base, out, n_out, rows, stream
     "mlx_resample_lerp": (_P, _L, _P, _P, _P, _L, _I, _P),
+    # mag, psi, win, tw, frames, y, n_frames, hop, stream
+    "mlx_pv_synth_ola": (_P,) * 6 + (_I, _I, _P),
+    # wav, n, starts, ends, tw, tw2, scratch, out, n_cols, size, n1,
+    # neg_decay, inv_size, kgain, colormap, stream
+    "mlx_spectrogram_columns_4step": (_P, _L) + (_P,) * 6 + (_I, _I, _I,
+                                                             _F, _F, _F, _I,
+                                                             _P),
+    # wav, n, win, tw, tw2, scratch, out, n_frames, size, n1, hop, scale,
+    # stream
+    "mlx_stft_mag_4step": (_P, _L) + (_P,) * 5 + (_I, _I, _I, _I, _F, _P),
 }
 
 

@@ -1,18 +1,21 @@
-"""Phase-vocoder DFT kernels B1-B3 and their plain PyTorch twins.
+"""Phase-vocoder DFT kernels B1-B3 and B10 and their plain PyTorch twins.
 
 Counterpart of ``melonix_tpu/kernels/pallas_pv.py``.  The TPU kernels ran a
 four-step bf16x3 MXU DFT in a scrambled bin order; the port's kernels
-(``csrc/stft_mag.cu``, ``csrc/pv_analysis.cu``, ``csrc/pv_synth_ola_phase.cu``)
-share one float32 radix-2 FFT in shared memory (``csrc/fft2048.cuh``) and
-keep natural bin order and the 1025-bin half spectrum throughout.
+(``csrc/stft_mag.cu``, ``csrc/pv_analysis.cu``, ``csrc/pv_synth_ola_phase.cu``,
+``csrc/pv_synth_ola.cu``) share one float32 radix-2 FFT in shared memory
+(``csrc/fft2048.cuh``), B3 and B10 also their synthesis and overlap-add
+launches (``csrc/pv_synth.cuh``), and keep natural bin order and the
+1025-bin half spectrum throughout.
 
 Each wrapper takes the device of its input: a CUDA tensor launches the
 kernel (or raises), a CPU tensor runs the ``*_plain`` twin, anything else
 raises.  The twins are the CPU path and the reference the kernels are held
-to on the card.  B2/B3 take 2048-point frames only; the phase vocoder at
-other frame sizes runs the natural-order formulas of
-:func:`synth_ola_phase_plain` on any device (as the JAX package runs XLA
-there, ``engine.phase_vocoder._stretch_chunk_core``).
+to on the card.  B1-B3 and B10 take 2048-point frames only; the phase
+vocoder at other frame sizes runs the natural-order formulas of
+:func:`synth_ola_phase_plain` (and :func:`synth_ola_plain`) on any device
+(as the JAX package runs XLA there,
+``engine.phase_vocoder._stretch_chunk_core``).
 """
 
 from __future__ import annotations
@@ -150,6 +153,19 @@ analysis.launches = 0
 # ----------------------------------------------------------------------
 
 
+def irfft_polar(mag, psi, size: int) -> torch.Tensor:
+    """``irfft(mag * e^{i psi}, n=size)`` with the imaginary parts of DC and
+    Nyquist dropped first, as a c2r inverse's contract says.  cuFFT leaves
+    them undefined: on the H100 a batch of 2048 or more 2048-point
+    transforms reads them (about -33 dB off a float64 inverse for random
+    phases), so the twins drop them explicitly."""
+    spec = torch.polar(mag, psi)
+    spec[:, 0].imag = 0.0
+    if size % 2 == 0 and spec.shape[1] == size // 2 + 1:
+        spec[:, -1].imag = 0.0
+    return torch.fft.irfft(spec, n=size)
+
+
 def identity_lock(psi, phi, mag):
     """Laroche-Dolson identity phase locking in natural bin order: the plain
     twin of B3's ``lock=True`` (the TPU's ``_lock_psis``) and a copy of
@@ -222,12 +238,7 @@ def synth_ola_phase_plain(a, b, da, window, m0: int, f_real: int, phi0,
         psi = identity_lock(psi, phi, mag)
     live = (torch.arange(f, device=dev) < f_real)[:, None]
     mag_live = torch.where(live, mag, torch.zeros((), device=dev))
-    t = torch.fft.irfft(torch.polar(mag_live, psi), n=size) * window[None, :]
-    out_len = (f - 1) * hop + size
-    y = torch.nn.functional.fold(
-        t.T[None], output_size=(1, out_len), kernel_size=(1, size),
-        stride=(1, hop),
-    ).reshape(out_len)
+    y = synth_ola_plain(mag_live, psi, window, size, hop)
     last = min(max(f_real - 1, 0), f - 1)
     return y, resid[last].clone(), phi[last].clone(), phi0_eff.clone()
 
@@ -284,3 +295,58 @@ def synth_ola_phase(a, b, da, window, m0: int, f_real: int, phi0,
 
 
 synth_ola_phase.launches = 0
+
+
+# ----------------------------------------------------------------------
+# B10: overlap-add synthesis from (mag, psi), the seq-parallel PV's
+# ----------------------------------------------------------------------
+
+
+def synth_ola_plain(mag, psi, window, size: int, hop: int) -> torch.Tensor:
+    """The unnormalised windowed overlap-add of ``irfft(mag * e^{i psi})``
+    over natural-order (F, size // 2 + 1) half spectra: length ``(F - 1) *
+    hop + size`` (also the tail of :func:`synth_ola_phase_plain`).  The TPU
+    kernel (``pallas_pv.synth_ola``) took the scrambled full spectrum and
+    returned ``(F // 64 + 1) * 64 * hop`` samples, of which only this span
+    was exact and the only one its caller read (sharded.py:737-738)."""
+    f = mag.shape[0]
+    t = irfft_polar(mag, psi, size) * window[None, :]
+    out_len = (f - 1) * hop + size
+    return torch.nn.functional.fold(
+        t.T[None], output_size=(1, out_len), kernel_size=(1, size),
+        stride=(1, hop),
+    ).reshape(out_len)
+
+
+def synth_ola(mag, psi, window, size: int, hop: int) -> torch.Tensor:
+    """B10 (``csrc/pv_synth_ola.cu``, two launches on one stream); contract
+    of :func:`synth_ola_plain`.  ``mag`` is already masked to the live
+    frames; size 2048, any hop >= 1."""
+    if mag.device.type == "cpu":
+        return synth_ola_plain(mag, psi, window, size, hop)
+    dev = _build.cuda_device(mag)
+    if size != FFT_N:
+        raise _no_size(size)
+    f = mag.shape[0]
+    if f == 0 or hop <= 0:
+        raise ValueError(f"{f} frames, hop {hop}")
+    nb = size // 2 + 1
+    f32 = torch.float32
+    _build.require(mag, "mag", f32, (f, nb), dev)
+    _build.require(psi, "psi", f32, (f, nb), dev)
+    _build.require(window, "window", f32, (size,), dev)
+    frames = torch.empty((f, size), dtype=f32, device=dev)  # scratch
+    y = torch.empty(((f - 1) * hop + size,), dtype=f32, device=dev)
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        err = lib.mlx_pv_synth_ola(
+            mag.data_ptr(), psi.data_ptr(), window.data_ptr(),
+            twiddles(dev).data_ptr(), frames.data_ptr(), y.data_ptr(), f, hop,
+            _build.stream(dev),
+        )
+    _build.check("synth_ola", err)
+    synth_ola.launches += 1
+    return y
+
+
+synth_ola.launches = 0

@@ -64,11 +64,13 @@ def pv_anchor_blocks(anc_j: np.ndarray, nb: int):
     return a0, cnt, kmax
 
 
-def positions_rel_plain(anc_j, anc_src, anc_r, anc_s, sr: int, n_out: int):
-    """(n_out,) float32 block-relative positions: each sample takes the
-    constants of the last anchor at or before it (the segmented broadcast of
+def positions_rel_plain(anc_j, anc_src, anc_r, anc_s, sr: int, n_out: int,
+                        j0: int = 0):
+    """(n_out,) float32 block-relative positions of output samples [j0, j0 +
+    n_out): each sample takes the constants of the last anchor at or before
+    it (the segmented broadcast of
     ``melonix_tpu/engine/phase_vocoder.py:_positions_rel_device``)."""
-    j = torch.arange(n_out, dtype=torch.int32, device=anc_j.device)
+    j = torch.arange(j0, j0 + n_out, dtype=torch.int32, device=anc_j.device)
     a = (torch.searchsorted(anc_j, j, right=True) - 1).clamp_min(0)
     s = anc_s[a]
     srf = float(np.float32(sr))

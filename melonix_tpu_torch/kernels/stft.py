@@ -4,12 +4,17 @@ Counterpart of ``melonix_tpu/kernels/pallas_stft.py``.  The TPU kernel
 contracted row-rolled frame views against dense cos/sin DFT matrices on the
 MXU; the port's kernel (``csrc/stft_mag_sizes.cu``) runs the real-input FFT
 of ``csrc/fft_real.cuh`` in shared memory, one block per frame, any size
-``2^a * m`` (m odd) that the TPU kernel took, up to :data:`MAX_SIZE`.
+``2^a * m`` (m odd) that the TPU kernel took, up to :data:`MAX_SIZE`; above
+it, the four-step route of ``csrc/fft_fourstep.cuh`` through a scratch
+buffer (:func:`four_step_plan` picks its factors, :func:`four_step_plain`
+spells its arithmetic in torch), whose column transforms are direct sums
+where the odd factor does not fit one block.
 
 ``stft_mag`` launches the kernel for a CUDA tensor, runs
 :func:`stft_mag_plain` for a CPU tensor, and raises for anything else;
 ``stft_mag.launches`` counts its launches.  ``twiddles`` is the float32
-table of the real-input FFT, shared with B7 (``kernels/columns.py``).
+table of the real-input FFT, shared with B7 (``kernels/columns.py``), as is
+the four-step plan.
 """
 
 from __future__ import annotations
@@ -22,11 +27,14 @@ import torch
 from . import _build
 from .pv import stft_mag_plain  # size-generic: the twin of B1 and B12
 
-__all__ = ["MAX_SIZE", "supported", "stft_mag", "stft_mag_plain", "twiddles"]
+__all__ = ["MAX_SIZE", "supported", "stft_mag", "stft_mag_plain", "twiddles",
+           "circle", "four_step_plan", "four_step_plain"]
 
-# The transform keeps 4 * size bytes in dynamic shared memory (fft_real.cuh);
-# 49152 points take 192 KB of the block's 227 KB.
+# The one-block transform keeps 4 * size bytes in dynamic shared memory
+# (fft_real.cuh); 49152 points take 192 KB of the block's 227 KB.  Larger
+# sizes take the four-step route.
 MAX_SIZE = 49152
+MAX_N1 = 16384  # the four-step rows keep 8 * N1 bytes: 128 KB
 SLAB_PAD = 8  # the TPU kernel's largest size // hop
 BT = 256  # the TPU kernel's bin tile
 
@@ -39,10 +47,72 @@ def twiddles(size: int, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(tw).to(device)
 
 
+def four_step_plan(size: int) -> tuple[int, int] | None:
+    """(N1, N2) of the four-step route for ``size`` = N1 * N2, N1 a power of
+    two (2..:data:`MAX_N1`).  Where N2 = 2^b * m (m odd, b >= 2) can stay
+    within :data:`MAX_SIZE`, the column transforms are FFTs, and N1 is the
+    one nearest sqrt(size), the larger on a tie.  Otherwise (an odd factor
+    above 12,288, or a size above MAX_N1 * MAX_SIZE) they are direct sums
+    over N2 = size / N1 points, N1 as large as fits.  None for an odd
+    ``size``, one below 8, or one that int32 indices cannot reach."""
+    if size < 8 or size >= 1 << 31 or size % 2:
+        return None
+    a = (size & -size).bit_length() - 1  # size = 2^a * m
+    best = None
+    for c in range(1, a - 1):
+        n1, n2 = 1 << c, size >> c
+        if n1 > MAX_N1 or n2 > MAX_SIZE:
+            continue
+        key = (abs(n1.bit_length() - n2.bit_length()), -n1)
+        if best is None or key < best[0]:
+            best = (key, (n1, n2))
+    if best is not None:
+        return best[1]
+    n1 = min(1 << a, MAX_N1)
+    return n1, size // n1
+
+
+def four_step_direct(n2: int) -> bool:
+    """Whether the four-step route's N2-point columns are direct sums (an
+    N2 above :data:`MAX_SIZE` or without a factor 4, which the one-block
+    real FFT needs) rather than FFTs; ``csrc/fft_fourstep.cuh`` tests the
+    same."""
+    return n2 > MAX_SIZE or n2 % 4 != 0
+
+
+@functools.cache
+def circle(size: int, device: torch.device) -> torch.Tensor:
+    """(size, 2) float32 cos/sin(2 pi j / size) for every j < size, computed
+    in float64: the direct column sums' table (any ``size``, odd included)."""
+    ang = 2.0 * np.pi * np.arange(size, dtype=np.float64) / size
+    tw = np.stack([np.cos(ang), np.sin(ang)], axis=1).astype(np.float32)
+    return torch.from_numpy(tw).to(device)
+
+
+def four_step_plain(frames: torch.Tensor, n1: int) -> torch.Tensor:
+    """(B, size // 2) complex: the first size // 2 bins of the DFT of each
+    real frame by the four-step decomposition the kernels run (plain torch,
+    in the frames' precision): the real N2-point transforms of the strided
+    columns x[n1 + N1 * n2], the twiddles W_N^(n1 * k2), the complex
+    N1-point transforms, X[k2 + N2 * k1]."""
+    b, size = frames.shape
+    n2 = size // n1
+    cols = frames.reshape(b, n2, n1)  # [., n2, n1] = x[n1 + N1 * n2]
+    c = torch.fft.fft(cols, dim=1)  # C[., k2, n1]
+    k2 = torch.arange(n2, dtype=torch.float64, device=frames.device)
+    j1 = torch.arange(n1, dtype=torch.float64, device=frames.device)
+    ang = -2.0 * np.pi * torch.remainder(k2[:, None] * j1[None, :], size) / size
+    tw = torch.polar(torch.ones_like(ang), ang).to(c.dtype)
+    x = torch.fft.fft(c * tw, dim=2)  # [., k2, k1] = X[k2 + N2 * k1]
+    return x.transpose(1, 2).reshape(b, size)[:, : size // 2]
+
+
 def supported(size: int, hop: int) -> bool:
     """The shapes the TPU kernel took (``pallas_stft.supported``): whole-hop
     overlap, at most 8 hops per frame, 128-aligned hops and bins.  On CUDA
-    :func:`stft_mag` takes them up to :data:`MAX_SIZE` and raises above."""
+    :func:`stft_mag` takes them with the one-block transform up to
+    :data:`MAX_SIZE` and the four-step route above it (below 2^31 points;
+    larger sizes raise)."""
     return (
         size % hop == 0
         and size // hop <= SLAB_PAD
@@ -61,11 +131,11 @@ def stft_mag(wav, window, size: int, hop: int, n_frames: int,
     dev = _build.cuda_device(wav)
     if not supported(size, hop):
         raise ValueError(f"B12 takes no (size {size}, hop {hop}) frames")
-    if size > MAX_SIZE:
+    plan = four_step_plan(size) if size > MAX_SIZE else None
+    if size > MAX_SIZE and plan is None:
         raise NotImplementedError(
-            f"B12 size {size} is above its cap MAX_SIZE = {MAX_SIZE} (4 * size "
-            "bytes of shared memory per frame; ROADMAP queue B, B12)"
-        )
+            f"B12 size {size}: the four-step route indexes a frame with "
+            "int32, so it takes sizes below 2^31")
     if n_frames < 0:
         raise ValueError(f"n_frames {n_frames}")
     _build.require(wav, "wav", torch.float32, (wav.shape[0],), dev)
@@ -73,14 +143,32 @@ def stft_mag(wav, window, size: int, hop: int, n_frames: int,
     out = torch.empty((n_frames, size // 2), dtype=torch.float32, device=dev)
     lib = _build.library()
     with torch.cuda.device(dev):
-        err = lib.mlx_stft_mag_sizes(
-            wav.data_ptr(), wav.shape[0], window.data_ptr(),
-            twiddles(size, dev).data_ptr(), out.data_ptr(), n_frames, size,
-            hop, float(scale), _build.stream(dev),
-        )
+        if plan is None:
+            err = lib.mlx_stft_mag_sizes(
+                wav.data_ptr(), wav.shape[0], window.data_ptr(),
+                twiddles(size, dev).data_ptr(), out.data_ptr(), n_frames,
+                size, hop, float(scale), _build.stream(dev),
+            )
+        else:
+            n1, n2 = plan
+            scratch = four_step_scratch(n_frames, n1, n2, dev)
+            tw2 = circle(n2, dev) if four_step_direct(n2) else twiddles(n2, dev)
+            err = lib.mlx_stft_mag_4step(
+                wav.data_ptr(), wav.shape[0], window.data_ptr(),
+                twiddles(size, dev).data_ptr(), tw2.data_ptr(),
+                scratch.data_ptr(), out.data_ptr(), n_frames, size, n1, hop,
+                float(scale), _build.stream(dev),
+            )
     _build.check("stft_mag_sizes", err)
     stft_mag.launches += 1
     return out
 
 
 stft_mag.launches = 0
+
+
+def four_step_scratch(n_frames: int, n1: int, n2: int, device):
+    """The four-step route's scratch: rows k2 <= N2 / 2 of N1 complex
+    values per frame, as float32 pairs."""
+    return torch.empty((max(n_frames, 1), n2 // 2 + 1, n1, 2),
+                       dtype=torch.float32, device=device)

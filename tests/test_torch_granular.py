@@ -383,12 +383,19 @@ def test_mono_sessions_match_render_track(chirp):
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"mesh": object()}, "item 15"),
+    ({"engine": "granular"}, "item 15"),
 ])
 def test_unported_session_options_raise(chirp, kw, item):
+    """(Named, with its case, for the behaviour it replaced: the mesh option
+    raised, naming ROADMAP queue A ``item``.)  The option is ported: an
+    explicit world-1 mesh renders a mono session exactly as ``mesh=None``
+    does."""
     x, sr = chirp
-    with pytest.raises(NotImplementedError, match=item):
-        mt.render_session(x, [], sr, device="cpu", **kw)
+    markers = [mt.Marker(*m) for m in MARKER_CASES[2]]
+    mesh = mt.make_audio_mesh(device="cpu")
+    got = mt.render_session(x, markers, sr, device="cpu", mesh=mesh, **kw)
+    want = mt.render_session(x, markers, sr, device="cpu", mesh=None, **kw)
+    np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.parametrize("lock", [False, True])

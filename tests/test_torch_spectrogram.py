@@ -9,6 +9,7 @@ the Hann |STFT| pyramid and the waveform min/max pyramid.  The CUDA kernels
 are held to these twins on the card by chip_smoke.py.
 """
 
+import contextlib
 import sys
 import threading
 import time
@@ -269,25 +270,150 @@ def test_spectrogram_columns_device_routes_like_jax(monkeypatch, size, route):
     assert _snr_db(got, want) < -100.0
 
 
-def test_b12_beyond_cap_raises_on_cuda_tensors(monkeypatch):
-    """A covered size above MAX_SIZE raises NotImplementedError naming the
-    cap before any launch (a fake CUDA tensor reaches the check)."""
-    class FakeCuda:
-        device = torch.device("cuda", 0)
+class _Recorder:
+    """Stands in for the kernel library: records each entry point's call."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        return lambda *args: self.calls.append((name, args)) or 0
+
+
+def _fake_cuda(monkeypatch):
+    """Route the wrappers' CUDA branch onto ``meta`` tensors (allocation
+    without memory) with a recording library: what would launch, and with
+    which sizes, without a card."""
+    rec = _Recorder()
+    for fn in (kstft.stft_mag, kcols.spectrogram_columns_fused):
+        monkeypatch.setattr(fn, "launches", fn.launches)  # restored after
     monkeypatch.setattr(_build, "cuda_device", lambda t: t.device)
-    size = 2048 * 40
-    assert kstft.supported(size, 16384) and size > kstft.MAX_SIZE
-    with pytest.raises(NotImplementedError, match="MAX_SIZE"):
-        kstft.stft_mag(FakeCuda(), None, size, 16384, 3)
-    assert kcols.supported(65536) and 65536 > kcols.MAX_SIZE
-    with pytest.raises(NotImplementedError, match="MAX_SIZE"):
-        kcols.spectrogram_columns_fused(FakeCuda(), None, None, 1.0,
-                                        size=65536)
-    with pytest.raises(NotImplementedError, match="MAX_SIZE"):
-        tspec.spectrogram_columns_device(FakeCuda(), torch.zeros(1),
-                                         torch.ones(1), size=65536)
-    assert kstft.stft_mag.launches == 0
-    assert kcols.spectrogram_columns_fused.launches == 0
+    monkeypatch.setattr(_build, "library", lambda: rec)
+    monkeypatch.setattr(_build, "stream", lambda dev: 0)
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    return rec
+
+
+def test_b12_beyond_cap_raises_on_cuda_tensors(monkeypatch):
+    """(Named for the behaviour it replaced.)  Above MAX_SIZE B12 and B7
+    launch their four-step route instead of raising (ROADMAP C1): at 65,536
+    points each wrapper makes one call of its ``*_4step`` entry with the
+    host plan's N1, and counts one launch; so does B12 at a size whose odd
+    factor needs the direct column sums.  Only a size int32 indices cannot
+    reach raises NotImplementedError, naming why, before any launch."""
+    rec = _fake_cuda(monkeypatch)
+    size, meta = 65536, torch.device("meta")
+    wav = torch.zeros(300000).to(meta)
+    n1, n2 = kstft.four_step_plan(size)
+    b12, b7 = kstft.stft_mag.launches, kcols.spectrogram_columns_fused.launches
+    out = kstft.stft_mag(wav, torch.zeros(size).to(meta), size, 8192, 5)
+    assert out.shape == (5, size // 2)
+    name, args = rec.calls[-1]
+    assert name == "mlx_stft_mag_4step" and args[7:11] == (5, size, n1, 8192)
+    ends = torch.zeros(3, dtype=torch.int32).to(meta)
+    out = kcols.spectrogram_columns_fused(wav, ends, ends, 1.0, size=size)
+    assert out.shape == (3, size // 2) and out.dtype == torch.int32
+    name, args = rec.calls[-1]
+    assert name == "mlx_spectrogram_columns_4step"
+    assert args[8:11] == (3, size, n1)
+    assert kstft.stft_mag.launches == b12 + 1
+    assert kcols.spectrogram_columns_fused.launches == b7 + 1
+    # at and below the cap: the one-block entries, unchanged
+    kstft.stft_mag(wav, torch.zeros(4096).to(meta), 4096, 1024, 5)
+    kcols.spectrogram_columns_fused(wav, ends, ends, 1.0, size=32768)
+    assert [c[0] for c in rec.calls[-2:]] == ["mlx_stft_mag_sizes",
+                                             "mlx_spectrogram_columns"]
+    # the odd factor 12,289 puts N2 above MAX_SIZE: direct column sums,
+    # their table the whole 12,289-point circle
+    odd = 512 * 12289
+    assert kstft.supported(odd, odd // 4)
+    assert kstft.four_step_plan(odd) == (512, 12289)
+    kstft.stft_mag(wav, torch.zeros(odd).to(meta), odd, odd // 4, 3)
+    name, args = rec.calls[-1]
+    assert name == "mlx_stft_mag_4step" and args[7:11] == (3, odd, 512, odd // 4)
+    assert kstft.circle(12289, meta).shape == (12289, 2)
+    assert kstft.stft_mag.launches == b12 + 3
+    # beyond int32 indices: no plan, raised before any launch
+    big = 1 << 31
+    assert kstft.supported(big, big // 4) and kstft.four_step_plan(big) is None
+    with pytest.raises(NotImplementedError, match="2\\^31"):
+        kstft.stft_mag(wav, None, big, big // 4, 3)
+    assert kstft.stft_mag.launches == b12 + 3
+
+
+def _b12_sizes():
+    """Every size B12's predicate takes up to 2^20: multiples of 512."""
+    return [s for s in range(512, (1 << 20) + 1, 512)
+            if any(kstft.supported(s, s // k) for k in range(1, 9)
+                   if s % k == 0)]
+
+
+@pytest.mark.parametrize("kernel", ["b7", "b12"])
+def test_four_step_plan_covers_every_size_above_the_cap(kernel):
+    """The host factor plan for every B7 size (1024 * j, j <= 64) and every
+    B12 size up to 2^20 above MAX_SIZE: N1 * N2 = size, N1 a power of two
+    within MAX_N1, N2 within MAX_SIZE with a power-of-two part of at least
+    4 (fft_real.cuh's real route), N1 the power of two nearest sqrt(size)
+    that fits."""
+    sizes = ([1024 * j for j in range(1, 65) if kcols.supported(1024 * j)]
+             if kernel == "b7" else _b12_sizes())
+    above = [s for s in sizes if s > kstft.MAX_SIZE]
+    assert above and len(above) == (16 if kernel == "b7" else len(above))
+    for size in above:
+        n1, n2 = kstft.four_step_plan(size)
+        assert n1 * n2 == size and n1 & (n1 - 1) == 0
+        assert 2 <= n1 <= kstft.MAX_N1 and n2 <= kstft.MAX_SIZE
+        assert (n2 & -n2) >= 4
+        gap = abs(np.log2(n1) - np.log2(n2))
+        for c in range(1, 15):  # no fitting power of two sits nearer sqrt
+            m1 = 1 << c
+            if size % (4 * m1) == 0 and size // m1 <= kstft.MAX_SIZE \
+                    and m1 <= kstft.MAX_N1:
+                assert abs(np.log2(m1) - np.log2(size // m1)) >= gap - 1.0
+    assert kstft.four_step_plan(1 << 20) == (1024, 1024)
+    assert kstft.four_step_plan(65536) == (256, 256)
+
+
+@pytest.mark.parametrize("size", [65536, 64512, 50176])
+def test_four_step_reference_matches_rfft(size):
+    """The decomposition the kernels run, spelled in plain torch
+    (``four_step_plain``), against ``torch.fft.rfft`` in float64."""
+    x = np.random.default_rng(size).standard_normal((3, size)).astype(np.float32)
+    n1, _n2 = kstft.four_step_plan(size)
+    got = kstft.four_step_plain(torch.from_numpy(x), n1).to(torch.complex128)
+    want = torch.fft.rfft(torch.from_numpy(x).double())[:, : size // 2]
+    err = float((got - want).abs().square().sum() / want.abs().square().sum())
+    assert 10 * np.log10(err) <= -120.0
+
+
+@pytest.mark.parametrize("size,plan", [
+    (512 * 12289, (512, 12289)),  # the smallest odd factor above 12,288
+    (512 * 99999, (512, 99999)),
+    (3 * 1024 * 12289, (1024, 3 * 12289)),
+    (1 << 30, (kstft.MAX_N1, 1 << 16)),  # a power of two above N1 * N2's cap
+    (1 << 31, None), (2 * 12289 + 1, None),
+])
+def test_four_step_plan_direct_columns(size, plan):
+    """Where no N2 within MAX_SIZE holds the odd factor (and a power-of-two
+    part of 4), the plan takes N1 as large as fits and the kernel sums the
+    N2-point columns directly; sizes int32 cannot index, and odd sizes, have
+    no plan."""
+    assert kstft.four_step_plan(size) == plan
+    if plan is not None:
+        assert kstft.four_step_direct(plan[1])
+    assert not kstft.four_step_direct(256) and not kstft.four_step_direct(
+        kstft.MAX_SIZE)
+
+
+def test_four_step_reference_odd_columns_matches_rfft():
+    """The decomposition at the direct route's split, N2 = 12,289 (prime):
+    ``four_step_plain`` against ``torch.fft.rfft`` in float64."""
+    size = 512 * 12289
+    x = np.random.default_rng(7).standard_normal((1, size)).astype(np.float32)
+    got = kstft.four_step_plain(torch.from_numpy(x), 512).to(torch.complex128)
+    want = torch.fft.rfft(torch.from_numpy(x).double())[:, : size // 2]
+    err = float((got - want).abs().square().sum() / want.abs().square().sum())
+    assert 10 * np.log10(err) <= -120.0
 
 
 # ----------------------------------------------------------------------
