@@ -127,6 +127,14 @@ def max_err(got, want) -> float:
     return float((got - want).abs().max())
 
 
+def bit_equal(got, want) -> bool:
+    """Two calls' outputs (tuples of tensors or None) are identical."""
+    import torch
+
+    return all((g is None and w is None) or torch.equal(g, w)
+               for g, w in zip(got, want, strict=True))
+
+
 def fft_flops(n_frames: int, size: int) -> float:
     """Operations of ``n_frames`` real ``size``-point FFTs (2.5 N log2 N)."""
     return n_frames * 2.5 * size * np.log2(size)
@@ -472,8 +480,8 @@ def pv_sum_order_render(mt, x: np.ndarray, markers, dev,
     float32), the reference the sharded sum is held to; ``split=s`` sums
     frames [0, s) and [s, F) each from zero in float32 and adds the first
     part's total to the second (the JAX package's two-rank order);
-    ``split=0`` is one serial float32 sum (the single render's order, B3's
-    scan)."""
+    ``split=0`` is one serial float32 sum (the order B3's scan had before
+    it was blocked and summed in float64)."""
     import torch
 
     from melonix_tpu_torch.engine import phase_vocoder as pv
@@ -809,20 +817,59 @@ def main() -> int:
     b3 = lambda: kpv.synth_ola_phase(*b3_args)  # noqa: E731
     b3p = lambda: kpv.synth_ola_phase_plain(*b3_args)  # noqa: E731
     (y_k, r_k, pl_k, p0_k), (y_p, r_p, pl_p, p0_p) = b3(), b3p()
+    again = b3()
     torch.cuda.synchronize()
     rms, env = rms_env(y_k, y_p)
     e = max_err(y_k, y_p)
     r_ok = float(((r_k - r_p).abs() < 1e-2).float().mean())
+    det = bit_equal(again, (y_k, r_k, pl_k, p0_k))
     print(f"    B3 synth_ola_phase: rms {rms:.2e} (bar < 5e-3 of max), "
           f"envelope {env:.2e} (bar < 2e-2), max abs err {e:.3e}; carries: "
           f"phi0_eff {max_err(p0_k, p0_p):.2e}, phi_last "
           f"{max_err(pl_k, pl_p):.2e} (bars 1e-5), resid_last within 1e-2 "
-          f"on {100 * r_ok:.1f}% of bins (bar 90%)", flush=True)
+          f"on {100 * r_ok:.1f}% of bins (bar 90%), equal on "
+          f"{100 * float((r_k == r_p).float().mean()):.1f}%; two calls "
+          f"bit-equal {det} (bar: equal)", flush=True)
     check(y_k.shape == y_p.shape == ((plan.n_frames - 1) * hop + size,),
           "B3 output length")
     check(rms < 5e-3 and env < 2e-2, "B3 waveform vs twin")
     check(max_err(p0_k, p0_p) < 1e-5 and max_err(pl_k, pl_p) < 1e-5
           and r_ok > 0.9, "B3 carries vs twin")
+    check(det, "B3 two calls differ")
+    # the blocked phase scan alone (B3's first three launches): psi and
+    # the carries against the twin's formulas (float64 sum, rounded once)
+    sc_args = (re_k, im_k, da, 0, f_real, zeros, zeros, zeros, size, hop)
+    sk = kpv.phase_scan(*sc_args, lock=True)
+    sp = kpv.phase_scan_plain(*sc_args, lock=True)
+    torch.cuda.synchronize()
+    psi_eq = float((sk[1] == sp[1]).float().mean())
+    print(f"    B3 phase scan alone (lock layout: mag, psi, phi): mag equal "
+          f"{torch.equal(sk[0], sp[0])}, phi equal on "
+          f"{100 * float((sk[2] == sp[2]).float().mean()):.4f}%, psi equal on "
+          f"{100 * psi_eq:.4f}%, max |psi - twin| {max_err(sk[1], sp[1]):.3e} "
+          f"rad (max |psi| {float(sp[1].abs().max()):.1f}); resid_last within "
+          f"1e-2 on {100 * float(((sk[3] - sp[3]).abs() < 1e-2).float().mean()):.1f}% "
+          f"(bar 90%)", flush=True)
+    check(float(((sk[3] - sp[3]).abs() < 1e-2).float().mean()) > 0.9
+          and max_err(sk[4], sp[4]) < 1e-5 and max_err(sk[5], sp[5]) < 1e-5,
+          "B3 phase scan carries vs twin")
+    del sk, sp
+    sc = lambda: kpv.phase_scan(*sc_args)  # noqa: E731
+    scp = lambda: kpv.phase_scan_plain(*sc_args)  # noqa: E731
+    (sr_k, si_k, _n, *c_k), (sr_p, si_p, _n, *c_p) = sc(), scp()
+    check(bit_equal(sc(), (sr_k, si_k, None, *c_k)), "B3 scan two calls differ")
+    e_sc = max(max_err(sr_k, sr_p), max_err(si_k, si_p))
+    # yardstick: one cumsum of the (F, 1025) increments, in float64 (the
+    # scan's sum) and, printed beside it, float32
+    incr_sc = kpv.phase_increments(torch.atan2(im_k, re_k), da, 0, zeros,
+                                   size, hop)
+    incr64 = incr_sc.double()
+    record("pv_phase_scan", "melonix_tpu_torch/csrc/pv_synth_ola_phase.cu",
+           "melonix_tpu/kernels/pallas_pv.py:828", e_sc, sc, scp,
+           lambda: torch.cumsum(incr64, dim=0),
+           nbytes(re_k, im_k, da, zeros, zeros, zeros)
+           + nbytes(sr_k, si_k, *c_k), 0.0)
+    del sr_k, si_k, sr_p, si_p
     # yardstick: cuFFT's irfft of the half spectrum (B3's inverse DFT only;
     # the bound counts the inverse FFTs' operations, not the phase scan's)
     spec_b3 = torch.complex(re_k, im_k)
@@ -831,20 +878,35 @@ def main() -> int:
            lambda: torch.fft.irfft(spec_b3, n=size),
            nbytes(re_k, im_k, da, win, zeros, zeros, zeros)
            + nbytes(y_k, r_k, pl_k, p0_k), fft_flops(plan.n_frames, size))
-    # a later chunk: global frame offset, padded tail, carries from above
-    m0_late, f_late = 3 * plan.n_frames, plan.n_frames - 17
-    late = (re_k, im_k, da, win, m0_late, f_late, p0_p, r_p, pl_p, size, hop)
+    # a later chunk: global frame offset, padded tail, carries from above;
+    # 15,027 frames, so the scan's last tile and last run are partial
+    # (15,104 is 118 whole tiles of 128) and B2 pairs its last frame with
+    # silence
+    f_odd = plan.n_frames - 77
+    m0_late, f_late = 3 * plan.n_frames, f_odd - 17
+    late = (re_k[:f_odd], im_k[:f_odd], da[:f_odd], win, m0_late, f_late,
+            p0_p, r_p, pl_p, size, hop)
     lk, lp = kpv.synth_ola_phase(*late), kpv.synth_ola_phase_plain(*late)
     torch.cuda.synchronize()
     rms, env = rms_env(lk[0], lp[0])
     r_ok = float(((lk[1] - lp[1]).abs() < 1e-2).float().mean())
     e_pl, e_p0 = max_err(lk[2], lp[2]), max_err(lk[3], lp[3])
-    print(f"    B3 later chunk (m0 {m0_late}, f_real {f_late}): rms {rms:.2e}, "
-          f"envelope {env:.2e}, phi0_eff {e_p0:.2e}, phi_last {e_pl:.2e}, "
-          f"resid_last within 1e-2 on {100 * r_ok:.1f}% of bins (same bars)",
-          flush=True)
-    check(rms < 5e-3 and env < 2e-2 and e_p0 < 1e-5 and e_pl < 1e-5
-          and r_ok > 0.9, "B3 later chunk")
+    print(f"    B3 later chunk ({f_odd} frames, m0 {m0_late}, f_real {f_late})"
+          f": rms {rms:.2e}, envelope {env:.2e}, phi0_eff {e_p0:.2e}, "
+          f"phi_last {e_pl:.2e}, resid_last within 1e-2 on "
+          f"{100 * r_ok:.1f}% of bins (same bars)", flush=True)
+    check(lk[0].shape == lp[0].shape and rms < 5e-3 and env < 2e-2
+          and e_p0 < 1e-5 and e_pl < 1e-5 and r_ok > 0.9, "B3 later chunk")
+    (re_o, im_o), (re_op, im_op) = (kpv.analysis(wav, starts[:f_odd], win,
+                                                 size),
+                                    kpv.analysis_plain(wav, starts[:f_odd],
+                                                       win, size))
+    s = snr_db(torch.stack([re_o, im_o]), torch.stack([re_op, im_op]))
+    print(f"    B2 analysis of {f_odd} frames (an odd count): SNR {s:.1f} dB "
+          f"(bar < -100)", flush=True)
+    check(re_o.shape == (f_odd, size // 2 + 1) and s < -100.0,
+          "B2 odd frame count vs twin")
+    del re_o, im_o, re_op, im_op
 
     y = y_k[: plan.stretch_len] / pv._ola_wsum(win, size, hop, plan.n_frames,
                                                plan.stretch_len)
@@ -912,8 +974,8 @@ def main() -> int:
     check(abs(cents) < 1.0, f"pitch error {cents} cents")
     # The same render in 4096-frame chunks: the phase carry through B3.  A
     # carry fault breaks phase at every chunk seam (rms ~ the signal); what
-    # remains is the running float32 phase sum's rounding, which a
-    # different grouping of 15k terms exposes: the PV bars apply.
+    # remains is the float32 rounding of the resid carry at each seam (the
+    # sum itself is float64): the PV bars apply.
     saved, pv.PV_CHUNK_FRAMES = pv.PV_CHUNK_FRAMES, 4096
     try:
         out_c = mt.render_track_pv(wav, knots, device_out=True)
@@ -928,7 +990,11 @@ def main() -> int:
     # -- 5. the main path went through every kernel --------------------
     print(f"[5] launches in one main-path run: {launches}", flush=True)
     check(all(v > 0 for v in launches.values()), "a kernel was not launched")
-    for name, fn in zip(rows, counters):
+    # the scan's launches run inside every B3 call: B3's count is theirs
+    for name, fn in (("stft_mag", kpv.stft_mag), ("pv_analysis", kpv.analysis),
+                     ("pv_synth_ola_phase", kpv.synth_ola_phase),
+                     ("pv_phase_scan", kpv.synth_ola_phase),
+                     ("resample_pv", kres.resample_pv)):
         rows[name]["launches"] = launches[fn.__name__]
 
     # -- 6. granular host half: native runtime against NumPy -----------
@@ -1401,29 +1467,32 @@ def main() -> int:
     b3fp = lambda: kpv.synth_ola_phase_plain(  # noqa: E731
         *b3f_args, cart=False)
     (y_k, r_k, pl_k, p0_k), (y_p, r_p, pl_p, p0_p) = b3f(), b3fp()
+    det = bit_equal(b3f(), (y_k, r_k, pl_k, p0_k))
     torch.cuda.synchronize()
     rms, env = rms_env(y_k, y_p)
     e = max_err(y_k, y_p)
     # every frame of the melody is bent, so the residual sums run to
-    # thousands of radians, and two float32 summation orders (the kernel's
-    # serial sum, the twin's cumsum) differ in proportion to them: the bar
-    # counts float32 spacings of |resid| (eps |resid|)
+    # thousands of radians: the bar also counts float32 spacings of |resid|
+    # (eps |resid|)
     eps32 = torch.finfo(torch.float32).eps
     r_sp = (r_k - r_p).abs() / (eps32 * r_p.abs().clamp_min(1.0))
     r_q = [float(v) for v in torch.quantile(
         r_sp, torch.tensor([0.5, 0.9, 0.99], device=dev))]
     r_ok = float((r_sp <= 32.0).float().mean())
+    r_abs = float(((r_k - r_p).abs() < 1e-2).float().mean())
     print(f"     B3 synth_ola_phase (mag, phi) entry: rms {rms:.2e} (bar < "
           f"5e-3 of max), envelope {env:.2e} (bar < 2e-2), max abs err "
           f"{e:.3e}; carries: phi0_eff {max_err(p0_k, p0_p):.2e}, phi_last "
           f"{max_err(pl_k, pl_p):.2e} (bars 1e-5), resid_last (median "
-          f"|resid| {float(r_p.abs().median()):.1f} rad) within 32 float32 "
-          f"spacings on {100 * r_ok:.1f}% of bins (bar 90%; quantiles 50/90/"
-          f"99%: {r_q[0]:.1f}, {r_q[1]:.1f}, {r_q[2]:.1f} spacings)",
-          flush=True)
+          f"|resid| {float(r_p.abs().median()):.1f} rad) within 1e-2 on "
+          f"{100 * r_abs:.1f}% of bins and within 32 float32 spacings on "
+          f"{100 * r_ok:.1f}% (bars 90%; quantiles 50/90/99%: {r_q[0]:.1f}, "
+          f"{r_q[1]:.1f}, {r_q[2]:.1f} spacings); two calls bit-equal {det} "
+          f"(bar: equal)", flush=True)
     check(rms < 5e-3 and env < 2e-2, "B3 (mag, phi) waveform vs twin")
     check(max_err(p0_k, p0_p) < 1e-5 and max_err(pl_k, pl_p) < 1e-5
-          and r_ok > 0.9, "B3 (mag, phi) carries vs twin")
+          and r_ok > 0.9 and r_abs > 0.9, "B3 (mag, phi) carries vs twin")
+    check(det, "B3 (mag, phi) two calls differ")
     spec_b3f = torch.polar(mag_m, phi_m)
     record("pv_synth_ola_phase_mag_phi",
            "melonix_tpu_torch/csrc/pv_synth_ola_phase.cu",
@@ -1467,22 +1536,27 @@ def main() -> int:
         b3lp = (lambda args=args, cart=cart:  # noqa: E731
                 kpv.synth_ola_phase_plain(*args, cart=cart, lock=True))
         (y_k, r_k, pl_k, p0_k), (y_p, r_p, pl_p, p0_p) = b3l(), b3lp()
+        det = bit_equal(b3l(), (y_k, r_k, pl_k, p0_k))
         torch.cuda.synchronize()
         rms, env = rms_env(y_k, y_p)
         e = max_err(y_k, y_p)
         eps32 = torch.finfo(torch.float32).eps
         r_sp = (r_k - r_p).abs() / (eps32 * r_p.abs().clamp_min(1.0))
         r_ok = float((r_sp <= 32.0).float().mean())
+        r_abs = float(((r_k - r_p).abs() < 1e-2).float().mean())
         print(f"[14] B3 synth_ola_phase lock=True, {entry} entry: rms {rms:.2e} "
               f"(bar < 5e-3 of max), envelope {env:.2e} (bar < 2e-2), max abs "
               f"err {e:.3e}; phi0_eff equal {torch.equal(p0_k, p0_p)}, "
               f"phi_last equal {torch.equal(pl_k, pl_p)} (bars: equal), "
-              f"resid_last within 32 float32 spacings on {100 * r_ok:.1f}% of "
-              f"bins (bar 90%)", flush=True)
+              f"resid_last within 1e-2 on {100 * r_abs:.1f}% of bins and "
+              f"within 32 float32 spacings on {100 * r_ok:.1f}% (bars 90%); "
+              f"two calls bit-equal {det} (bar: equal)", flush=True)
         check(y_k.shape == y_p.shape and rms < 5e-3 and env < 2e-2,
               f"B3 lock {entry} waveform vs twin")
         check(torch.equal(p0_k, p0_p) and torch.equal(pl_k, pl_p)
-              and r_ok >= 0.9, f"B3 lock {entry} carries vs twin")
+              and r_ok >= 0.9 and r_abs >= 0.9,
+              f"B3 lock {entry} carries vs twin")
+        check(det, f"B3 lock {entry} two calls differ")
         if cart:
             record("pv_synth_ola_phase_lock",
                    "melonix_tpu_torch/csrc/pv_synth_ola_phase.cu",
@@ -1836,16 +1910,21 @@ def main() -> int:
     o64 = np.abs(np.fft.rfft(fr64)[:, : odd // 2])
     soo = 10.0 * np.log10(np.sum((got.cpu().numpy() - o64) ** 2)
                           / np.sum(o64 ** 2))
-    o_ms, op_ms = cuda_ms(b12o), cuda_ms(b12op)
     print(f"     B12 at {odd}/{hop_o} (odd factor 12,289: plan "
           f"{kstft.four_step_plan(odd)}, direct column sums; {nf_o} frames): "
           f"SNR {so:.1f} dB vs twin (bar < -80), max abs err {eo:.3e}; vs "
           f"float64 |rfft| {soo:.1f} dB (bar < -60); launches {b12o_launches}"
-          f" (bar 1); kernel {o_ms:.3f} ms, twin {op_ms:.3f} ms (median of "
-          f"{REPS}) | {card}", flush=True)
+          f" (bar 1)", flush=True)
     check(kstft.four_step_plan(odd) == (512, 12289)
           and got.shape == (nf_o, odd // 2) and so < -80.0 and soo < -60.0
           and b12o_launches == 1, "B12 direct column sums")
+    frames_b12o = kpv.hop_frames(wav, odd, hop_o, nf_o) * win_o[None, :]
+    record("stft_mag_sizes_direct", "melonix_tpu_torch/csrc/stft_mag_sizes.cu",
+           "melonix_tpu/kernels/pallas_stft.py:106", eo, b12o, b12op,
+           lambda: torch.fft.rfft(frames_b12o),
+           4 * (min(n, (nf_o - 1) * hop_o + odd) + odd + nf_o * odd // 2),
+           fft_flops(nf_o, odd))
+    rows["stft_mag_sizes_direct"].update(launches=b12o_launches, inner=1)
     del got, want, fr64, o64
 
     # -- 20. two ranks on gloo, each on this card ----------------------
@@ -1874,10 +1953,10 @@ def main() -> int:
                    for r in range(world)]
     # The reference: the same formulas with the phase sum formed exactly
     # (float64, rounded once), held in the JAX suite's quarter-second form
-    # at its bars (test_parallel.py:219-231).  The single render's serial
-    # float32 sum is itself ~5e-3 of rms off the exact sum on this track,
-    # so it is held in this script's peak form (2e-3 of max, 2e-2) and read
-    # in both forms.
+    # at its bars (test_parallel.py:219-231), both the seq-parallel PV and
+    # the single render (B3's blocked scan sums in float64 too).  The seq
+    # PV is also held to the single render in this script's peak form (2e-3
+    # of max, 2e-2) and read in both forms.
     exact = pv_sum_order_render(mt, x, bench_markers(mt, n), dev)
     want = out.cpu().numpy()  # render_track_pv of the song on the card
     rms_x, env_x = rms_rel_env(seq_out[0], exact, SR)
@@ -1887,9 +1966,10 @@ def main() -> int:
     same_ranks = all(np.array_equal(o, seq_out[0]) for o in seq_out)
     print(f"[20] seq-parallel PV of the {SECONDS:.0f} s song on 2 gloo ranks "
           f"(data=1, seq=2, each rank on cuda:0): vs the exact phase sum rms "
-          f"{rms_x:.3e} of rms (bar 2e-3), envelope {env_x:.3e} (bar 2e-2) "
-          f"(render_track_pv vs the exact sum: rms {rms_1:.3e} of rms, "
-          f"envelope {env_1:.3e}); vs render_track_pv rms {rms_s:.3e} of "
+          f"{rms_x:.3e} of rms (bar 2e-3), envelope {env_x:.3e} (bar 2e-2); "
+          f"render_track_pv vs the exact sum: rms {rms_1:.3e} of rms (bar "
+          f"2e-3), envelope {env_1:.3e} (bar 2e-2); seq-parallel PV "
+          f"vs render_track_pv rms {rms_s:.3e} of "
           f"max (bar 2e-3), envelope {env_s:.3e} (bar 2e-2), quarter-second "
           f"form rms {rms_q:.3e} of rms, envelope {env_q:.3e}; both ranks "
           f"return the whole track, equal {same_ranks}", flush=True)
@@ -1918,6 +1998,7 @@ def main() -> int:
               f"rank {r['rank']} seq PV launches {q['launches']}")
     check(seq_out[0].shape == want.shape == exact.shape and same_ranks
           and rms_x < 2e-3 and env_x < 2e-2, "seq-parallel PV vs exact sum")
+    check(rms_1 < 2e-3 and env_1 < 2e-2, "render_track_pv vs exact sum")
     check(rms_s < 2e-3 and env_s < 2e-2, "seq-parallel PV vs single")
     rows["pv_synth_ola"]["launches"] = rk[0]["seq_pv"]["launches"]["synth_ola"]
     r0 = rk[0]
@@ -1993,18 +2074,26 @@ def main() -> int:
 
     # -- 22. times (CUDA events, median of 5 after a warm-up) ---------
     for r in rows.values():
-        r["ms"] = cuda_ms(r.pop("run_kernel"), inner=KERNEL_INNER)
-        r["plain_ms"] = cuda_ms(r.pop("run_plain"), inner=KERNEL_INNER)
+        inner = r.pop("inner", KERNEL_INNER)
+        r["ms"] = cuda_ms(r.pop("run_kernel"), inner=inner)
+        r["plain_ms"] = cuda_ms(r.pop("run_plain"), inner=inner)
         lib = r.pop("run_library")
-        r["library_ms"] = (None if lib is None
-                           else cuda_ms(lib, inner=KERNEL_INNER))
+        r["library_ms"] = (None if lib is None else cuda_ms(lib, inner=inner))
         lib_txt = ("none" if lib is None
                    else f"{r['library_ms']:.4f} ms")
         print(f"[22] {r['name']}: kernel {r['ms']:.4f} ms, plain twin "
               f"{r['plain_ms']:.4f} ms, one PyTorch call {lib_txt}, bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}); launches on its "
-              f"main path {r['launches']} (mean of {KERNEL_INNER} "
+              f"main path {r['launches']} (mean of {inner} "
               f"back-to-back calls) | {card}", flush=True)
+    cumsum32_ms = cuda_ms(lambda: torch.cumsum(incr_sc, dim=0),
+                          inner=KERNEL_INNER)
+    print(f"[22] B3's phase scan yardsticks: torch.cumsum of the "
+          f"{tuple(incr_sc.shape)} increments {cumsum32_ms:.4f} ms in float32, "
+          f"{rows['pv_phase_scan']['library_ms']:.4f} ms in float64; B3's "
+          f"synthesis + OLA launches (B3 less the scan alone) "
+          f"{rows['pv_synth_ola_phase']['ms'] - rows['pv_phase_scan']['ms']:.4f}"
+          f" ms | {card}", flush=True)
     dev_args = (wav, gplan.grain_start, gplan.rate, gplan.sz, offs, total,
                 fix_idx, fix_val, szmax)
     g_dev_ms = cuda_ms(lambda: krender.render_full(*dev_args))

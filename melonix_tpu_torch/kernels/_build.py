@@ -51,10 +51,14 @@ SIGNATURES = {
     "mlx_stft_mag": (_P, _L, _P, _P, _P, _I, _I, _F, _P),
     # wav, n, starts, win, tw, re, im, n_frames, stream
     "mlx_pv_analysis": (_P, _L, _P, _P, _P, _P, _P, _I, _P),
-    # re, im, da, win, tw, phi0, resid_in, phi_prev,
+    # re, im, da, win, tw, phi0, resid_in, phi_prev, scratch,
     # s_re, s_im, s_phi, frames, y, resid_last, phi_last, phi0_eff,
     # n_frames, m0, f_real, hop, cart, lock, stream
-    "mlx_pv_synth_ola_phase": (_P,) * 16 + (_I,) * 6 + (_P,),
+    "mlx_pv_synth_ola_phase": (_P,) * 17 + (_I,) * 6 + (_P,),
+    # re, im, da, phi0, resid_in, phi_prev, scratch, s_re, s_im, s_phi,
+    # resid_last, phi_last, phi0_eff, n_frames, m0, f_real, hop, cart, lock,
+    # stream
+    "mlx_pv_phase_scan": (_P,) * 13 + (_I,) * 6 + (_P,),
     # y, n_src, base, a0, cnt, anc_j, anc_src, anc_r, anc_s, n_anc,
     # out, n_out, sr, stream
     "mlx_resample_pv": (_P, _L, _P, _P, _P, _P, _P, _P, _P, _I, _P, _L, _I, _P),
