@@ -784,6 +784,24 @@ def main() -> int:
     print(f"[3] B1 stft_mag: SNR {s:.1f} dB (bar < -100), max abs err "
           f"{max_err(got, want):.3e}", flush=True)
     check(got.shape == (nf, size // 2) and s < -100.0, "B1 vs twin")
+    # the pair transform's edges: a hop that is no multiple of 128, an odd
+    # frame count (the last frame paired with silence), one frame, and a
+    # track shorter than a frame (zero fill)
+    short = wav[:1500]
+    for label, w_, hp_, nf_ in (
+            ("hop 441", wav, 441, num_frames(n, size, 441)),
+            ("odd count", wav, hop, nf - 1 if nf % 2 == 0 else nf),
+            ("one frame", wav, hop, 1),
+            ("1500-sample track", short, hop, 3)):
+        g_, w_p = (kpv.stft_mag(w_, win, size, hp_, nf_),
+                   kpv.stft_mag_plain(w_, win, size, hp_, nf_))
+        torch.cuda.synchronize()
+        s_ = snr_db(g_, w_p)
+        print(f"    B1 stft_mag, {label} ({nf_} frames, hop {hp_}): SNR "
+              f"{s_:.1f} dB (bar < -100), finite "
+              f"{bool(torch.isfinite(g_).all())}", flush=True)
+        check(g_.shape == (nf_, size // 2) and s_ < -100.0
+              and bool(torch.isfinite(g_).all()), f"B1 {label} vs twin")
     # yardstick: cuFFT's rfft of the windowed frames, made outside the timing
     frames_b1 = kpv.hop_frames(wav, size, hop, nf) * win[None, :]
     record("stft_mag", "melonix_tpu_torch/csrc/stft_mag.cu",
@@ -1184,27 +1202,42 @@ def main() -> int:
            + 4 * 256 * (csize // 2), fft_flops(256, csize))
 
     # -- 10. B12 against its twin; the |STFT| pyramid's two routes -----
-    for sz, hp in ((4096, 1024), (1024, 256), (1536, 384)):
+    # each size by its route (kstft.route): the pair transform at powers of
+    # two up to 8192, the one-block fft_real.cuh at 1536; each also through
+    # stft_mags_device, the entry point, whose launches the rows carry
+    b12_rows = {4096: "stft_mag_sizes", 1024: "stft_mag_sizes_1024",
+                8192: "stft_mag_sizes_8192", 512: "stft_mag_sizes_512",
+                1536: "stft_mag_sizes_one_block_1536"}
+    for sz, hp in ((4096, 1024), (1024, 256), (8192, 1024), (512, 128),
+                   (1536, 384)):
         w_d, nfz = put(hann_window(sz)), num_frames(n, sz, hp)
         got = kstft.stft_mag(wav, w_d, sz, hp, nfz)
         want = kstft.stft_mag_plain(wav, w_d, sz, hp, nfz)
+        kstft.stft_mag.launches = 0
+        via = mt.stft_mags_device(wav, w_d, sz, hp, nfz)
         torch.cuda.synchronize()
+        launches_z = kstft.stft_mag.launches
         s, e = snr_db(got, want), max_err(got, want)
-        print(f"[10] B12 stft_mag_sizes {sz}/{hp} ({nfz} frames): SNR "
-              f"{s:.1f} dB (bar < -80), max abs err {e:.3e}", flush=True)
+        print(f"[10] B12 stft_mag_sizes {sz}/{hp} ({nfz} frames, route "
+              f"{kstft.route(sz)}): SNR {s:.1f} dB (bar < -80), max abs err "
+              f"{e:.3e}; stft_mags_device launches {launches_z} (bar 1), "
+              f"equal {bool(torch.equal(via, got))}", flush=True)
         check(got.shape == (nfz, sz // 2) and s < -80.0,
               f"B12 {sz}/{hp} vs twin")
-        if sz == 4096:
-            win12, nf12, e12 = w_d, nfz, e
-    b12 = lambda: kstft.stft_mag(wav, win12, 4096, 1024, nf12)  # noqa: E731
-    b12p = lambda: kstft.stft_mag_plain(  # noqa: E731
-        wav, win12, 4096, 1024, nf12)
-    frames_b12 = kpv.hop_frames(wav, 4096, 1024, nf12) * win12[None, :]
-    record("stft_mag_sizes", "melonix_tpu_torch/csrc/stft_mag_sizes.cu",
-           "melonix_tpu/kernels/pallas_stft.py:106", e12, b12, b12p,
-           lambda: torch.fft.rfft(frames_b12),
-           4 * (min(n, (nf12 - 1) * 1024 + 4096) + 4096 + nf12 * 2048),
-           fft_flops(nf12, 4096))
+        check(launches_z == 1 and bool(torch.equal(via, got)),
+              f"B12 {sz}/{hp} through stft_mags_device")
+        frames_z = kpv.hop_frames(wav, sz, hp, nfz) * w_d[None, :]
+        record(b12_rows[sz], "melonix_tpu_torch/csrc/stft_mag_sizes.cu",
+               "melonix_tpu/kernels/pallas_stft.py:106", e,
+               lambda w_=w_d, sz_=sz, hp_=hp, nf_=nfz: kstft.stft_mag(
+                   wav, w_, sz_, hp_, nf_),
+               lambda w_=w_d, sz_=sz, hp_=hp, nf_=nfz: kstft.stft_mag_plain(
+                   wav, w_, sz_, hp_, nf_),
+               lambda fr_=frames_z: torch.fft.rfft(fr_),
+               4 * (min(n, (nfz - 1) * hp + sz) + sz + nfz * sz // 2),
+               fft_flops(nfz, sz))
+        rows[b12_rows[sz]]["launches"] = launches_z
+        del got, want, via
     vs, ve = view_column_ranges(knots, 1280, 0.0, knots.duration())
     b1_fn, b12_fn = kpv.stft_mag, kstft.stft_mag
     for sz, hp, want_counts in ((2048, 512, (1, 0)), (4096, 1024, (0, 1))):
@@ -1215,6 +1248,14 @@ def main() -> int:
         counts = (b1_fn.launches, b12_fn.launches)
         with plain_twins(*twins):
             pyr_p = mt.SpecPyramid(wav, size=sz, base_hop=hp)
+        build = lambda sz_=sz, hp_=hp: mt.SpecPyramid(  # noqa: E731
+            wav, size=sz_, base_hop=hp_)
+        build_ms = host_ms(build)
+        with plain_twins(*twins):
+            build_plain_ms = host_ms(build)
+        print(f"    SpecPyramid {sz}/{hp} build (wall, synchronised, median "
+              f"of {REPS}): {build_ms:.2f} ms with the kernels, "
+              f"{build_plain_ms:.2f} ms all-plain | {card}", flush=True)
         cols, cols_p = pyr.compute_columns(vs, ve), pyr_p.compute_columns(vs, ve)
         s = snr_db(torch.from_numpy(cols), torch.from_numpy(cols_p))
         print(f"    SpecPyramid {sz}/{hp}: {len(pyr.hops)} levels, "
@@ -1886,12 +1927,13 @@ def main() -> int:
     check(s12o < -60.0 and b12b_launches == 1
           and bool(torch.equal(mags65, got)), "B12 65536 vs float64 oracle")
     frames_b12b = kpv.hop_frames(wav, big, hop65, nf65) * win65[None, :]
-    record("stft_mag_sizes_65536", "melonix_tpu_torch/csrc/stft_mag_sizes.cu",
+    record("stft_mag_sizes_four_step_65536",
+           "melonix_tpu_torch/csrc/stft_mag_sizes.cu",
            "melonix_tpu/kernels/pallas_stft.py:106", e12b, b12b, b12bp,
            lambda: torch.fft.rfft(frames_b12b),
            4 * (min(n, (nf65 - 1) * hop65 + big) + big + nf65 * big // 2),
            fft_flops(nf65, big))
-    rows["stft_mag_sizes_65536"]["launches"] = b12b_launches
+    rows["stft_mag_sizes_four_step_65536"]["launches"] = b12b_launches
     del got, want, mk, mp, pk, pp, mags65
     # an odd factor above 12,288: the four-step route's direct column sums
     odd = 512 * 12289  # N1 512, N2 12,289 (prime)

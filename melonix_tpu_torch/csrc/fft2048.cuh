@@ -1,6 +1,6 @@
-// 2048-point complex FFT in shared memory: the DFT body shared by the
-// port's three DFT kernels (stft_mag.cu, pv_analysis.cu,
-// pv_synth_ola_phase.cu).
+// 2048-point complex FFT in shared memory: the inverse DFT of B3's and
+// B10's synthesis (pv_synth.cuh; B1 and B2 run the register-resident
+// fft_pair.cuh).
 //
 // It replaces the four-step bf16x3 MXU factorisation of
 // melonix_tpu/kernels/pallas_pv.py (_fwd_dft, _syn_body), which was a

@@ -11,7 +11,8 @@
 // 0..1024 in natural order.
 //
 // Design: two real frames per complex transform, z = x_a + i x_b, on the
-// register-resident fft2048_pair.cuh; the halves come apart as
+// 2048-point instance of the register-resident fft_pair.cuh; the halves
+// come apart as
 //   X_a[k] = (Z[k] + conj Z[N - k]) / 2,  X_b[k] = (Z[k] - conj Z[N - k]) / 2i,
 // so no arithmetic or shared traffic is spent on a zero imaginary half.  A
 // CTA of 128 threads loads its twiddles once and then walks frame pairs
@@ -22,13 +23,14 @@
 // alignment).  The epilogue reads Z[k] and Z[N - k] from shared memory and
 // stores both frames' rows coalesced.  8 KB in and 8 KB out per frame: with
 // the transform in registers the kernel should approach its HBM bound.
-#include "fft2048_pair.cuh"
+#include "fft_pair.cuh"
 
 namespace {
 
 namespace pf = mlx::pairfft;
+using P = pf::Pair<2048>;
 
-constexpr int kBins = pf::kN / 2 + 1;
+constexpr int kBins = P::kN / 2 + 1;
 
 // Frame m's clamped start; n (all zeros) for a frame past the last, so an
 // odd count pairs its last frame with silence.
@@ -45,15 +47,15 @@ __device__ __forceinline__ float sample(const float* __restrict__ wav,
   return idx < n ? wav[idx] : 0.0f;
 }
 
-__global__ void __launch_bounds__(pf::kThreads)
+__global__ void __launch_bounds__(P::kThreads, P::kMinBlocks)
 pv_analysis_kernel(const float* __restrict__ wav, long long n,
                    const int* __restrict__ starts,
                    const float* __restrict__ win,
                    const float2* __restrict__ tw, float* __restrict__ re,
                    float* __restrict__ im, int n_frames) {
-  __shared__ float2 buf[2][pf::kBuf];
-  pf::Twiddles twr;
-  pf::load_twiddles(twr, tw);
+  extern __shared__ float2 buf[];  // two exchange buffers of P::kBuf
+  pf::Twiddles<P::kN> twr;
+  pf::load_twiddles<P::kN>(twr, tw);
   const int n_pairs = (n_frames + 1) / 2;
   int turn = 0;
   for (int p = blockIdx.x; p < n_pairs; p += gridDim.x, turn ^= 1) {
@@ -63,17 +65,17 @@ pv_analysis_kernel(const float* __restrict__ wav, long long n,
     float2 v[16];
 #pragma unroll
     for (int a = 0; a < 16; ++a) {
-      const int i = threadIdx.x + 128 * a;
+      const int i = threadIdx.x + P::kThreads * a;
       const float w = win[i];
       v[a] = make_float2(sample(wav, sa + i, n) * w,
                          sample(wav, sb + i, n) * w);
     }
-    float2* z = buf[turn];
-    pf::fft2048(v, twr, z, buf[turn ^ 1], -1.0f);
+    float2* z = buf + turn * P::kBuf;
+    pf::fft<P::kN>(v, twr, z, buf + (turn ^ 1) * P::kBuf, -1.0f);
     const long long row_a = static_cast<long long>(ma) * kBins;
     const long long row_b = row_a + kBins;
-    for (int k = threadIdx.x; k < kBins; k += pf::kThreads) {
-      const float2 zk = z[k], zn = z[(pf::kN - k) & (pf::kN - 1)];
+    for (int k = threadIdx.x; k < kBins; k += P::kThreads) {
+      const float2 zk = z[k], zn = z[(P::kN - k) & (P::kN - 1)];
       re[row_a + k] = 0.5f * (zk.x + zn.x);
       im[row_a + k] = 0.5f * (zk.y - zn.y);
       if (mb < n_frames) {
@@ -91,19 +93,11 @@ extern "C" int mlx_pv_analysis(const float* wav, long long n,
                                const float2* tw, float* re, float* im,
                                int n_frames, cudaStream_t stream) {
   if (n_frames <= 0) return static_cast<int>(cudaGetLastError());
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) {
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  }
-  if (err == cudaSuccess) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, pv_analysis_kernel, pf::kThreads, 0);
-  }
+  int grid = 0;
+  const cudaError_t err = pf::persistent_grid(
+      pv_analysis_kernel, P::kThreads, P::kSmem, (n_frames + 1) / 2, &grid);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int n_pairs = (n_frames + 1) / 2;
-  const int grid = n_pairs < sms * per_sm ? n_pairs : sms * per_sm;
-  pv_analysis_kernel<<<grid > 0 ? grid : 1, pf::kThreads, 0, stream>>>(
+  pv_analysis_kernel<<<grid, P::kThreads, P::kSmem, stream>>>(
       wav, n, starts, win, tw, re, im, n_frames);
   return static_cast<int>(cudaGetLastError());
 }

@@ -9,23 +9,32 @@
 // (n_frames, N/2) float32, bins in natural order,
 // out[f, k] = |sum_i win[i] x_f[i] e^{-2 pi i k i / N}| * scale.
 //
-// Design: one block of 256 threads per frame.  Threads read the frame
-// coalesced, window it and store it packed into dynamic shared memory; the
-// real-input DFT of fft_real.cuh runs there: a power-of-two N is one
-// packed FFT, N = 2^a * m with m odd (1536 = 512 * 3) is m packed radix-2
-// FFTs of the decimated samples plus a direct m-point sum per output bin.
-// Shared memory is 4*N bytes (the wrapper caps N, kernels/stft.py).  At
-// 4096/1024 on a 180 s track the frames read 32 MB and write 64 MB: device
-// memory bounds it (~28 us at 3.35 TB/s), not the ~0.15 MFLOP per frame.
+// Three routes, picked by N alone (kernels/stft.py route):
 //
-// Above 49,152 points the frame takes the four-step route of
-// fft_fourstep.cuh: stft_four_step_cols (one block per (frame, n1): the
-// windowed strided samples' real N2-point transforms, into a scratch
-// buffer; stft_four_step_cols_direct, by direct sums, where N's odd factor
-// is above 12,288) then stft_four_step_rows (a block per (frame, k2):
-// twiddles, the complex N1-point transform, |X| * scale for the bins below
-// N/2).
+// * N = 512 ... 8192, a power of two: mlx_stft_mag_pair, B1's kernel
+//   (stft_mag_pair.cuh) at N: two frames per complex transform on the
+//   register-resident fft_pair.cuh, a persistent grid, |X| in the pair
+//   split's epilogue.  At 4096/1024 on a 180 s track the frames read 32 MB
+//   and write 64 MB: device memory bounds it (~28 us at 3.35 TB/s), not the
+//   ~0.15 MFLOP per frame.
+//
+// * Any other N up to 49,152 points: stft_mag_sizes_kernel, one block of
+//   256 threads per frame.  Threads read the frame coalesced, window it and
+//   store it packed into dynamic shared memory; the real-input DFT of
+//   fft_real.cuh runs there: a power-of-two N is one packed FFT, N = 2^a * m
+//   with m odd (1536 = 512 * 3) is m packed radix-2 FFTs of the decimated
+//   samples plus a direct m-point sum per output bin.  Shared memory is
+//   4*N bytes (the wrapper caps N, kernels/stft.py).
+//
+// * Above 49,152 points the frame takes the four-step route of
+//   fft_fourstep.cuh: stft_four_step_cols (one block per (frame, n1): the
+//   windowed strided samples' real N2-point transforms, into a scratch
+//   buffer; stft_four_step_cols_direct, by direct sums, where N's odd factor
+//   is above 12,288) then stft_four_step_rows (a block per (frame, k2):
+//   twiddles, the complex N1-point transform, |X| * scale for the bins below
+//   N/2).
 #include "fft_fourstep.cuh"
+#include "stft_mag_pair.cuh"
 
 namespace {
 
@@ -130,6 +139,40 @@ extern "C" int mlx_stft_mag_sizes(const float* wav, long long n,
         wav, n, win, tw, out, d, hop, scale);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// B12 at the power-of-two sizes of fft_pair.cuh; tw is kpv.pair_twiddles
+// of `size`.  Any other size is refused (cudaErrorInvalidValue).
+extern "C" int mlx_stft_mag_pair(const float* wav, long long n,
+                                 const float* win, const float2* tw,
+                                 float* out, int n_frames, int size, int hop,
+                                 float scale, cudaStream_t stream) {
+  cudaError_t err = cudaErrorInvalidValue;
+  switch (size) {
+    case 512:
+      err = mlx::launch_stft_mag_pair<512>(wav, n, win, tw, out, n_frames,
+                                           hop, scale, stream);
+      break;
+    case 1024:
+      err = mlx::launch_stft_mag_pair<1024>(wav, n, win, tw, out, n_frames,
+                                            hop, scale, stream);
+      break;
+    case 2048:
+      err = mlx::launch_stft_mag_pair<2048>(wav, n, win, tw, out, n_frames,
+                                            hop, scale, stream);
+      break;
+    case 4096:
+      err = mlx::launch_stft_mag_pair<4096>(wav, n, win, tw, out, n_frames,
+                                            hop, scale, stream);
+      break;
+    case 8192:
+      err = mlx::launch_stft_mag_pair<8192>(wav, n, win, tw, out, n_frames,
+                                            hop, scale, stream);
+      break;
+    default:
+      break;
+  }
+  return static_cast<int>(err);
 }
 
 // B12 above 49,152 points: the four-step route.  `scratch` holds n_frames *

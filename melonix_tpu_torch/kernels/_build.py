@@ -68,6 +68,7 @@ SIGNATURES = {
     "mlx_compact": (_P, _I, _I, _P, _P, _P, _P, _I, _P),
     # wav, n, win, tw, out, n_frames, size, hop, scale, stream
     "mlx_stft_mag_sizes": (_P, _L, _P, _P, _P, _I, _I, _I, _F, _P),
+    "mlx_stft_mag_pair": (_P, _L, _P, _P, _P, _I, _I, _I, _F, _P),
     # wav, n, starts, ends, tw, out, n_cols, size, neg_decay, inv_size,
     # kgain, colormap, stream
     "mlx_spectrogram_columns": (_P, _L, _P, _P, _P, _P, _I, _I, _F, _F, _F,

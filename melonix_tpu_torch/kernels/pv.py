@@ -3,13 +3,14 @@
 Counterpart of ``melonix_tpu/kernels/pallas_pv.py``.  The TPU kernels ran a
 four-step bf16x3 MXU DFT in a scrambled bin order; the port's kernels keep
 natural bin order and the 1025-bin half spectrum throughout.  B1
-(``csrc/stft_mag.cu``) and the synthesis of B3 (``csrc/pv_synth_ola_phase.cu``)
-and B10 (``csrc/pv_synth_ola.cu``) share one float32 radix-2 FFT in shared
-memory (``csrc/fft2048.cuh``), B3 and B10 also their synthesis and
-overlap-add launches (``csrc/pv_synth.cuh``); B2 (``csrc/pv_analysis.cu``)
-transforms two real frames at once on the register-resident
-``csrc/fft2048_pair.cuh``.  B3's phase scan is blocked over frames and sums
-in float64 (:func:`phase_scan`).
+(``csrc/stft_mag.cu``) and B2 (``csrc/pv_analysis.cu``) transform two real
+frames at once on the register-resident ``csrc/fft_pair.cuh`` (B1 through
+``csrc/stft_mag_pair.cuh``, which B12 runs at its power-of-two sizes); the
+synthesis of B3 (``csrc/pv_synth_ola_phase.cu``) and B10
+(``csrc/pv_synth_ola.cu``) runs a float32 radix-2 FFT in shared memory
+(``csrc/fft2048.cuh``), B3 and B10 also share their synthesis and
+overlap-add launches (``csrc/pv_synth.cuh``).  B3's phase scan is blocked
+over frames and sums in float64 (:func:`phase_scan`).
 
 Each wrapper takes the device of its input: a CUDA tensor launches the
 kernel (or raises), a CPU tensor runs the ``*_plain`` twin, anything else
@@ -54,21 +55,30 @@ def _cos_sin(ang: np.ndarray) -> np.ndarray:
 @functools.cache
 def twiddles(device: torch.device) -> torch.Tensor:
     """(1024, 2) float32 cos/sin(2 pi k / 2048), computed in float64 (the
-    radix-2 ``fft2048.cuh`` of B1 and B3's synthesis)."""
+    radix-2 ``fft2048.cuh`` of B3's and B10's synthesis)."""
     ang = 2.0 * np.pi * np.arange(FFT_N // 2, dtype=np.float64) / FFT_N
     return torch.from_numpy(_cos_sin(ang)).to(device)
 
 
+# The sizes csrc/fft_pair.cuh instantiates (Plan<N>): B1 and B2 run 2048,
+# B12 all of them.
+PAIR_SIZES = (512, 1024, 2048, 4096, 8192)
+
+
 @functools.cache
-def pair_twiddles(device: torch.device) -> torch.Tensor:
-    """(2176, 2) float32 cos/sin of B2's ``fft2048_pair.cuh`` pass
-    twiddles, computed in float64: rows ``k2 * 128 + b`` hold 2 pi b k2 /
-    2048 (k2 < 16, b < 128), then rows ``2048 + q * 8 + c`` hold 2 pi c q /
-    128 (q < 16, c < 8).  The kernel applies the transform's sign."""
-    k2, b = np.meshgrid(np.arange(16), np.arange(128), indexing="ij")
-    q, c = np.meshgrid(np.arange(16), np.arange(8), indexing="ij")
-    ang = np.concatenate([(2.0 * np.pi / FFT_N) * (b * k2).ravel(),
-                          (2.0 * np.pi / 128) * (c * q).ravel()])
+def pair_twiddles(size: int, device: torch.device) -> torch.Tensor:
+    """(size + size // 16, 2) float32 cos/sin of ``fft_pair.cuh``'s pass
+    twiddles at ``size`` = 256 R points, computed in float64: rows ``k2 *
+    (size // 16) + b`` hold 2 pi b k2 / size (k2 < 16, b < size // 16), then
+    rows ``size + q * R + c`` hold 2 pi c q / (16 R) (q < 16, c < R).  The
+    kernel applies the transform's sign."""
+    if size not in PAIR_SIZES:
+        raise ValueError(f"no pair transform of {size} points")
+    t, r = size // 16, size // 256
+    k2, b = np.meshgrid(np.arange(16), np.arange(t), indexing="ij")
+    q, c = np.meshgrid(np.arange(16), np.arange(r), indexing="ij")
+    ang = np.concatenate([(2.0 * np.pi / size) * (b * k2).ravel(),
+                          (2.0 * np.pi / (16 * r)) * (c * q).ravel()])
     return torch.from_numpy(_cos_sin(ang)).to(device)
 
 
@@ -96,7 +106,8 @@ def stft_mag_plain(wav, window, size: int, hop: int, n_frames: int,
 
 def stft_mag(wav, window, size: int, hop: int, n_frames: int,
              scale: float = 1.0) -> torch.Tensor:
-    """B1 (``csrc/stft_mag.cu``); contract of :func:`stft_mag_plain`."""
+    """B1 (``csrc/stft_mag.cu``: two frames per complex transform on
+    ``fft_pair.cuh``); contract of :func:`stft_mag_plain`."""
     if wav.device.type == "cpu":
         return stft_mag_plain(wav, window, size, hop, n_frames, scale)
     dev = _build.cuda_device(wav)
@@ -111,8 +122,8 @@ def stft_mag(wav, window, size: int, hop: int, n_frames: int,
     with torch.cuda.device(dev):
         err = lib.mlx_stft_mag(
             wav.data_ptr(), wav.shape[0], window.data_ptr(),
-            twiddles(dev).data_ptr(), out.data_ptr(), n_frames, hop,
-            float(scale), _build.stream(dev),
+            pair_twiddles(FFT_N, dev).data_ptr(), out.data_ptr(), n_frames,
+            hop, float(scale), _build.stream(dev),
         )
     _build.check("stft_mag", err)
     stft_mag.launches += 1
@@ -141,7 +152,7 @@ def analysis_plain(wav, starts, window, size: int):
 
 def analysis(wav, starts, window, size: int):
     """B2 (``csrc/pv_analysis.cu``: two frames per complex transform on
-    ``fft2048_pair.cuh``); contract of :func:`analysis_plain`."""
+    ``fft_pair.cuh``); contract of :func:`analysis_plain`."""
     if wav.device.type == "cpu":
         return analysis_plain(wav, starts, window, size)
     dev = _build.cuda_device(wav)
@@ -159,8 +170,8 @@ def analysis(wav, starts, window, size: int):
     with torch.cuda.device(dev):
         err = lib.mlx_pv_analysis(
             wav.data_ptr(), wav.shape[0], starts.data_ptr(),
-            window.data_ptr(), pair_twiddles(dev).data_ptr(), re.data_ptr(),
-            im.data_ptr(), f, _build.stream(dev),
+            window.data_ptr(), pair_twiddles(FFT_N, dev).data_ptr(),
+            re.data_ptr(), im.data_ptr(), f, _build.stream(dev),
         )
     _build.check("analysis", err)
     analysis.launches += 1

@@ -2,19 +2,24 @@
 
 Counterpart of ``melonix_tpu/kernels/pallas_stft.py``.  The TPU kernel
 contracted row-rolled frame views against dense cos/sin DFT matrices on the
-MXU; the port's kernel (``csrc/stft_mag_sizes.cu``) runs the real-input FFT
-of ``csrc/fft_real.cuh`` in shared memory, one block per frame, any size
-``2^a * m`` (m odd) that the TPU kernel took, up to :data:`MAX_SIZE`; above
-it, the four-step route of ``csrc/fft_fourstep.cuh`` through a scratch
-buffer (:func:`four_step_plan` picks its factors, :func:`four_step_plain`
-spells its arithmetic in torch), whose column transforms are direct sums
-where the odd factor does not fit one block.
+MXU; the port's kernel (``csrc/stft_mag_sizes.cu``) takes any size ``2^a *
+m`` (m odd) that the TPU kernel took, by one of the routes :func:`route`
+names from the size alone: the power-of-two sizes of
+:data:`~melonix_tpu_torch.kernels.pv.PAIR_SIZES` run B1's kernel
+(``csrc/stft_mag_pair.cuh``: two frames per complex transform on the
+register-resident ``csrc/fft_pair.cuh``); the other sizes up to
+:data:`MAX_SIZE` the real-input FFT of ``csrc/fft_real.cuh`` in shared
+memory, one block per frame; above it, the four-step route of
+``csrc/fft_fourstep.cuh`` through a scratch buffer (:func:`four_step_plan`
+picks its factors, :func:`four_step_plain` spells its arithmetic in torch),
+whose column transforms are direct sums where the odd factor does not fit
+one block.
 
 ``stft_mag`` launches the kernel for a CUDA tensor, runs
 :func:`stft_mag_plain` for a CPU tensor, and raises for anything else;
-``stft_mag.launches`` counts its launches.  ``twiddles`` is the float32
-table of the real-input FFT, shared with B7 (``kernels/columns.py``), as is
-the four-step plan.
+``stft_mag.launches`` counts its launches, one a call whatever the route.
+``twiddles`` is the float32 table of the real-input FFT, shared with B7
+(``kernels/columns.py``), as is the four-step plan.
 """
 
 from __future__ import annotations
@@ -25,10 +30,11 @@ import numpy as np
 import torch
 
 from . import _build
+from .pv import PAIR_SIZES, pair_twiddles
 from .pv import stft_mag_plain  # size-generic: the twin of B1 and B12
 
-__all__ = ["MAX_SIZE", "supported", "stft_mag", "stft_mag_plain", "twiddles",
-           "circle", "four_step_plan", "four_step_plain"]
+__all__ = ["MAX_SIZE", "supported", "route", "stft_mag", "stft_mag_plain",
+           "twiddles", "circle", "four_step_plan", "four_step_plain"]
 
 # The one-block transform keeps 4 * size bytes in dynamic shared memory
 # (fft_real.cuh); 49152 points take 192 KB of the block's 227 KB.  Larger
@@ -110,15 +116,34 @@ def four_step_plain(frames: torch.Tensor, n1: int) -> torch.Tensor:
 def supported(size: int, hop: int) -> bool:
     """The shapes the TPU kernel took (``pallas_stft.supported``): whole-hop
     overlap, at most 8 hops per frame, 128-aligned hops and bins.  On CUDA
-    :func:`stft_mag` takes them with the one-block transform up to
-    :data:`MAX_SIZE` and the four-step route above it (below 2^31 points;
-    larger sizes raise)."""
+    :func:`stft_mag` takes them by the routes of :func:`route` (below 2^31
+    points; larger sizes raise)."""
     return (
         size % hop == 0
         and size // hop <= SLAB_PAD
         and hop % 128 == 0
         and (size // 2) % BT == 0
     )
+
+
+def route(size: int) -> str:
+    """The kernel route B12 takes at ``size`` points, by the size alone:
+    ``"pair"`` (a power of two in :data:`PAIR_SIZES`: two frames per
+    register-resident complex transform), ``"one_block"`` (any other size
+    up to :data:`MAX_SIZE`: ``fft_real.cuh``, a block per frame),
+    ``"four_step"`` above it, ``"direct"`` where the four-step columns are
+    direct sums.  Raises NotImplementedError for a size no route takes (2^31
+    points and more)."""
+    if size in PAIR_SIZES:
+        return "pair"
+    if size <= MAX_SIZE:
+        return "one_block"
+    plan = four_step_plan(size)
+    if plan is None:
+        raise NotImplementedError(
+            f"B12 size {size}: the four-step route indexes a frame with "
+            "int32, so it takes sizes below 2^31")
+    return "direct" if four_step_direct(plan[1]) else "four_step"
 
 
 def stft_mag(wav, window, size: int, hop: int, n_frames: int,
@@ -131,11 +156,7 @@ def stft_mag(wav, window, size: int, hop: int, n_frames: int,
     dev = _build.cuda_device(wav)
     if not supported(size, hop):
         raise ValueError(f"B12 takes no (size {size}, hop {hop}) frames")
-    plan = four_step_plan(size) if size > MAX_SIZE else None
-    if size > MAX_SIZE and plan is None:
-        raise NotImplementedError(
-            f"B12 size {size}: the four-step route indexes a frame with "
-            "int32, so it takes sizes below 2^31")
+    way = route(size)
     if n_frames < 0:
         raise ValueError(f"n_frames {n_frames}")
     _build.require(wav, "wav", torch.float32, (wav.shape[0],), dev)
@@ -143,16 +164,19 @@ def stft_mag(wav, window, size: int, hop: int, n_frames: int,
     out = torch.empty((n_frames, size // 2), dtype=torch.float32, device=dev)
     lib = _build.library()
     with torch.cuda.device(dev):
-        if plan is None:
-            err = lib.mlx_stft_mag_sizes(
-                wav.data_ptr(), wav.shape[0], window.data_ptr(),
-                twiddles(size, dev).data_ptr(), out.data_ptr(), n_frames,
-                size, hop, float(scale), _build.stream(dev),
+        if way in ("pair", "one_block"):
+            entry, tw = ((lib.mlx_stft_mag_pair, pair_twiddles(size, dev))
+                         if way == "pair" else
+                         (lib.mlx_stft_mag_sizes, twiddles(size, dev)))
+            err = entry(
+                wav.data_ptr(), wav.shape[0], window.data_ptr(), tw.data_ptr(),
+                out.data_ptr(), n_frames, size, hop, float(scale),
+                _build.stream(dev),
             )
         else:
-            n1, n2 = plan
+            n1, n2 = four_step_plan(size)
             scratch = four_step_scratch(n_frames, n1, n2, dev)
-            tw2 = circle(n2, dev) if four_step_direct(n2) else twiddles(n2, dev)
+            tw2 = circle(n2, dev) if way == "direct" else twiddles(n2, dev)
             err = lib.mlx_stft_mag_4step(
                 wav.data_ptr(), wav.shape[0], window.data_ptr(),
                 twiddles(size, dev).data_ptr(), tw2.data_ptr(),

@@ -10,9 +10,11 @@ their twins there).  These tests hold what the kernels' designs rest on:
   wrapper and checked against the CUDA source) rounds to the serial float64
   sum's float32 value;
 * the host-built twiddle tables against NumPy float64;
-* a NumPy model of ``csrc/fft2048_pair.cuh`` (three passes of 16, 16 and 8
-  points in the kernel's index order, its tables and constants) and of
-  B2's pair split against ``np.fft.rfft``.
+* a NumPy model of ``csrc/fft_pair.cuh`` at 2048 points (three passes of
+  16, 16 and 8 points in the kernel's index order, its tables and
+  constants) and of B2's pair split against ``np.fft.rfft``
+  (``tests/test_torch_fft.py`` models the other sizes and holds its
+  2048-point instance to this one bit for bit).
 """
 
 import os
@@ -207,10 +209,11 @@ def _ulps(table32, want64):
 
 @pytest.mark.parametrize("name", ["pair", "radix2"])
 def test_twiddle_tables_within_one_ulp_of_float64(name):
-    """B2's pass twiddles (fft2048_pair.cuh) and the radix-2 table of B1 and
-    B3's synthesis (fft2048.cuh): cos/sin of float64 angles, <= 1 ulp."""
+    """B1's and B2's pass twiddles (fft_pair.cuh at 2048) and the radix-2
+    table of B3's synthesis (fft2048.cuh): cos/sin of float64 angles, <= 1
+    ulp."""
     if name == "pair":
-        got = kpv.pair_twiddles(torch.device("cpu")).numpy()
+        got = kpv.pair_twiddles(SIZE, torch.device("cpu")).numpy()
         k2, b = np.meshgrid(np.arange(16), np.arange(128), indexing="ij")
         q, c = np.meshgrid(np.arange(16), np.arange(8), indexing="ij")
         ang = np.concatenate([2 * np.pi * (b * k2).ravel() / 2048,
@@ -237,7 +240,7 @@ def _brev(k, bits):
 
 
 def _dft_regs(v, sign):
-    """fft2048_pair.cuh's dft_regs along axis 0 (complex64): radix-2
+    """fft_pair.cuh's dft_regs along axis 0 (complex64): radix-2
     decimation in frequency, the 16th roots as float32 constants; returns
     the output in natural order (the kernel's v[brev(k)])."""
     v = v.copy()
@@ -256,9 +259,9 @@ def _dft_regs(v, sign):
 
 
 def pair_fft_model(z, sign):
-    """The 2048-point transform of fft2048_pair.cuh on (2048,) complex64, in
+    """The 2048-point transform of fft_pair.cuh on (2048,) complex64, in
     its three passes: index n = b + 128 a, output k = k2 + 16 (q + 16 r)."""
-    tab = kpv.pair_twiddles(torch.device("cpu")).numpy()
+    tab = kpv.pair_twiddles(SIZE, torch.device("cpu")).numpy()
     w = (tab[:, 0] + 1j * sign * tab[:, 1]).astype(np.complex64)
     tw1, tw2 = w[:2048].reshape(16, 128), w[2048:].reshape(16, 8)
     ex1 = _dft_regs(z.reshape(16, 128), sign)  # [k2][b] from z[b + 128 a]

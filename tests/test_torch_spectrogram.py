@@ -299,8 +299,10 @@ def test_b12_beyond_cap_raises_on_cuda_tensors(monkeypatch):
     launch their four-step route instead of raising (ROADMAP C1): at 65,536
     points each wrapper makes one call of its ``*_4step`` entry with the
     host plan's N1, and counts one launch; so does B12 at a size whose odd
-    factor needs the direct column sums.  Only a size int32 indices cannot
-    reach raises NotImplementedError, naming why, before any launch."""
+    factor needs the direct column sums.  Below the cap B12 launches the
+    pair transform at 4096 and the one-block transform at 1536.  Only a
+    size int32 indices cannot reach raises NotImplementedError, naming why,
+    before any launch."""
     rec = _fake_cuda(monkeypatch)
     size, meta = 65536, torch.device("meta")
     wav = torch.zeros(300000).to(meta)
@@ -318,11 +320,15 @@ def test_b12_beyond_cap_raises_on_cuda_tensors(monkeypatch):
     assert args[8:11] == (3, size, n1)
     assert kstft.stft_mag.launches == b12 + 1
     assert kcols.spectrogram_columns_fused.launches == b7 + 1
-    # at and below the cap: the one-block entries, unchanged
+    # at and below the cap: B12's power-of-two sizes take the pair
+    # transform, its other sizes and B7 the one-block entries
     kstft.stft_mag(wav, torch.zeros(4096).to(meta), 4096, 1024, 5)
+    kstft.stft_mag(wav, torch.zeros(1536).to(meta), 1536, 384, 5)
     kcols.spectrogram_columns_fused(wav, ends, ends, 1.0, size=32768)
-    assert [c[0] for c in rec.calls[-2:]] == ["mlx_stft_mag_sizes",
+    assert [c[0] for c in rec.calls[-3:]] == ["mlx_stft_mag_pair",
+                                             "mlx_stft_mag_sizes",
                                              "mlx_spectrogram_columns"]
+    b12 += 1  # the 1536 call, beside the count this test had
     # the odd factor 12,289 puts N2 above MAX_SIZE: direct column sums,
     # their table the whole 12,289-point circle
     odd = 512 * 12289
