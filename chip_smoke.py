@@ -1150,6 +1150,11 @@ def main() -> int:
           "render_track bit for bit", flush=True)
 
     # -- 9. B7 against its twin and the float64 oracle ----------------
+    # by route (kcols.route): 32,768 points (the default) and 16,384 on
+    # fft_large.cuh's one-CTA transforms (Large<16384>, fft_pair.cuh's 8192
+    # instance), 8192 and 24,576 on the one-block fft_real.cuh; each size
+    # also through spectrogram_columns, the entry point, whose launches its
+    # row carries
     cfg = mt.DEFAULT_CONFIG
     csize, kgain = cfg.spectr_size, cfg.brightness_to_k()
     span = int(0.02 * SR)  # 20 ms columns: a zoomed-in view
@@ -1157,60 +1162,94 @@ def main() -> int:
     wide_s, wide_e = view_column_ranges(knots, 256, 0.0, knots.duration())
     col_sets = {"zoomed (256 x 20 ms from n / 3)": (zoom_end - span, zoom_end),
                 "spread (256 columns over the edited track)": (wide_s, wide_e)}
-    for label, (cs_np, ce_np) in col_sets.items():
+
+    def b7_check(size, way, label, cs_np, ce_np, ph):
+        """B7 at ``size`` on columns [cs, ce) against its twin: magnitudes
+        SNR < -100 dB, packed texels >= 99.9% equal with max diff 1, the
+        route ``way``."""
         cs, ce = put(cs_np.astype(np.int32)), put(ce_np.astype(np.int32))
         args = (wav, cs, ce, kgain)
-        mk = kcols.spectrogram_columns_fused(*args, size=csize, colormap=False)
-        mp = kcols.spectrogram_columns_plain(*args, size=csize, colormap=False)
-        pk = kcols.spectrogram_columns_fused(*args, size=csize)
-        pp = kcols.spectrogram_columns_plain(*args, size=csize)
+        mk = kcols.spectrogram_columns_fused(*args, size=size, colormap=False)
+        mp = kcols.spectrogram_columns_plain(*args, size=size, colormap=False)
+        pk = kcols.spectrogram_columns_fused(*args, size=size)
+        pp = kcols.spectrogram_columns_plain(*args, size=size)
         torch.cuda.synchronize()
         s = snr_db(mk, mp)
         eq, dmax = planes_close(unpack_rgb(pk).cpu().numpy(),
                                 unpack_rgb(pp).cpu().numpy())
-        print(f"[9] B7 {label}: magnitudes SNR {s:.1f} dB (bar < -100), max "
-              f"abs err {max_err(mk, mp):.3e}; packed RGB equal on "
-              f"{100 * eq:.4f}% (bar 99.9), max diff {dmax} (bar 1)",
-              flush=True)
-        check(mk.shape == (256, csize // 2) and pk.dtype == torch.int32
-              and s < -100.0, f"B7 {label} magnitudes vs twin")
-        check(eq >= 0.999 and dmax <= 1, f"B7 {label} texels vs twin")
+        print(f"[{ph}] B7 at {size} (route {kcols.route(size)}, bar {way}), "
+              f"{label}: magnitudes SNR {s:.1f} dB (bar < -100), max abs err "
+              f"{max_err(mk, mp):.3e}; packed RGB equal on {100 * eq:.4f}% "
+              f"(bar 99.9), max diff {dmax} (bar 1)", flush=True)
+        check(kcols.route(size) == way, f"B7 {size} route")
+        check(mk.shape == (len(cs_np), size // 2) and pk.dtype == torch.int32
+              and s < -100.0, f"B7 {size} {label} magnitudes vs twin")
+        check(eq >= 0.999 and dmax <= 1, f"B7 {size} {label} texels vs twin")
+
+    def b7_oracle(size, ends, ph):
+        """spectrogram_columns (NumPy in and out, cuda) at ``size`` on 12
+        columns against the float64 oracle (bench.py:136-156): SNR < -60 dB,
+        argmax equal, one B7 launch.  Returns the launches."""
+        cfg_s = dataclasses.replace(cfg, spectr_size=size)
+        kcols.spectrogram_columns_fused.launches = 0
+        got = mt.spectrogram_columns(x, ends - span, ends, cfg_s)
+        launches = kcols.spectrogram_columns_fused.launches
+        want = np.stack([column_f64(x, int(b) - span, int(b), size)
+                         for b in ends])
+        s = 10.0 * np.log10(np.sum((got - want) ** 2) / np.sum(want ** 2))
+        arg_eq = bool(np.array_equal(got.argmax(1), want.argmax(1)))
+        print(f"    spectrogram_columns at {size} vs float64 oracle (12 "
+              f"columns): SNR {s:.1f} dB (bar < -60), argmax equal {arg_eq}, "
+              f"B7 launches {launches} (bar 1)", flush=True)
+        check(got.shape == (12, size // 2) and s < -60.0 and arg_eq
+              and launches == 1, f"B7 {size} vs float64 oracle")
+        return launches
+
+    def b7_row(name, size, s_np, e_np, ph_launches):
+        """A kernel row for B7 at ``size`` on columns [s, e)."""
+        cs_t, ce_t = put(s_np.astype(np.int32)), put(e_np.astype(np.int32))
+        b7 = lambda: kcols.spectrogram_columns_fused(  # noqa: E731
+            wav, cs_t, ce_t, kgain, size=size, colormap=False)
+        b7p = lambda: kcols.spectrogram_columns_plain(  # noqa: E731
+            wav, cs_t, ce_t, kgain, size=size, colormap=False)
+        frames = kcols.extract_frames(wav, cs_t, ce_t, size, cfg.spec_decay)
+        ends_c = np.clip(e_np.astype(np.int64), 0, n + size)
+        record(name, "melonix_tpu_torch/csrc/spectrogram_columns.cu",
+               "melonix_tpu/kernels/pallas_columns.py:168",
+               max_err(b7(), b7p()), b7, b7p, lambda: torch.fft.rfft(frames),
+               4 * covered_len(ends_c - size, ends_c, n) + nbytes(cs_t, ce_t)
+               + 4 * len(s_np) * (size // 2), fft_flops(len(s_np), size))
+        rows[name]["launches"] = ph_launches
+
+    for label, (cs_np, ce_np) in col_sets.items():
+        b7_check(csize, "large", label, cs_np, ce_np, 9)
     o_end = np.linspace(csize, n - 1, 12).astype(np.int64)  # bench.py:148-150
-    o_start = o_end - span
-    got = mt.spectrogram_columns(x, o_start, o_end)  # NumPy in and out, cuda
-    want = np.stack([column_f64(x, int(a), int(b), csize)
-                     for a, b in zip(o_start, o_end)])
-    s = 10.0 * np.log10(np.sum((got - want) ** 2) / np.sum(want ** 2))
-    arg_eq = bool(np.array_equal(got.argmax(1), want.argmax(1)))
-    print(f"    spectrogram_columns vs float64 oracle (12 columns, "
-          f"bench.py:136-156): SNR {s:.1f} dB (bar < -60), argmax equal "
-          f"{arg_eq}", flush=True)
-    check(got.shape == (12, csize // 2) and s < -60.0 and arg_eq,
-          "B7 vs float64 oracle")
-    cs_t, ce_t = put(wide_s.astype(np.int32)), put(wide_e.astype(np.int32))
-    b7 = lambda: kcols.spectrogram_columns_fused(  # noqa: E731
-        wav, cs_t, ce_t, kgain, size=csize, colormap=False)
-    b7p = lambda: kcols.spectrogram_columns_plain(  # noqa: E731
-        wav, cs_t, ce_t, kgain, size=csize, colormap=False)
-    frames_b7 = kcols.extract_frames(wav, cs_t, ce_t, csize, cfg.spec_decay)
-    ends_c = np.clip(wide_e.astype(np.int64), 0, n + csize)
-    record("spectrogram_columns",
-           "melonix_tpu_torch/csrc/spectrogram_columns.cu",
-           "melonix_tpu/kernels/pallas_columns.py:168", max_err(b7(), b7p()),
-           b7, b7p, lambda: torch.fft.rfft(frames_b7),
-           4 * covered_len(ends_c - csize, ends_c, n) + nbytes(cs_t, ce_t)
-           + 4 * 256 * (csize // 2), fft_flops(256, csize))
+    b7_oracle(csize, o_end, 9)
+    b7_row("spectrogram_columns", csize, wide_s, wide_e, 0)  # launches: [11]
+    b7_check(16384, "large", "spread (256 columns over the edited track)",
+             wide_s, wide_e, 9)
+    launches16 = b7_oracle(16384, np.linspace(16384, n - 1, 12).astype(
+        np.int64), 9)
+    b7_row("spectrogram_columns_16384", 16384, wide_s, wide_e, launches16)
+    for small in (8192, 24576):
+        b7_check(small, "one_block",
+                 "spread (256 columns over the edited track)", wide_s, wide_e,
+                 9)
+        launches_s = b7_oracle(small, np.linspace(small, n - 1, 12).astype(
+            np.int64), 9)
+        b7_row(f"spectrogram_columns_one_block_{small}", small, wide_s,
+               wide_e, launches_s)
 
     # -- 10. B12 against its twin; the |STFT| pyramid's two routes -----
     # each size by its route (kstft.route): the pair transform at powers of
-    # two up to 8192, the one-block fft_real.cuh at 1536; each also through
+    # two up to 8192, fft_large.cuh's one-CTA transforms at 16,384 and
+    # 32,768, the one-block fft_real.cuh at 1536; each also through
     # stft_mags_device, the entry point, whose launches the rows carry
-    b12_rows = {4096: "stft_mag_sizes", 1024: "stft_mag_sizes_1024",
-                8192: "stft_mag_sizes_8192", 512: "stft_mag_sizes_512",
-                1536: "stft_mag_sizes_one_block_1536"}
-    for sz, hp in ((4096, 1024), (1024, 256), (8192, 1024), (512, 128),
-                   (1536, 384)):
-        w_d, nfz = put(hann_window(sz)), num_frames(n, sz, hp)
+    def b12_check(sz, hp, nfz, way, name, ph):
+        """B12 at (sz, hp) over nfz frames by route ``way``: against its twin
+        (< -80 dB) and float64 |rfft| of up to 8 frames (< -60 dB), through
+        stft_mags_device (one launch, equal output); a kernel row."""
+        w_d = put(hann_window(sz))
         got = kstft.stft_mag(wav, w_d, sz, hp, nfz)
         want = kstft.stft_mag_plain(wav, w_d, sz, hp, nfz)
         kstft.stft_mag.launches = 0
@@ -1218,26 +1257,71 @@ def main() -> int:
         torch.cuda.synchronize()
         launches_z = kstft.stft_mag.launches
         s, e = snr_db(got, want), max_err(got, want)
-        print(f"[10] B12 stft_mag_sizes {sz}/{hp} ({nfz} frames, route "
-              f"{kstft.route(sz)}): SNR {s:.1f} dB (bar < -80), max abs err "
-              f"{e:.3e}; stft_mags_device launches {launches_z} (bar 1), "
-              f"equal {bool(torch.equal(via, got))}", flush=True)
-        check(got.shape == (nfz, sz // 2) and s < -80.0,
-              f"B12 {sz}/{hp} vs twin")
+        pick = np.linspace(0, nfz - 1, min(nfz, 8)).astype(np.int64)
+        xp = np.concatenate([x, np.zeros(sz, np.float32)])
+        fr64 = np.stack([xp[f * hp: f * hp + sz] for f in pick]).astype(
+            np.float64) * hann_window(sz).astype(np.float64)
+        o64 = np.abs(np.fft.rfft(fr64)[:, : sz // 2])
+        s64 = 10.0 * np.log10(np.sum((got[pick].cpu().numpy() - o64) ** 2)
+                              / np.sum(o64 ** 2))
+        print(f"[{ph}] B12 stft_mag_sizes {sz}/{hp} ({nfz} frames, route "
+              f"{kstft.route(sz)}, bar {way}): SNR {s:.1f} dB (bar < -80), "
+              f"max abs err {e:.3e}; {len(pick)} frames vs float64 |rfft| "
+              f"{s64:.1f} dB (bar < -60); stft_mags_device launches "
+              f"{launches_z} (bar 1), equal {bool(torch.equal(via, got))}",
+              flush=True)
+        check(kstft.route(sz) == way, f"B12 {sz} route")
+        check(got.shape == (nfz, sz // 2) and s < -80.0 and s64 < -60.0,
+              f"B12 {sz}/{hp} vs twin and float64")
         check(launches_z == 1 and bool(torch.equal(via, got)),
               f"B12 {sz}/{hp} through stft_mags_device")
         frames_z = kpv.hop_frames(wav, sz, hp, nfz) * w_d[None, :]
-        record(b12_rows[sz], "melonix_tpu_torch/csrc/stft_mag_sizes.cu",
+        record(name, "melonix_tpu_torch/csrc/stft_mag_sizes.cu",
                "melonix_tpu/kernels/pallas_stft.py:106", e,
-               lambda w_=w_d, sz_=sz, hp_=hp, nf_=nfz: kstft.stft_mag(
-                   wav, w_, sz_, hp_, nf_),
-               lambda w_=w_d, sz_=sz, hp_=hp, nf_=nfz: kstft.stft_mag_plain(
-                   wav, w_, sz_, hp_, nf_),
-               lambda fr_=frames_z: torch.fft.rfft(fr_),
+               lambda: kstft.stft_mag(wav, w_d, sz, hp, nfz),
+               lambda: kstft.stft_mag_plain(wav, w_d, sz, hp, nfz),
+               lambda: torch.fft.rfft(frames_z),
                4 * (min(n, (nfz - 1) * hp + sz) + sz + nfz * sz // 2),
                fft_flops(nfz, sz))
-        rows[b12_rows[sz]]["launches"] = launches_z
-        del got, want, via
+        rows[name]["launches"] = launches_z
+
+    for sz, hp, way, name in (
+            (4096, 1024, "pair", "stft_mag_sizes"),
+            (1024, 256, "pair", "stft_mag_sizes_1024"),
+            (8192, 1024, "pair", "stft_mag_sizes_8192"),
+            (512, 128, "pair", "stft_mag_sizes_512"),
+            (1536, 384, "one_block", "stft_mag_sizes_one_block_1536"),
+            (16384, 2048, "large", "stft_mag_sizes_large_16384"),
+            (32768, 4096, "large", "stft_mag_sizes_large_32768")):
+        b12_check(sz, hp, num_frames(n, sz, hp), way, name, 10)
+    # fft_large.cuh's frame load at its edges: frames past the end of a
+    # 1500-sample track, a view whose data is not 16-byte aligned (B12's
+    # hops are multiples of 128); B7 columns before 0 and past n, on the
+    # track and on a misaligned view
+    edge_ends = lambda sz: put(np.array(  # noqa: E731
+        [5, sz // 3, sz + 7, n - 3, n + sz // 2, n + sz + 100, 0, 1],
+        np.int32))
+    for sz in kstft.LARGE_SIZES:
+        w_e, e_e = put(hann_window(sz)), edge_ends(sz)
+        for label, got, want in [
+                (f"B12 {label_}", kstft.stft_mag(src, w_e, sz, hp, nf),
+                 kstft.stft_mag_plain(src, w_e, sz, hp, nf))
+                for label_, src, hp, nf in (
+                    ("1500-sample track", wav[:1500], sz // 8, 3),
+                    ("offset view", wav[3:], sz // 8, 40))] + [
+                (f"B7 {label_} (columns before 0 and past n)",
+                 kcols.spectrogram_columns_fused(src, e_e - span, e_e, kgain,
+                                                 size=sz, colormap=False),
+                 kcols.spectrogram_columns_plain(src, e_e - span, e_e, kgain,
+                                                 size=sz, colormap=False))
+                for label_, src in (("track", wav), ("offset view", wav[1:]))]:
+            torch.cuda.synchronize()
+            s = snr_db(got, want)
+            print(f"    {label} at {sz}: SNR {s:.1f} dB against the twin (bar "
+                  f"< -100), finite {bool(torch.isfinite(got).all())}",
+                  flush=True)
+            check(s < -100.0 and bool(torch.isfinite(got).all()),
+                  f"{label} at {sz}")
     vs, ve = view_column_ranges(knots, 1280, 0.0, knots.duration())
     b1_fn, b12_fn = kpv.stft_mag, kstft.stft_mag
     for sz, hp, want_counts in ((2048, 512, (1, 0)), (4096, 1024, (0, 1))):
@@ -1371,7 +1455,7 @@ def main() -> int:
           f"all-plain server: values equal on {100 * eq:.4f}% (bar 99.9), max "
           f"diff {dmax} (bar 1)", flush=True)
     for label, (by_name, busy_ms, wall, drain_ms, n_drains) in profiled.items():
-        b7_dev = sum(v for k, v in by_name.items() if "columns_kernel" in k)
+        b7_dev = sum(v for k, v in by_name.items() if "columns_large" in k)
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
         print(f"     profiled {label}: wall {wall:.2f} ms, worker drain "
               f"{drain_ms:.2f} ms in {n_drains} drain(s), device busy "
@@ -1860,114 +1944,30 @@ def main() -> int:
            nbytes(mag10, psi10, win, got), fft_flops(mag10.shape[0], size))
     del got, want
 
-    # -- 19. B7 and B12 above 49,152 points: the four-step route -------
-    big = 65536
-    ends65 = np.linspace(big // 2, n - 1, 64).astype(np.int64)
-    cs65, ce65 = put((ends65 - span).astype(np.int32)), put(
-        ends65.astype(np.int32))
-    b7b = lambda: kcols.spectrogram_columns_fused(  # noqa: E731
-        wav, cs65, ce65, kgain, size=big, colormap=False)
-    b7bp = lambda: kcols.spectrogram_columns_plain(  # noqa: E731
-        wav, cs65, ce65, kgain, size=big, colormap=False)
-    mk, mp = b7b(), b7bp()
-    pk = kcols.spectrogram_columns_fused(wav, cs65, ce65, kgain, size=big)
-    pp = kcols.spectrogram_columns_plain(wav, cs65, ce65, kgain, size=big)
-    torch.cuda.synchronize()
-    s7, e7 = snr_db(mk, mp), max_err(mk, mp)
-    eq, dmax = planes_close(unpack_rgb(pk).cpu().numpy(),
-                            unpack_rgb(pp).cpu().numpy())
-    o_end = np.linspace(big, n - 1, 12).astype(np.int64)
-    cfg65 = dataclasses.replace(cfg, spectr_size=big)
-    kcols.spectrogram_columns_fused.launches = 0
-    got = mt.spectrogram_columns(x, o_end - span, o_end, cfg65)  # NumPy, cuda
-    b7b_launches = kcols.spectrogram_columns_fused.launches
-    want = np.stack([column_f64(x, int(a), int(b), big)
-                     for a, b in zip(o_end - span, o_end)])
-    s7o = 10.0 * np.log10(np.sum((got - want) ** 2) / np.sum(want ** 2))
-    print(f"[19] B7 at {big} points (four-step, 64 columns): SNR {s7:.1f} dB "
-          f"vs twin (bar < -100), max abs err {e7:.3e}; packed RGB equal on "
-          f"{100 * eq:.4f}% (bar 99.9), max diff {dmax} (bar 1); "
-          f"spectrogram_columns (12 columns) vs float64 oracle {s7o:.1f} dB "
-          f"(bar < -60), B7 launches {b7b_launches} (bar 1)", flush=True)
-    check(mk.shape == (64, big // 2) and s7 < -100.0, "B7 65536 vs twin")
-    check(eq >= 0.999 and dmax <= 1, "B7 65536 texels vs twin")
-    check(got.shape == (12, big // 2) and s7o < -60.0 and b7b_launches == 1,
-          "B7 65536 vs float64 oracle")
-    frames_b7b = kcols.extract_frames(wav, cs65, ce65, big, cfg.spec_decay)
-    record("spectrogram_columns_65536",
-           "melonix_tpu_torch/csrc/spectrogram_columns.cu",
-           "melonix_tpu/kernels/pallas_columns.py:168", e7, b7b, b7bp,
-           lambda: torch.fft.rfft(frames_b7b),
-           4 * covered_len(ends65 - big, ends65, n) + nbytes(cs65, ce65, mk),
-           fft_flops(64, big))
-    rows["spectrogram_columns_65536"]["launches"] = b7b_launches
-    hop65 = big // 8
-    win65, nf65 = put(hann_window(big)), num_frames(n, big, hop65)
-    b12b = lambda: kstft.stft_mag(wav, win65, big, hop65, nf65)  # noqa: E731
-    b12bp = lambda: kstft.stft_mag_plain(  # noqa: E731
-        wav, win65, big, hop65, nf65)
-    got, want = b12b(), b12bp()
-    torch.cuda.synchronize()
-    s12, e12b = snr_db(got, want), max_err(got, want)
-    pick = np.linspace(0, nf65 - 1, 8).astype(np.int64)
-    fr64 = np.stack([x[f * hop65 : f * hop65 + big] for f in pick]
-                    ).astype(np.float64) * hann_window(big).astype(np.float64)
-    o64 = np.abs(np.fft.rfft(fr64)[:, : big // 2])
-    s12o = 10.0 * np.log10(np.sum((got[pick].cpu().numpy() - o64) ** 2)
-                           / np.sum(o64 ** 2))
-    kstft.stft_mag.launches = 0
-    mags65 = mt.stft_mags_device(wav, win65, big, hop65, nf65)
-    torch.cuda.synchronize()
-    b12b_launches = kstft.stft_mag.launches
-    print(f"     B12 at {big}/{hop65} (four-step, {nf65} frames): SNR "
-          f"{s12:.1f} dB vs twin (bar < -80), max abs err {e12b:.3e}; 8 frames "
-          f"vs float64 |rfft| {s12o:.1f} dB (bar < -60); stft_mags_device "
-          f"launches {b12b_launches} (bar 1)", flush=True)
-    check(got.shape == (nf65, big // 2) and s12 < -80.0, "B12 65536 vs twin")
-    check(s12o < -60.0 and b12b_launches == 1
-          and bool(torch.equal(mags65, got)), "B12 65536 vs float64 oracle")
-    frames_b12b = kpv.hop_frames(wav, big, hop65, nf65) * win65[None, :]
-    record("stft_mag_sizes_four_step_65536",
-           "melonix_tpu_torch/csrc/stft_mag_sizes.cu",
-           "melonix_tpu/kernels/pallas_stft.py:106", e12b, b12b, b12bp,
-           lambda: torch.fft.rfft(frames_b12b),
-           4 * (min(n, (nf65 - 1) * hop65 + big) + big + nf65 * big // 2),
-           fft_flops(nf65, big))
-    rows["stft_mag_sizes_four_step_65536"]["launches"] = b12b_launches
-    del got, want, mk, mp, pk, pp, mags65
-    # an odd factor above 12,288: the four-step route's direct column sums
+    # -- 19. B7 and B12 above 49,152 points ---------------------------
+    # 65,536 points on fft_large.cuh's 2-CTA cluster; the four-step route at
+    # sizes it still takes (B7 50,176 = 1024 x 49, B12 98,304 = 3 x 2^15);
+    # B12 at 512 x 12,289 (an odd factor above 12,288): Bluestein columns;
+    # at 512 x 16,411 (N2 above 16,384): direct column sums, one frame pair
+    for big, way, name in ((65536, "large", "spectrogram_columns_65536"),
+                           (50176, "four_step",
+                            "spectrogram_columns_four_step_50176")):
+        ends_b = np.linspace(big // 2, n - 1, 64).astype(np.int64)
+        b7_check(big, way, "64 columns", ends_b - span, ends_b, 19)
+        launches_b = b7_oracle(big, np.linspace(big, n - 1, 12).astype(
+            np.int64), 19)
+        b7_row(name, big, ends_b - span, ends_b, launches_b)
+    for sz, hp, way, name in (
+            (65536, 8192, "large", "stft_mag_sizes_large_65536"),
+            (98304, 12288, "four_step", "stft_mag_sizes_four_step_98304")):
+        b12_check(sz, hp, num_frames(n, sz, hp), way, name, 19)
     odd = 512 * 12289  # N1 512, N2 12,289 (prime)
-    hop_o, nf_o = odd // 4, 2
-    win_o = put(hann_window(odd))
-    b12o = lambda: kstft.stft_mag(wav, win_o, odd, hop_o, nf_o)  # noqa: E731
-    b12op = lambda: kstft.stft_mag_plain(  # noqa: E731
-        wav, win_o, odd, hop_o, nf_o)
-    kstft.stft_mag.launches = 0
-    got, want = b12o(), b12op()
-    torch.cuda.synchronize()
-    b12o_launches = kstft.stft_mag.launches
-    so, eo = snr_db(got, want), max_err(got, want)
-    fr64 = np.stack([x[f * hop_o : f * hop_o + odd] for f in range(nf_o)]
-                    ).astype(np.float64) * hann_window(odd).astype(np.float64)
-    o64 = np.abs(np.fft.rfft(fr64)[:, : odd // 2])
-    soo = 10.0 * np.log10(np.sum((got.cpu().numpy() - o64) ** 2)
-                          / np.sum(o64 ** 2))
-    print(f"     B12 at {odd}/{hop_o} (odd factor 12,289: plan "
-          f"{kstft.four_step_plan(odd)}, direct column sums; {nf_o} frames): "
-          f"SNR {so:.1f} dB vs twin (bar < -80), max abs err {eo:.3e}; vs "
-          f"float64 |rfft| {soo:.1f} dB (bar < -60); launches {b12o_launches}"
-          f" (bar 1)", flush=True)
-    check(kstft.four_step_plan(odd) == (512, 12289)
-          and got.shape == (nf_o, odd // 2) and so < -80.0 and soo < -60.0
-          and b12o_launches == 1, "B12 direct column sums")
-    frames_b12o = kpv.hop_frames(wav, odd, hop_o, nf_o) * win_o[None, :]
-    record("stft_mag_sizes_direct", "melonix_tpu_torch/csrc/stft_mag_sizes.cu",
-           "melonix_tpu/kernels/pallas_stft.py:106", eo, b12o, b12op,
-           lambda: torch.fft.rfft(frames_b12o),
-           4 * (min(n, (nf_o - 1) * hop_o + odd) + odd + nf_o * odd // 2),
-           fft_flops(nf_o, odd))
-    rows["stft_mag_sizes_direct"].update(launches=b12o_launches, inner=1)
-    del got, want, fr64, o64
+    check(kstft.four_step_plan(odd) == (512, 12289), "B12 512 x 12,289 plan")
+    b12_check(odd, odd // 4, 2, "bluestein", "stft_mag_sizes_bluestein", 19)
+    odd = 512 * 16411  # N1 512, N2 16,411 (prime)
+    check(kstft.four_step_plan(odd) == (512, 16411), "B12 512 x 16,411 plan")
+    b12_check(odd, odd // 4, 2, "direct", "stft_mag_sizes_direct", 19)
+    rows["stft_mag_sizes_direct"]["inner"] = 1  # ~0.2 s a call
 
     # -- 20. two ranks on gloo, each on this card ----------------------
     with tempfile.TemporaryDirectory() as tmp:

@@ -1,9 +1,9 @@
-// The real-input DFT of one N-point frame that does not fit one block's
-// shared memory (fft_real.cuh keeps 4*N bytes: at N = 65536 that is 256 KB,
-// above the block's 227 KB), as a four-step transform through a scratch
-// buffer in device memory.  Used by B7 (spectrogram_columns.cu) and B12
-// (stft_mag_sizes.cu) above 49,152 points; below that both keep their
-// one-block route.
+// The real-input DFT of one N-point frame that no on-chip route takes, as a
+// four-step transform through a scratch buffer in device memory.  B7
+// (spectrogram_columns.cu) and B12 (stft_mag_sizes.cu) take it above 49,152
+// points at the sizes fft_large.cuh does not (a power of two above 65,536,
+// or any other size: 50,176 = 1024 * 49, 98,304 = 3 * 2^15); below that
+// both keep their one-block route.
 //
 // N = N1 * N2, N1 a power of two; sample x[n1 + N1*n2] (n1 < N1, n2 < N2).
 //   1. Columns, one block per (frame, n1): the real N2-point DFT of the
@@ -11,9 +11,11 @@
 //      go to the scratch as row k2 (the other half is their mirror: the
 //      column is real).  For N2 = 2^b * m (m odd) with b >= 2 and N2 <=
 //      kMaxColumn it is fft_real.cuh's one-block route in shared memory,
-//      4*N2 bytes; for any other N2 (an odd factor of N above 12,288) a
-//      direct sum over n2 per bin, the column passing through shared memory
-//      in tiles (four_step_direct).
+//      4*N2 bytes.  Any other N2 (an odd factor of N above 12,288) takes
+//      Bluestein's chirp-z form up to kBluesteinMax (two columns a 2-CTA
+//      cluster, four_step_column_bluestein) and above it a direct sum over
+//      n2 per bin, the column passing through shared memory in tiles
+//      (four_step_direct).
 //   2. Twiddles: Y[n1, k2] = W_N^(n1*k2) C[n1, k2], applied as step 3 reads.
 //   3. Rows, one block per (frame, k2), k2 < N2: the complex N1-point DFT
 //      over n1 (radix 2, bit-reversed input, 8*N1 bytes of shared memory)
@@ -22,12 +24,15 @@
 // The host picks (N1, N2) (kernels/stft.py:four_step_plan).  Twiddles are
 // float32 tables (cos, sin)(2*pi*j/M), computed in float64 on the host:
 // j < N/2 for M = N (steps 2-3); for step 1, M = N2, j < N2/2 on the FFT
-// route and j < N2 (the whole circle: N2 may be odd) on the direct one.
-// The direct route costs N * N2 / 2 multiply-adds a frame.  Speed is not this
-// route's aim: the columns read strided samples and the rows write strided
-// bins (each a sector per value).
+// route and j < N2 (the whole circle: N2 may be odd) on the direct one; the
+// Bluestein route's table is kernels/stft.py:bluestein_table.  The direct
+// route costs N * N2 / 2 multiply-adds a frame, Bluestein's two 32,768-point
+// transforms per column pair.  Speed is not this route's aim: the columns
+// read strided samples and the rows write strided bins (each a sector per
+// value).
 #pragma once
 
+#include "fft_large.cuh"
 #include "fft_real.cuh"
 
 namespace mlx {
@@ -138,6 +143,74 @@ __device__ __forceinline__ void four_step_column_direct(
       if (k2 < n_bins) c[static_cast<long long>(k2) * f.n1 + n1] = acc[i];
     }
   }
+}
+
+// Bluestein's form of step 1 (Large<16384> on a 2-CTA cluster, L = 32,768
+// points, N2 <= kBluesteinMax): the columns n1a and n1a + 1 as one complex
+// sequence z[n2] = x[n1a + N1 n2] + i x[n1a + 1 + N1 n2], its N2-point DFT
+//   Z[k] = conj(b_k) sum_n (z_n conj(b_n)) b_(k-n),  b_n = e^(i pi n^2 / N2)
+// a circular convolution of length L >= 2 N2 - 1: the forward transform on
+// the cluster (CTA r the points 2m + r, then the cross-CTA radix-2 step),
+// the product with the chirp's spectrum (scaled by 1 / L) in registers, and
+// the inverse by decimation in frequency (CTA 0 sums P[n] + P[n + L/2] and
+// transforms to the even outputs, CTA 1 the twiddled differences to the odd
+// ones).  The two real columns come apart by Hermitian symmetry,
+// C_a[k] = (Z[k] + conj Z[N2-k]) / 2, C_b[k] = (Z[k] - conj Z[N2-k]) / 2i,
+// for k <= N2 / 2, written to the scratch rows as one 16-byte store (n1a is
+// even).  `tab` is kernels/stft.py:bluestein_table(N2): b_n (n < N2), the
+// spectrum (L), Large<L/2>'s pass table, W_L^k (k < L/2).  `load(n)` is the
+// windowed pair (x[n1a + N1 n], x[n1a + 1 + N1 n]).  Every thread of both
+// CTAs calls it; `buf` holds Large<16384>::kSmem bytes.
+constexpr int kBluesteinL = 32768;
+constexpr int kBluesteinMax = kBluesteinL / 2;
+
+template <class Load>
+__device__ __forceinline__ void four_step_column_bluestein(
+    float2* buf, const FourStep& f, const float2* __restrict__ tab, int n1a,
+    Load load, float2* __restrict__ c) {
+  namespace cg = cooperative_groups;
+  constexpr int H = kBluesteinL / 2, T = large::Large<H>::kThreads;
+  const cg::cluster_group cl = cg::this_cluster();
+  const int r = static_cast<int>(cl.block_rank()), t = threadIdx.x;
+  const int n2 = f.n2;
+  const float2* chirp = tab;
+  const float2* spec = tab + n2;
+  const float2* tw = spec + kBluesteinL;
+  const float2* mid = tw + large::Large<H>::kTwiddles;
+  // forward: a_n = z_n conj(b_n), zero from N2 on
+  large::fft_cluster<H>(
+      [&](int n) {
+        return n < n2 ? pairfft::ctw(load(n), __ldg(chirp + n), -1.0f)
+                      : make_float2(0.0f, 0.0f);
+      },
+      buf, tw, mid, -1.0f, cl);
+  const float2* peer = cl.map_shared_rank(buf, r ^ 1);
+  // P[k + r H] = A[k + r H] * spectrum, in place
+  for (int k = t; k < H; k += T) {
+    buf[k] = pairfft::ctw(buf[k], __ldg(spec + k + r * H), 1.0f);
+  }
+  cl.sync();  // P complete on both CTAs
+  // inverse, decimation in frequency; pass 1's writes wait for the peer's
+  // reads of this buffer (the fence)
+  large::fft<H>(
+      [&](int n) {
+        const float2 p0 = r ? peer[n] : buf[n], p1 = r ? buf[n] : peer[n];
+        return r ? pairfft::ctw(pairfft::csub(p0, p1), __ldg(mid + n), 1.0f)
+                 : pairfft::cadd(p0, p1);
+      },
+      [&] { cl.sync(); }, buf, tw, 1.0f);
+  cl.sync();  // conv[2q + r] is in buf[q] of CTA r
+  auto z = [&](int k) {  // Z[k] = conj(b_k) conv[k]
+    const float2* src = (k & 1) == r ? buf : peer;
+    return pairfft::ctw(src[k >> 1], __ldg(chirp + k), -1.0f);
+  };
+  for (int k = 2 * t + r; k <= n2 / 2; k += 2 * T) {
+    const float2 zk = z(k), zm = z(k == 0 ? 0 : n2 - k);
+    *reinterpret_cast<float4*>(c + static_cast<long long>(k) * f.n1 + n1a) =
+        make_float4(0.5f * (zk.x + zm.x), 0.5f * (zk.y - zm.y),
+                    0.5f * (zk.y + zm.y), -0.5f * (zk.x - zm.x));
+  }
+  cl.sync();  // the peer's reads of this buffer are done
 }
 
 // Steps 2-3 for row k2 of one frame: `store(k, X)` takes bin k < N/2.

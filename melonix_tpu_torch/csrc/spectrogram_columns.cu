@@ -12,25 +12,31 @@
 // the reference's three-segment colormap (spec-cache.cpp:79-96, pi literal
 // 3.141592) and packed as int32 0x00RRGGBB, as pallas_columns.py:152-162.
 //
-// Design: one block of 512 threads per column.  Threads read the window
-// with neighbouring threads on neighbouring samples (coalesced), apply the
-// decay and store the samples packed and bit-reversed into dynamic shared
-// memory (fft_real.cuh); the real-input FFT runs there; the N/2 outputs go
-// out coalesced.  At N = 32768 a column is 128 KB in, 64 KB out and ~1.2
-// MFLOP: a 256-column drain moves ~48 MB, so device memory bounds it
-// (~14 us at 3.35 TB/s); the 128 KB of shared memory allow one block per
-// SM, and the FFT's 14 barrier-separated stages are what the kernel waits
-// on in practice.
-//
-// Above 49,152 points (4 * N bytes no longer fit a block) the column takes
-// the four-step route of fft_fourstep.cuh: columns_four_step_cols (one block
-// per (column, n1): the real N2-point transforms of the strided samples,
-// into a scratch buffer) then columns_four_step_rows (one block per
-// (column, k2): twiddles, the complex N1-point transform, the epilogue
-// above).  Same contract, two launches.
+// Design, by size (kernels/columns.py:route):
+// * 16,384, 32,768 and 65,536 points (fft_large.cuh): a column is one real
+//   transform packed as N / 2 complex points, on fft_pair.cuh's 8192
+//   instance, on Large<16384> in one CTA, or on a 2-CTA cluster (65,536),
+//   held in shared memory.  The window's zero fill and decay apply as pass
+//   1 reads the samples, and the real split's epilogue stores |X| or the
+//   texel.  One launch, one CTA (or cluster) per column.  At 32,768 points
+//   a column is 128 KB in and 64 KB out: a 256-column drain moves ~48 MB,
+//   so device memory bounds it (~14 us at 3.35 TB/s); each CTA keeps 139 KB
+//   of shared memory and fills an SM, so the drain is 1.94 waves of 132
+//   CTAs (PERF.md: two CTAs a SM, half a column each on a cluster, measured
+//   slower).
+// * Other sizes up to 49,152 points: one block of 512 threads per column
+//   runs the real-input FFT of fft_real.cuh in shared memory (samples stored
+//   packed and bit-reversed, one barrier a radix-2 stage).
+// * Other sizes above 49,152 points (4 * N bytes no longer fit a block):
+//   the four-step route of fft_fourstep.cuh, columns_four_step_cols (one
+//   block per (column, n1): the real N2-point transforms of the strided
+//   samples, into a scratch buffer) then columns_four_step_rows (one block
+//   per (column, k2): twiddles, the complex N1-point transform, the epilogue
+//   above).  Same contract, two launches.
 #include <cstdint>
 
 #include "fft_fourstep.cuh"
+#include "fft_large.cuh"
 
 namespace {
 
@@ -59,20 +65,24 @@ __device__ __forceinline__ int32_t pack_rgb(float mag, float kgain) {
          static_cast<int32_t>(b);
 }
 
+// The decay of column sample p: expf(neg_decay * dist) where dist = dist0 -
+// p > 0, else 1 (expf(-0) is 1 exactly: no branch, so a thread's loads are
+// not held behind its expf calls).
+__device__ __forceinline__ float column_decay(long long dist0, int p,
+                                              float neg_decay) {
+  const long long dist = dist0 - p;
+  return expf(neg_decay * static_cast<float>(dist > 0 ? dist : 0));
+}
+
 // Sample p (0 <= p < size) of the column [first, first + size): zero out of
-// [0, n), times expf(neg_decay * dist) where dist = dist0 - p > 0.
+// [0, n), times its decay.
 __device__ __forceinline__ float column_sample(const float* __restrict__ wav,
                                                long long n, long long first,
                                                long long dist0, int p,
                                                float neg_decay) {
   const long long idx = first + p;
-  float x = 0.0f;
-  if (idx >= 0 && idx < n) {
-    x = wav[idx];
-    const long long dist = dist0 - p;
-    if (dist > 0) x *= expf(neg_decay * static_cast<float>(dist));
-  }
-  return x;
+  const float x = idx >= 0 && idx < n ? __ldg(wav + idx) : 0.0f;
+  return x * column_decay(dist0, p, neg_decay);
 }
 
 // Bin k of column row `row`: |X| * inv_size, or its packed colormap texel.
@@ -122,6 +132,28 @@ columns_kernel(const float* __restrict__ wav, long long n,
   }
 }
 
+// The on-chip route (fft_large.cuh) at N = 16,384, 32,768 or 65,536: one
+// CTA, or one 2-CTA cluster at 65,536, per column; tw is
+// kstft.large_twiddles(N).
+template <int N>
+__global__ void __launch_bounds__(mlx::large::RealPlan<N>::kThreads, 1)
+columns_large(const float* __restrict__ wav, long long n,
+              const int* __restrict__ starts, const int* __restrict__ ends,
+              const float2* __restrict__ tw, float neg_decay, float inv_size,
+              float kgain, int colormap, void* out) {
+  extern __shared__ float2 s[];
+  const int c = blockIdx.x / mlx::large::RealPlan<N>::kCluster;
+  long long first, dist0;
+  column_span(starts, ends, c, n, N, &first, &dist0);
+  const long long row = static_cast<long long>(c) * (N / 2);
+  mlx::large::real_fft<N>(
+      wav, n, first, [&](int p) { return column_decay(dist0, p, neg_decay); },
+      [&](int k, float2 v) {
+        store_bin(out, row, k, v, inv_size, kgain, colormap);
+      },
+      s, tw);
+}
+
 // Four-step route, step 1: grid (columns, N1).
 __global__ void __launch_bounds__(kThreads)
 columns_four_step_cols(const float* __restrict__ wav, long long n,
@@ -154,7 +186,6 @@ columns_four_step_rows(const float2* __restrict__ tw, mlx::FourStep f,
                      });
 }
 
-
 }  // namespace
 
 extern "C" int mlx_spectrogram_columns(const float* wav, long long n,
@@ -180,9 +211,44 @@ extern "C" int mlx_spectrogram_columns(const float* wav, long long n,
   return static_cast<int>(cudaGetLastError());
 }
 
-// B7 above 49,152 points: the four-step route.  `scratch` holds n_cols *
-// (size / n1 / 2 + 1) * n1 float2 values; tw the size-point table, tw2 the
-// (size / n1)-point one.
+template <int N>
+int launch_columns_large(const float* wav, long long n, const int* starts,
+                         const int* ends, const float2* tw, void* out,
+                         int n_cols, float neg_decay, float inv_size,
+                         float kgain, int colormap, cudaStream_t stream) {
+  return static_cast<int>(mlx::large::launch_real<N>(
+      columns_large<N>, n_cols, stream, wav, n, starts, ends, tw, neg_decay,
+      inv_size, kgain, colormap, out));
+}
+
+// B7 at 16,384, 32,768 and 65,536 points: the on-chip route; tw is
+// kstft.large_twiddles(size).  Any other size is refused
+// (cudaErrorInvalidValue).
+extern "C" int mlx_spectrogram_columns_large(
+    const float* wav, long long n, const int* starts, const int* ends,
+    const float2* tw, void* out, int n_cols, int size, float neg_decay,
+    float inv_size, float kgain, int colormap, cudaStream_t stream) {
+  switch (size) {
+    case 16384:
+      return launch_columns_large<16384>(wav, n, starts, ends, tw, out, n_cols,
+                                         neg_decay, inv_size, kgain, colormap,
+                                         stream);
+    case 32768:
+      return launch_columns_large<32768>(wav, n, starts, ends, tw, out, n_cols,
+                                         neg_decay, inv_size, kgain, colormap,
+                                         stream);
+    case 65536:
+      return launch_columns_large<65536>(wav, n, starts, ends, tw, out, n_cols,
+                                         neg_decay, inv_size, kgain, colormap,
+                                         stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// B7 above 49,152 points at the other sizes: the four-step route.
+// `scratch` holds n_cols * (size / n1 / 2 + 1) * n1 float2 values; tw the
+// size-point table, tw2 the (size / n1)-point one.
 extern "C" int mlx_spectrogram_columns_4step(
     const float* wav, long long n, const int* starts, const int* ends,
     const float2* tw, const float2* tw2, float2* scratch, void* out,

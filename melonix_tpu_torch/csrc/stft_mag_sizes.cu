@@ -9,7 +9,7 @@
 // (n_frames, N/2) float32, bins in natural order,
 // out[f, k] = |sum_i win[i] x_f[i] e^{-2 pi i k i / N}| * scale.
 //
-// Three routes, picked by N alone (kernels/stft.py route):
+// Five routes, picked by N alone (kernels/stft.py route):
 //
 // * N = 512 ... 8192, a power of two: mlx_stft_mag_pair, B1's kernel
 //   (stft_mag_pair.cuh) at N: two frames per complex transform on the
@@ -17,6 +17,12 @@
 //   split's epilogue.  At 4096/1024 on a 180 s track the frames read 32 MB
 //   and write 64 MB: device memory bounds it (~28 us at 3.35 TB/s), not the
 //   ~0.15 MFLOP per frame.
+//
+// * N = 16,384, 32,768 and 65,536: mlx_stft_mag_large, one real frame per
+//   transform on fft_large.cuh (fft_pair.cuh's 8192 instance, Large<16384>
+//   in one CTA, or a 2-CTA cluster at 65,536), held in shared memory; the
+//   window and zero fill as pass 1 reads the frame (frames overlap, so L2
+//   serves most reads), |X| * scale in the real split.
 //
 // * Any other N up to 49,152 points: stft_mag_sizes_kernel, one block of
 //   256 threads per frame.  Threads read the frame coalesced, window it and
@@ -26,14 +32,19 @@
 //   samples plus a direct m-point sum per output bin.  Shared memory is
 //   4*N bytes (the wrapper caps N, kernels/stft.py).
 //
-// * Above 49,152 points the frame takes the four-step route of
+// * Other sizes above 49,152 points: the four-step route of
 //   fft_fourstep.cuh: stft_four_step_cols (one block per (frame, n1): the
 //   windowed strided samples' real N2-point transforms, into a scratch
-//   buffer; stft_four_step_cols_direct, by direct sums, where N's odd factor
-//   is above 12,288) then stft_four_step_rows (a block per (frame, k2):
-//   twiddles, the complex N1-point transform, |X| * scale for the bins below
-//   N/2).
+//   buffer) then stft_four_step_rows (a block per (frame, k2): twiddles, the
+//   complex N1-point transform, |X| * scale for the bins below N/2).
+//
+// * Where N's odd factor is above 12,288 the four-step columns are no FFT:
+//   up to N2 = 16,384 mlx_stft_mag_bluestein runs them by Bluestein
+//   (stft_four_step_cols_bluestein: two columns a 2-CTA cluster, two
+//   32,768-point transforms), above it stft_four_step_cols_direct sums them
+//   directly; the rows stay.
 #include "fft_fourstep.cuh"
+#include "fft_large.cuh"
 #include "stft_mag_pair.cuh"
 
 namespace {
@@ -60,6 +71,25 @@ stft_mag_sizes_kernel(const float* __restrict__ wav, long long n,
     const float2 v = mlx::real_dft_bin(s, d, tw, k);
     row[k] = sqrtf(v.x * v.x + v.y * v.y) * scale;
   }
+}
+
+// The on-chip route (fft_large.cuh) at N = 16,384, 32,768 or 65,536: one
+// CTA, or one 2-CTA cluster at 65,536, per frame; tw is
+// kstft.large_twiddles(N).
+template <int N>
+__global__ void __launch_bounds__(mlx::large::RealPlan<N>::kThreads, 1)
+stft_mag_large_kernel(const float* __restrict__ wav, long long n,
+                      const float* __restrict__ win,
+                      const float2* __restrict__ tw, float* __restrict__ out,
+                      int hop, float scale) {
+  extern __shared__ float2 s[];
+  const int f = blockIdx.x / mlx::large::RealPlan<N>::kCluster;
+  const long long start = static_cast<long long>(f) * hop;
+  float* row = out + static_cast<long long>(f) * (N / 2);
+  mlx::large::real_fft<N>(
+      wav, n, start, [&](int i) { return __ldg(win + i); },
+      [&](int k, float2 v) { row[k] = sqrtf(v.x * v.x + v.y * v.y) * scale; },
+      s, tw);
 }
 
 // Four-step route, step 1: grid (frames, N1).
@@ -97,6 +127,31 @@ stft_four_step_cols_direct(const float* __restrict__ wav, long long n,
       scratch + blockIdx.x * mlx::four_step_scratch(f));
 }
 
+// Four-step route, step 1 by Bluestein (N2 <= mlx::kBluesteinMax): grid
+// (N1, frames) in 2-CTA clusters along x, columns 2p and 2p + 1 on cluster
+// p; `tab` is kstft.bluestein_table(N2).
+__global__ void __launch_bounds__(mlx::large::Large<16384>::kThreads, 1)
+stft_four_step_cols_bluestein(const float* __restrict__ wav, long long n,
+                              const float* __restrict__ win,
+                              const float2* __restrict__ tab,
+                              mlx::FourStep f, int hop,
+                              float2* __restrict__ scratch) {
+  extern __shared__ float2 s[];
+  const long long start = static_cast<long long>(blockIdx.y) * hop;
+  const int n1a = blockIdx.x & ~1;
+  auto x = [&](int i) {
+    const long long idx = start + i;
+    return (idx < n ? wav[idx] : 0.0f) * win[i];
+  };
+  mlx::four_step_column_bluestein(
+      s, f, tab, n1a,
+      [&](int q) {
+        const int i = n1a + f.n1 * q;
+        return make_float2(x(i), x(i + 1));
+      },
+      scratch + blockIdx.y * mlx::four_step_scratch(f));
+}
+
 // Four-step route, steps 2-3: grid (frames, min(N2, 65535)), rows k2 =
 // blockIdx.y + j * gridDim.y (the direct route's N2 can pass the grid's
 // y limit).
@@ -115,7 +170,6 @@ stft_four_step_rows(const float2* __restrict__ tw, mlx::FourStep f,
                        });
   }
 }
-
 
 }  // namespace
 
@@ -175,10 +229,71 @@ extern "C" int mlx_stft_mag_pair(const float* wav, long long n,
   return static_cast<int>(err);
 }
 
-// B12 above 49,152 points: the four-step route.  `scratch` holds n_frames *
-// (size / n1 / 2 + 1) * n1 float2 values; tw the size-point table, tw2 the
-// (size / n1)-point one: half the circle, or the whole circle where the
-// columns take the direct sums (mlx::four_step_direct).
+template <int N>
+int launch_stft_mag_large(const float* wav, long long n, const float* win,
+                          const float2* tw, float* out, int n_frames, int hop,
+                          float scale, cudaStream_t stream) {
+  return static_cast<int>(mlx::large::launch_real<N>(
+      stft_mag_large_kernel<N>, n_frames, stream, wav, n, win, tw, out, hop,
+      scale));
+}
+
+// B12 at 16,384, 32,768 and 65,536 points: the on-chip route; tw is
+// kstft.large_twiddles(size).  Any other size is refused
+// (cudaErrorInvalidValue).
+extern "C" int mlx_stft_mag_large(const float* wav, long long n,
+                                  const float* win, const float2* tw,
+                                  float* out, int n_frames, int size, int hop,
+                                  float scale, cudaStream_t stream) {
+  switch (size) {
+    case 16384:
+      return launch_stft_mag_large<16384>(wav, n, win, tw, out, n_frames, hop,
+                                          scale, stream);
+    case 32768:
+      return launch_stft_mag_large<32768>(wav, n, win, tw, out, n_frames, hop,
+                                          scale, stream);
+    case 65536:
+      return launch_stft_mag_large<65536>(wav, n, win, tw, out, n_frames, hop,
+                                          scale, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// B12 where the four-step columns take Bluestein (an odd factor above
+// 12,288, N2 <= 16,384): the columns on 2-CTA clusters, then the four-step
+// rows.  `scratch` as mlx_stft_mag_4step's; tw the size-point table, tab
+// kstft.bluestein_table(size / n1).  Other plans are refused
+// (cudaErrorInvalidValue).
+extern "C" int mlx_stft_mag_bluestein(const float* wav, long long n,
+                                      const float* win, const float2* tw,
+                                      const float2* tab, float2* scratch,
+                                      float* out, int n_frames, int size,
+                                      int n1, int hop, float scale,
+                                      cudaStream_t stream) {
+  if (n_frames <= 0) return static_cast<int>(cudaGetLastError());
+  const mlx::FourStep f = mlx::make_four_step(size, n1);
+  if (!mlx::four_step_direct(f) || f.n2 > mlx::kBluesteinMax || n1 % 2 ||
+      n_frames > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t smem_rows = static_cast<size_t>(n1) * sizeof(float2);
+  cudaError_t err = mlx::launch_clustered(
+      stft_four_step_cols_bluestein, dim3(n1, n_frames),
+      mlx::large::Large<16384>::kThreads, mlx::large::Large<16384>::kSmem, 2,
+      stream, wav, n, win, tab, f, hop, scratch);
+  if (err == cudaSuccess) err = mlx::allow_smem(stft_four_step_rows, smem_rows);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  stft_four_step_rows<<<dim3(n_frames, min(f.n2, 65535)), kThreads, smem_rows,
+                        stream>>>(tw, f, scratch, out, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// B12 above 49,152 points at the other sizes: the four-step route.
+// `scratch` holds n_frames * (size / n1 / 2 + 1) * n1 float2 values; tw the
+// size-point table, tw2 the (size / n1)-point one: half the circle, or the
+// whole circle where the columns take the direct sums (mlx::four_step_direct
+// with N2 above mlx::kBluesteinMax).
 extern "C" int mlx_stft_mag_4step(const float* wav, long long n,
                                   const float* win, const float2* tw,
                                   const float2* tw2, float2* scratch,

@@ -69,10 +69,13 @@ SIGNATURES = {
     # wav, n, win, tw, out, n_frames, size, hop, scale, stream
     "mlx_stft_mag_sizes": (_P, _L, _P, _P, _P, _I, _I, _I, _F, _P),
     "mlx_stft_mag_pair": (_P, _L, _P, _P, _P, _I, _I, _I, _F, _P),
+    "mlx_stft_mag_large": (_P, _L, _P, _P, _P, _I, _I, _I, _F, _P),
     # wav, n, starts, ends, tw, out, n_cols, size, neg_decay, inv_size,
     # kgain, colormap, stream
     "mlx_spectrogram_columns": (_P, _L, _P, _P, _P, _P, _I, _I, _F, _F, _F,
                                 _I, _P),
+    "mlx_spectrogram_columns_large": (_P, _L, _P, _P, _P, _P, _I, _I, _F, _F,
+                                      _F, _I, _P),
     # wav, n, tw, ac, w, n_frames, hop, stream
     "mlx_pitch_ac": (_P, _L, _P, _P, _P, _I, _I, _P),
     # wav, n, starts, out, n_frames, size, stream
@@ -89,6 +92,10 @@ SIGNATURES = {
     # wav, n, win, tw, tw2, scratch, out, n_frames, size, n1, hop, scale,
     # stream
     "mlx_stft_mag_4step": (_P, _L) + (_P,) * 5 + (_I, _I, _I, _I, _F, _P),
+    # wav, n, win, tw, tab, scratch, out, n_frames, size, n1, hop, scale,
+    # stream
+    "mlx_stft_mag_bluestein": (_P, _L) + (_P,) * 5 + (_I, _I, _I, _I, _F,
+                                                      _P),
 }
 
 

@@ -9,11 +9,14 @@ the first ``size // 2`` bins divided by ``size`` (spec.cpp:44-66); with
 ``kgain`` and packed as int32 ``0x00RRGGBB`` texels.
 
 The TPU kernel DMA'd a slab per column, realigned it with lane rolls and ran
-a four-step MXU DFT; the port's kernel (``csrc/spectrogram_columns.cu``) is
-one block per column running the real-input FFT of ``csrc/fft_real.cuh`` in
-shared memory up to ``kernels.stft.MAX_SIZE`` points, and the four-step
-route of ``csrc/fft_fourstep.cuh`` (two launches through a scratch buffer)
-above it.  ``spectrogram_columns_fused`` launches it for a CUDA tensor,
+a four-step MXU DFT; the port's kernel (``csrc/spectrogram_columns.cu``)
+takes a route by size (:func:`route`): at ``kernels.stft.LARGE_SIZES``
+(16,384, 32,768 and 65,536 points) one transform per column held on chip
+(``csrc/fft_large.cuh``: 65,536 on a 2-CTA cluster); at the other sizes up
+to ``kernels.stft.MAX_SIZE`` one block per column running the real-input
+FFT of ``csrc/fft_real.cuh`` in shared memory; above it the four-step route
+of ``csrc/fft_fourstep.cuh`` (two launches through a scratch buffer).
+``spectrogram_columns_fused`` launches it for a CUDA tensor,
 runs :func:`spectrogram_columns_plain` for a CPU tensor, and raises for
 anything else; ``spectrogram_columns_fused.launches`` counts its launches.
 """
@@ -24,8 +27,9 @@ import numpy as np
 import torch
 
 from . import _build
-from .stft import (MAX_SIZE, four_step_plan, four_step_scratch,
-                   twiddles)  # the FFT routes and table shared with B12
+from .stft import (LARGE_SIZES, MAX_SIZE, four_step_plan, four_step_scratch,
+                   large_twiddles,
+                   twiddles)  # the FFT routes and tables shared with B12
 
 N1 = 128  # the TPU kernel's lane factor, kept for its size predicate
 _PI_REF = 3.141592  # the reference's pi literal (spec-cache.cpp:86)
@@ -34,10 +38,19 @@ _PI_REF = 3.141592  # the reference's pi literal (spec-cache.cpp:86)
 def supported(size: int) -> bool:
     """The sizes the TPU kernel took (``pallas_columns.supported``: 1024 *
     j, j <= 64).  On CUDA :func:`spectrogram_columns_fused` takes all of
-    them: one block per column up to :data:`MAX_SIZE`, the four-step route
-    above."""
+    them by the routes of :func:`route`."""
     n2 = size // N1
     return size % N1 == 0 and 8 <= n2 <= 512 and n2 % 8 == 0
+
+
+def route(size: int) -> str:
+    """The kernel route B7 takes at ``size`` points, by the size alone:
+    ``"large"`` (``kernels.stft.LARGE_SIZES``: one column per transform held
+    on chip, 65,536 on a 2-CTA cluster), ``"one_block"`` (any other size up
+    to :data:`MAX_SIZE`: ``fft_real.cuh``), ``"four_step"`` above it."""
+    if size in LARGE_SIZES:
+        return "large"
+    return "one_block" if size <= MAX_SIZE else "four_step"
 
 
 def _pack_rgb(mags, kgain):
@@ -94,8 +107,7 @@ def spectrogram_columns_fused(wav, starts, ends, kgain, size: int = 32768,
     dev = _build.cuda_device(wav)
     if not supported(size):
         raise ValueError(f"B7 takes no size {size}")
-    # every supported size above MAX_SIZE (up to 65,536) has an FFT plan
-    plan = four_step_plan(size) if size > MAX_SIZE else None
+    way = route(size)
     b = starts.shape[0]
     _build.require(wav, "wav", torch.float32, (wav.shape[0],), dev)
     _build.require(starts, "starts", torch.int32, (b,), dev)
@@ -104,24 +116,27 @@ def spectrogram_columns_fused(wav, starts, ends, kgain, size: int = 32768,
                       dtype=torch.int32 if colormap else torch.float32,
                       device=dev)
     lib = _build.library()
-    tw = twiddles(size, dev)
     with torch.cuda.device(dev):
-        if plan is None:
-            err = lib.mlx_spectrogram_columns(
+        if way != "four_step":
+            entry, tw = ((lib.mlx_spectrogram_columns_large, large_twiddles)
+                         if way == "large" else
+                         (lib.mlx_spectrogram_columns, twiddles))
+            err = entry(
                 wav.data_ptr(), wav.shape[0], starts.data_ptr(),
-                ends.data_ptr(), tw.data_ptr(), out.data_ptr(), b, size,
-                -float(decay), 1.0 / size, float(kgain), int(colormap),
+                ends.data_ptr(), tw(size, dev).data_ptr(), out.data_ptr(), b,
+                size, -float(decay), 1.0 / size, float(kgain), int(colormap),
                 _build.stream(dev),
             )
         else:
-            n1, n2 = plan
+            # every supported size above MAX_SIZE has an FFT plan
+            n1, n2 = four_step_plan(size)
             scratch = four_step_scratch(b, n1, n2, dev)
             err = lib.mlx_spectrogram_columns_4step(
                 wav.data_ptr(), wav.shape[0], starts.data_ptr(),
-                ends.data_ptr(), tw.data_ptr(), twiddles(n2, dev).data_ptr(),
-                scratch.data_ptr(), out.data_ptr(), b, size, n1,
-                -float(decay), 1.0 / size, float(kgain), int(colormap),
-                _build.stream(dev),
+                ends.data_ptr(), twiddles(size, dev).data_ptr(),
+                twiddles(n2, dev).data_ptr(), scratch.data_ptr(),
+                out.data_ptr(), b, size, n1, -float(decay), 1.0 / size,
+                float(kgain), int(colormap), _build.stream(dev),
             )
     _build.check("spectrogram_columns", err)
     spectrogram_columns_fused.launches += 1

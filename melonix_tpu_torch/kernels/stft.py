@@ -7,19 +7,22 @@ m`` (m odd) that the TPU kernel took, by one of the routes :func:`route`
 names from the size alone: the power-of-two sizes of
 :data:`~melonix_tpu_torch.kernels.pv.PAIR_SIZES` run B1's kernel
 (``csrc/stft_mag_pair.cuh``: two frames per complex transform on the
-register-resident ``csrc/fft_pair.cuh``); the other sizes up to
-:data:`MAX_SIZE` the real-input FFT of ``csrc/fft_real.cuh`` in shared
-memory, one block per frame; above it, the four-step route of
-``csrc/fft_fourstep.cuh`` through a scratch buffer (:func:`four_step_plan`
-picks its factors, :func:`four_step_plain` spells its arithmetic in torch),
-whose column transforms are direct sums where the odd factor does not fit
-one block.
+register-resident ``csrc/fft_pair.cuh``); :data:`LARGE_SIZES` one frame per
+transform held on chip (``csrc/fft_large.cuh``: 65,536 points on a 2-CTA
+cluster); the other sizes up to :data:`MAX_SIZE` the real-input FFT of
+``csrc/fft_real.cuh`` in shared memory, one block per frame; above it, the
+four-step route of ``csrc/fft_fourstep.cuh`` through a scratch buffer
+(:func:`four_step_plan` picks its factors, :func:`four_step_plain` spells
+its arithmetic in torch), whose column transforms, where the odd factor
+does not fit one block, are Bluestein convolutions on the cluster
+transform up to :data:`BLUESTEIN_MAX` points and direct sums above.
 
 ``stft_mag`` launches the kernel for a CUDA tensor, runs
 :func:`stft_mag_plain` for a CPU tensor, and raises for anything else;
 ``stft_mag.launches`` counts its launches, one a call whatever the route.
 ``twiddles`` is the float32 table of the real-input FFT, shared with B7
-(``kernels/columns.py``), as is the four-step plan.
+(``kernels/columns.py``), as are the four-step plan and
+:func:`large_twiddles`.
 """
 
 from __future__ import annotations
@@ -33,14 +36,24 @@ from . import _build
 from .pv import PAIR_SIZES, pair_twiddles
 from .pv import stft_mag_plain  # size-generic: the twin of B1 and B12
 
-__all__ = ["MAX_SIZE", "supported", "route", "stft_mag", "stft_mag_plain",
-           "twiddles", "circle", "four_step_plan", "four_step_plain"]
+__all__ = ["MAX_SIZE", "LARGE_SIZES", "BLUESTEIN_MAX", "supported", "route",
+           "stft_mag", "stft_mag_plain", "twiddles", "circle",
+           "large_pass_table", "large_twiddles", "bluestein_table",
+           "four_step_plan", "four_step_plain"]
 
 # The one-block transform keeps 4 * size bytes in dynamic shared memory
 # (fft_real.cuh); 49152 points take 192 KB of the block's 227 KB.  Larger
 # sizes take the four-step route.
 MAX_SIZE = 49152
 MAX_N1 = 16384  # the four-step rows keep 8 * N1 bytes: 128 KB
+# Sizes whose frame is one transform held on chip (csrc/fft_large.cuh):
+# 8192, 16,384 and 32,768 packed complex points.
+LARGE_SIZES = (16384, 32768, 65536)
+LARGE_M = 16384  # points of Large<M>, the one-CTA transform
+# Bluestein's convolution length (the cluster transform) and the largest
+# four-step column it takes (2 * N2 - 1 <= L).
+BLUESTEIN_L = 2 * LARGE_M
+BLUESTEIN_MAX = BLUESTEIN_L // 2
 SLAB_PAD = 8  # the TPU kernel's largest size // hop
 BT = 256  # the TPU kernel's bin tile
 
@@ -95,6 +108,62 @@ def circle(size: int, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(tw).to(device)
 
 
+@functools.cache
+def large_pass_table(device: torch.device) -> torch.Tensor:
+    """(8448, 2) float32 pass table of ``csrc/fft_large.cuh``'s
+    ``Large<16384>``, computed in float64: :func:`circle` of 256 (pass 2),
+    of 4096 (pass 3), and the first 4096 entries of :func:`circle` of
+    :data:`LARGE_M` (pass 4, whose other twiddles are their powers)."""
+    return torch.cat([circle(256, device), circle(4096, device),
+                      circle(LARGE_M, device)[:4096]])
+
+
+@functools.cache
+def large_twiddles(size: int, device: torch.device) -> torch.Tensor:
+    """The one float32 table of ``csrc/fft_large.cuh``'s real ``size``-point
+    transform (``RealPlan<N>`` reads its offsets), computed in float64: the
+    CTA transform's table (:func:`~melonix_tpu_torch.kernels.pv.pair_twiddles`
+    of 8192 at 16,384 points, :func:`large_pass_table` above), at 65,536
+    points (a 2-CTA cluster) then :func:`twiddles` of 32,768 (the radix-2
+    step across the cluster), last :func:`twiddles` of ``size`` (the real
+    split)."""
+    if size not in LARGE_SIZES:
+        raise ValueError(f"no on-chip transform of {size} points")
+    cpu = torch.device("cpu")
+    parts = ([pair_twiddles(8192, cpu)] if size == 16384
+             else [large_pass_table(cpu)])
+    if size == 65536:
+        parts.append(twiddles(2 * LARGE_M, cpu))
+    parts.append(twiddles(size, cpu))
+    return torch.cat(parts).to(device)
+
+
+@functools.cache
+def bluestein_table(n2: int, device: torch.device) -> torch.Tensor:
+    """(n2 + 3 * BLUESTEIN_L / 2 + 8448, 2) float32 table of the Bluestein
+    columns (``csrc/fft_fourstep.cuh``), computed in float64: the chirp b_n =
+    e^(i pi n^2 / n2), n < n2, its angle from n^2 mod 2 n2 in int64 (exact);
+    the spectrum of the convolution kernel c (c[m] = c[L - m] = b_m, m <
+    n2; zeros between) over L = :data:`BLUESTEIN_L` points, scaled by 1 / L;
+    then :func:`large_pass_table` (L / 2 points) and :func:`twiddles` of L
+    (the cluster transform's tables)."""
+    if not 1 <= n2 <= BLUESTEIN_MAX:
+        raise ValueError(f"Bluestein takes columns of 1..{BLUESTEIN_MAX} "
+                         f"points, not {n2}")
+    n = np.arange(n2, dtype=np.int64)
+    b = np.exp(1j * np.pi * ((n * n) % (2 * n2)).astype(np.float64) / n2)
+    c = np.zeros(BLUESTEIN_L, np.complex128)
+    c[:n2] = b
+    c[BLUESTEIN_L - n2 + 1:] = b[1:][::-1]
+    spec = np.fft.fft(c) / BLUESTEIN_L
+    parts = [np.stack([z.real, z.imag], axis=1).astype(np.float32)
+             for z in (b, spec)]
+    cpu = torch.device("cpu")
+    return torch.cat([torch.from_numpy(p) for p in parts]
+                     + [large_pass_table(cpu),
+                        twiddles(BLUESTEIN_L, cpu)]).to(device)
+
+
 def four_step_plain(frames: torch.Tensor, n1: int) -> torch.Tensor:
     """(B, size // 2) complex: the first size // 2 bins of the DFT of each
     real frame by the four-step decomposition the kernels run (plain torch,
@@ -129,13 +198,18 @@ def supported(size: int, hop: int) -> bool:
 def route(size: int) -> str:
     """The kernel route B12 takes at ``size`` points, by the size alone:
     ``"pair"`` (a power of two in :data:`PAIR_SIZES`: two frames per
-    register-resident complex transform), ``"one_block"`` (any other size
-    up to :data:`MAX_SIZE`: ``fft_real.cuh``, a block per frame),
-    ``"four_step"`` above it, ``"direct"`` where the four-step columns are
-    direct sums.  Raises NotImplementedError for a size no route takes (2^31
-    points and more)."""
+    register-resident complex transform), ``"large"`` (:data:`LARGE_SIZES`:
+    one frame per transform held on chip, 65,536 on a 2-CTA cluster),
+    ``"one_block"`` (any other size up to :data:`MAX_SIZE`:
+    ``fft_real.cuh``, a block per frame), ``"four_step"`` above it,
+    ``"bluestein"`` where the four-step columns are Bluestein convolutions
+    (an odd factor above 12,288, N2 <= :data:`BLUESTEIN_MAX`) and
+    ``"direct"`` where they are direct sums (a larger N2).  Raises
+    NotImplementedError for a size no route takes (2^31 points and more)."""
     if size in PAIR_SIZES:
         return "pair"
+    if size in LARGE_SIZES:
+        return "large"
     if size <= MAX_SIZE:
         return "one_block"
     plan = four_step_plan(size)
@@ -143,7 +217,9 @@ def route(size: int) -> str:
         raise NotImplementedError(
             f"B12 size {size}: the four-step route indexes a frame with "
             "int32, so it takes sizes below 2^31")
-    return "direct" if four_step_direct(plan[1]) else "four_step"
+    if not four_step_direct(plan[1]):
+        return "four_step"
+    return "bluestein" if plan[1] <= BLUESTEIN_MAX else "direct"
 
 
 def stft_mag(wav, window, size: int, hop: int, n_frames: int,
@@ -164,22 +240,28 @@ def stft_mag(wav, window, size: int, hop: int, n_frames: int,
     out = torch.empty((n_frames, size // 2), dtype=torch.float32, device=dev)
     lib = _build.library()
     with torch.cuda.device(dev):
-        if way in ("pair", "one_block"):
-            entry, tw = ((lib.mlx_stft_mag_pair, pair_twiddles(size, dev))
-                         if way == "pair" else
-                         (lib.mlx_stft_mag_sizes, twiddles(size, dev)))
+        if way in ("pair", "large", "one_block"):
+            entry, tw = {
+                "pair": (lib.mlx_stft_mag_pair, pair_twiddles),
+                "large": (lib.mlx_stft_mag_large, large_twiddles),
+                "one_block": (lib.mlx_stft_mag_sizes, twiddles),
+            }[way]
             err = entry(
-                wav.data_ptr(), wav.shape[0], window.data_ptr(), tw.data_ptr(),
-                out.data_ptr(), n_frames, size, hop, float(scale),
-                _build.stream(dev),
+                wav.data_ptr(), wav.shape[0], window.data_ptr(),
+                tw(size, dev).data_ptr(), out.data_ptr(), n_frames, size, hop,
+                float(scale), _build.stream(dev),
             )
         else:
             n1, n2 = four_step_plan(size)
             scratch = four_step_scratch(n_frames, n1, n2, dev)
-            tw2 = circle(n2, dev) if way == "direct" else twiddles(n2, dev)
-            err = lib.mlx_stft_mag_4step(
+            entry, tw2 = {
+                "four_step": (lib.mlx_stft_mag_4step, twiddles),
+                "direct": (lib.mlx_stft_mag_4step, circle),
+                "bluestein": (lib.mlx_stft_mag_bluestein, bluestein_table),
+            }[way]
+            err = entry(
                 wav.data_ptr(), wav.shape[0], window.data_ptr(),
-                twiddles(size, dev).data_ptr(), tw2.data_ptr(),
+                twiddles(size, dev).data_ptr(), tw2(n2, dev).data_ptr(),
                 scratch.data_ptr(), out.data_ptr(), n_frames, size, n1, hop,
                 float(scale), _build.stream(dev),
             )

@@ -263,8 +263,8 @@ def test_stft_mag_pair_model_matches_rfft(n, case):
 
 @pytest.mark.parametrize("size,way", [
     (512, "pair"), (1024, "pair"), (2048, "pair"), (4096, "pair"),
-    (8192, "pair"), (1536, "one_block"), (16384, "one_block"),
-    (49152, "one_block"), (65536, "four_step"), (512 * 12289, "direct"),
+    (8192, "pair"), (1536, "one_block"), (16384, "large"),
+    (49152, "one_block"), (65536, "large"), (512 * 12289, "bluestein"),
 ])
 def test_route_is_decided_by_the_size(size, way):
     assert kstft.route(size) == way
@@ -304,7 +304,7 @@ def fake_cuda(monkeypatch):
 @pytest.mark.parametrize("size,hop,entry", [
     (512, 128, "mlx_stft_mag_pair"), (1024, 256, "mlx_stft_mag_pair"),
     (4096, 1024, "mlx_stft_mag_pair"), (8192, 1024, "mlx_stft_mag_pair"),
-    (1536, 384, "mlx_stft_mag_sizes"), (16384, 2048, "mlx_stft_mag_sizes"),
+    (1536, 384, "mlx_stft_mag_sizes"), (16384, 2048, "mlx_stft_mag_large"),
 ])
 def test_b12_launches_the_entry_of_its_route(fake_cuda, size, hop, entry):
     """One call of the route's entry with (n_frames, size, hop), one launch

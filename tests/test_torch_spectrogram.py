@@ -296,55 +296,72 @@ def _fake_cuda(monkeypatch):
 
 def test_b12_beyond_cap_raises_on_cuda_tensors(monkeypatch):
     """(Named for the behaviour it replaced.)  Above MAX_SIZE B12 and B7
-    launch their four-step route instead of raising (ROADMAP C1): at 65,536
-    points each wrapper makes one call of its ``*_4step`` entry with the
-    host plan's N1, and counts one launch; so does B12 at a size whose odd
-    factor needs the direct column sums.  Below the cap B12 launches the
-    pair transform at 4096 and the one-block transform at 1536.  Only a
-    size int32 indices cannot reach raises NotImplementedError, naming why,
-    before any launch."""
+    launch a route instead of raising (ROADMAP C1): at 65,536 points each
+    wrapper makes one call of its on-chip ``*_large`` entry, and at sizes
+    the four-step route still takes (B12 98,304, B7 50,176) one call of its
+    ``*_4step`` entry with the host plan's N1, and counts one launch; B12
+    at a size whose odd factor needs Bluestein columns calls
+    ``mlx_stft_mag_bluestein`` with the plan.  Below the cap B12 launches
+    the pair transform at 4096, the one-block transform at 1536 and the
+    on-chip one at 32,768, as B7 does.  Only a size int32 indices cannot
+    reach raises NotImplementedError, naming why, before any launch."""
     rec = _fake_cuda(monkeypatch)
     size, meta = 65536, torch.device("meta")
     wav = torch.zeros(300000).to(meta)
-    n1, n2 = kstft.four_step_plan(size)
     b12, b7 = kstft.stft_mag.launches, kcols.spectrogram_columns_fused.launches
     out = kstft.stft_mag(wav, torch.zeros(size).to(meta), size, 8192, 5)
     assert out.shape == (5, size // 2)
     name, args = rec.calls[-1]
-    assert name == "mlx_stft_mag_4step" and args[7:11] == (5, size, n1, 8192)
+    assert name == "mlx_stft_mag_large" and args[5:8] == (5, size, 8192)
     ends = torch.zeros(3, dtype=torch.int32).to(meta)
     out = kcols.spectrogram_columns_fused(wav, ends, ends, 1.0, size=size)
     assert out.shape == (3, size // 2) and out.dtype == torch.int32
     name, args = rec.calls[-1]
-    assert name == "mlx_spectrogram_columns_4step"
-    assert args[8:11] == (3, size, n1)
+    assert name == "mlx_spectrogram_columns_large" and args[6:8] == (3, size)
     assert kstft.stft_mag.launches == b12 + 1
     assert kcols.spectrogram_columns_fused.launches == b7 + 1
+    # the four-step route at the sizes it keeps
+    four = 98304
+    n1, _n2 = kstft.four_step_plan(four)
+    kstft.stft_mag(wav, torch.zeros(four).to(meta), four, 12288, 5)
+    name, args = rec.calls[-1]
+    assert name == "mlx_stft_mag_4step" and args[7:11] == (5, four, n1, 12288)
+    n1, _n2 = kstft.four_step_plan(50176)
+    kcols.spectrogram_columns_fused(wav, ends, ends, 1.0, size=50176)
+    name, args = rec.calls[-1]
+    assert name == "mlx_spectrogram_columns_4step"
+    assert args[8:11] == (3, 50176, n1)
     # at and below the cap: B12's power-of-two sizes take the pair
-    # transform, its other sizes and B7 the one-block entries
+    # transform, its other sizes the one-block entry; 32,768 points (B12
+    # and B7) the on-chip transform
     kstft.stft_mag(wav, torch.zeros(4096).to(meta), 4096, 1024, 5)
     kstft.stft_mag(wav, torch.zeros(1536).to(meta), 1536, 384, 5)
+    kstft.stft_mag(wav, torch.zeros(32768).to(meta), 32768, 4096, 5)
     kcols.spectrogram_columns_fused(wav, ends, ends, 1.0, size=32768)
-    assert [c[0] for c in rec.calls[-3:]] == ["mlx_stft_mag_pair",
+    assert [c[0] for c in rec.calls[-4:]] == ["mlx_stft_mag_pair",
                                              "mlx_stft_mag_sizes",
-                                             "mlx_spectrogram_columns"]
-    b12 += 1  # the 1536 call, beside the count this test had
-    # the odd factor 12,289 puts N2 above MAX_SIZE: direct column sums,
-    # their table the whole 12,289-point circle
+                                             "mlx_stft_mag_large",
+                                             "mlx_spectrogram_columns_large"]
+    b12 += 5  # the 65,536, 98,304, 4096, 1536 and 32,768 calls
+    # the odd factor 12,289 puts N2 above MAX_SIZE: Bluestein columns,
+    # their table the chirp, its spectrum and the cluster transform's
     odd = 512 * 12289
     assert kstft.supported(odd, odd // 4)
     assert kstft.four_step_plan(odd) == (512, 12289)
     kstft.stft_mag(wav, torch.zeros(odd).to(meta), odd, odd // 4, 3)
     name, args = rec.calls[-1]
-    assert name == "mlx_stft_mag_4step" and args[7:11] == (3, odd, 512, odd // 4)
+    assert name == "mlx_stft_mag_bluestein"
+    assert args[7:11] == (3, odd, 512, odd // 4)
+    assert kstft.bluestein_table(12289, meta).shape == (
+        12289 + 32768 + 8448 + 16384, 2)
     assert kstft.circle(12289, meta).shape == (12289, 2)
-    assert kstft.stft_mag.launches == b12 + 3
+    assert kstft.stft_mag.launches == b12 + 1
     # beyond int32 indices: no plan, raised before any launch
     big = 1 << 31
     assert kstft.supported(big, big // 4) and kstft.four_step_plan(big) is None
     with pytest.raises(NotImplementedError, match="2\\^31"):
         kstft.stft_mag(wav, None, big, big // 4, 3)
-    assert kstft.stft_mag.launches == b12 + 3
+    assert kstft.stft_mag.launches == b12 + 1
 
 
 def _b12_sizes():
