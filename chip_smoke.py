@@ -681,6 +681,33 @@ def rank_main(argv) -> int:
     return 0
 
 
+def synth_ptxas(log: str) -> list[tuple[str, int, int, int]]:
+    """(kernel, registers, spill store bytes, stack bytes) of the pair
+    synthesis kernels in an nvcc log with ptxas -v: the mode is the
+    template argument (0 B3's half spectrum, 1 locked, 2 B10's polar)."""
+    import re
+
+    modes = {"0": "half", "1": "locked", "2": "polar"}
+    out, name, stack, spill = [], None, 0, 0
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            k = re.search(r"synth_pair_kernelILi(\d)E", m.group(1))
+            unit = re.search(r"_(pv_synth_ola(?:_phase)?)_cu", m.group(1))
+            name = (f"synth_pair_kernel<{modes[k.group(1)]}> "
+                    f"({unit.group(1)}.cu)" if k and unit else None)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores",
+                      line)
+        if m and name:
+            stack, spill = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.append((name, int(m.group(1)), spill, stack))
+            name = None
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -743,6 +770,10 @@ def main() -> int:
     for line in (_build.BUILD_DIR / "nvcc.log").read_text().splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print("    ptxas:", line.strip())
+    for name, regs, spill, stack in synth_ptxas(
+            (_build.BUILD_DIR / "nvcc.log").read_text()):
+        print(f"    ptxas {name}: {regs} registers, {spill} bytes spill "
+              f"stores, {stack} bytes stack frame", flush=True)
 
     # -- inputs at the main path's shapes -----------------------------
     size, hop = mt.DEFAULT_CONFIG.stft_size, mt.DEFAULT_CONFIG.stft_hop
@@ -775,6 +806,25 @@ def main() -> int:
                           replaces=replaces, launches=0, max_abs_err=err,
                           bound_ms=bound_ms, bound_by=bound_by,
                           run_kernel=fn_k, run_plain=fn_p, run_library=fn_lib)
+
+    # B3's and B10's two overlap-add routes: the hop's own (fused at the
+    # path's hop) held bit for bit to the frames route, both timed in
+    # phase 22 beside the scan alone and cuFFT's irfft
+    route_rows = []
+
+    def both_routes(label, fn, got, scan, lib):
+        """``fn(route)`` runs the kernel on one route; ``got`` is what the
+        hop's own route returned."""
+        other = fn("frames")
+        torch.cuda.synchronize()
+        same = bit_equal(other if isinstance(other, tuple) else (other,),
+                         got if isinstance(got, tuple) else (got,))
+        print(f"    {label}: {kpv.ola_route(hop)} route vs frames route "
+              f"bit-equal {same} (bar: equal)", flush=True)
+        check(kpv.ola_route(hop) == "fused" and same,
+              f"{label}: fused vs frames route")
+        route_rows.append((label, lambda: fn(None), lambda: fn("frames"),
+                           scan, lib))
 
     b1 = lambda: kpv.stft_mag(wav, win, size, hop, nf)  # noqa: E731
     b1p = lambda: kpv.stft_mag_plain(wav, win, size, hop, nf)  # noqa: E731
@@ -896,6 +946,10 @@ def main() -> int:
            lambda: torch.fft.irfft(spec_b3, n=size),
            nbytes(re_k, im_k, da, win, zeros, zeros, zeros)
            + nbytes(y_k, r_k, pl_k, p0_k), fft_flops(plan.n_frames, size))
+    both_routes("B3 (re, im)",
+                lambda route: kpv.synth_ola_phase(*b3_args, route=route),
+                (y_k, r_k, pl_k, p0_k), sc,
+                lambda: torch.fft.irfft(spec_b3, n=size))
     # a later chunk: global frame offset, padded tail, carries from above;
     # 15,027 frames, so the scan's last tile and last run are partial
     # (15,104 is 118 whole tiles of 128) and B2 pairs its last frame with
@@ -905,14 +959,17 @@ def main() -> int:
     late = (re_k[:f_odd], im_k[:f_odd], da[:f_odd], win, m0_late, f_late,
             p0_p, r_p, pl_p, size, hop)
     lk, lp = kpv.synth_ola_phase(*late), kpv.synth_ola_phase_plain(*late)
+    lu = kpv.synth_ola_phase(*late, route="frames")
     torch.cuda.synchronize()
+    check(bit_equal(lk, lu), "B3 later chunk: fused vs frames route")
     rms, env = rms_env(lk[0], lp[0])
     r_ok = float(((lk[1] - lp[1]).abs() < 1e-2).float().mean())
     e_pl, e_p0 = max_err(lk[2], lp[2]), max_err(lk[3], lp[3])
     print(f"    B3 later chunk ({f_odd} frames, m0 {m0_late}, f_real {f_late})"
           f": rms {rms:.2e}, envelope {env:.2e}, phi0_eff {e_p0:.2e}, "
           f"phi_last {e_pl:.2e}, resid_last within 1e-2 on "
-          f"{100 * r_ok:.1f}% of bins (same bars)", flush=True)
+          f"{100 * r_ok:.1f}% of bins (same bars); fused vs frames route "
+          f"bit-equal True (bar: equal)", flush=True)
     check(lk[0].shape == lp[0].shape and rms < 5e-3 and env < 2e-2
           and e_p0 < 1e-5 and e_pl < 1e-5 and r_ok > 0.9, "B3 later chunk")
     (re_o, im_o), (re_op, im_op) = (kpv.analysis(wav, starts[:f_odd], win,
@@ -1627,6 +1684,13 @@ def main() -> int:
            + nbytes(y_k, r_k, pl_k, p0_k), fft_flops(mplan.n_frames, size))
     rows["pv_synth_ola_phase_mag_phi"]["launches"] = at_launches[
         "synth_ola_phase"]
+    both_routes("B3 (mag, phi)",
+                lambda route: kpv.synth_ola_phase(*b3f_args, cart=False,
+                                                  route=route),
+                (y_k, r_k, pl_k, p0_k),
+                lambda: kpv.phase_scan(mag_m, phi_m, da_d, 0, fr_m, zeros,
+                                       zeros, zeros, size, hop, cart=False),
+                lambda: torch.fft.irfft(spec_b3f, n=size))
     del y_k, y_p
 
     # the formant gain and the autotune render on the device (profiler)
@@ -1682,6 +1746,14 @@ def main() -> int:
               and r_ok >= 0.9 and r_abs >= 0.9,
               f"B3 lock {entry} carries vs twin")
         check(det, f"B3 lock {entry} two calls differ")
+        both_routes(
+            f"B3 lock=True {entry}",
+            lambda route, args=args, cart=cart: kpv.synth_ola_phase(
+                *args, cart=cart, lock=True, route=route),
+            (y_k, r_k, pl_k, p0_k),
+            lambda args=args, cart=cart: kpv.phase_scan(
+                *args[:3], *args[4:], cart=cart, lock=True),
+            lambda: torch.fft.irfft(spec_b3, n=size))
         if cart:
             record("pv_synth_ola_phase_lock",
                    "melonix_tpu_torch/csrc/pv_synth_ola_phase.cu",
@@ -1938,6 +2010,28 @@ def main() -> int:
           "B10 vs twin")
     check(b10_calls == 1, f"B10 launches {b10_calls} in one call")
     spec_b10 = torch.polar(mag10, psi10)
+    both_routes("B10", lambda route: kpv.synth_ola(mag10, psi10, win, size,
+                                                   hop, route=route),
+                got, None, lambda: torch.fft.irfft(spec_b10, n=size))
+    # the pair synthesis's edges: a hop that is no multiple of 128 (the
+    # fused route at 441), an odd frame count (the last frame paired with a
+    # zero spectrum) and one frame, each against the twin
+    f10 = mag10.shape[0]
+    for label, hp_, nf_ in (("hop 441", 441, f10),
+                            ("odd count", hop, f10 - 1 + f10 % 2),
+                            ("one frame", hop, 1)):
+        g_ = kpv.synth_ola(mag10[:nf_], psi10[:nf_], win, size, hp_)
+        w_ = kpv.synth_ola_plain(mag10[:nf_], psi10[:nf_], win, size, hp_)
+        u_ = kpv.synth_ola(mag10[:nf_], psi10[:nf_], win, size, hp_,
+                           route="frames")
+        torch.cuda.synchronize()
+        s_ = snr_db(g_, w_)
+        print(f"     B10 synth_ola, {label} ({nf_} frames, hop {hp_}, "
+              f"{kpv.ola_route(hp_)} route): SNR {s_:.1f} dB (bar < -100), "
+              f"vs the frames route bit-equal {torch.equal(g_, u_)} (bar: "
+              f"equal)", flush=True)
+        check(g_.shape == ((nf_ - 1) * hp_ + size,) and s_ < -100.0
+              and torch.equal(g_, u_), f"B10 {label} vs twin")
     record("pv_synth_ola", "melonix_tpu_torch/csrc/pv_synth_ola.cu",
            "melonix_tpu/kernels/pallas_pv.py:492", e, b10, b10p,
            lambda: torch.fft.irfft(spec_b10, n=size),
@@ -2136,6 +2230,22 @@ def main() -> int:
           f"synthesis + OLA launches (B3 less the scan alone) "
           f"{rows['pv_synth_ola_phase']['ms'] - rows['pv_phase_scan']['ms']:.4f}"
           f" ms | {card}", flush=True)
+    for label, fused, frames, scan, lib in route_rows:
+        # in turns: fused, frames, frames, fused
+        f1, u1, u2, f2 = (cuda_ms(fn, inner=KERNEL_INNER)
+                          for fn in (fused, frames, frames, fused))
+        f_ms, u_ms = (f1 + f2) / 2, (u1 + u2) / 2
+        lib_ms = cuda_ms(lib, inner=KERNEL_INNER)
+        less = ""
+        if scan is not None:
+            s_ms = cuda_ms(scan, inner=KERNEL_INNER)
+            less = (f"; less the scan alone ({s_ms:.4f} ms), synthesis + "
+                    f"OLA: fused {f_ms - s_ms:.4f} ms, frames "
+                    f"{u_ms - s_ms:.4f} ms")
+        print(f"[22] {label} overlap-add routes (mean of two turns each): "
+              f"fused {f_ms:.4f} ms ({f1:.4f}, {f2:.4f}), frames "
+              f"{u_ms:.4f} ms ({u1:.4f}, {u2:.4f}){less}; irfft of its "
+              f"half spectra {lib_ms:.4f} ms | {card}", flush=True)
     dev_args = (wav, gplan.grain_start, gplan.rate, gplan.sz, offs, total,
                 fix_idx, fix_val, szmax)
     g_dev_ms = cuda_ms(lambda: krender.render_full(*dev_args))

@@ -2,9 +2,9 @@
 // whose radix stages run in registers: the transform under B2
 // (pv_analysis.cu, N = 2048) and under B1 and B12's |STFT|
 // (stft_mag_pair.cuh, every N here), which pack two real frames into one
-// complex transform, z = x_a + i x_b.  It provides the inverse too (sign =
-// +1), for B3/B10's synthesis, which still run the shared-memory radix-2
-// fft2048.cuh.
+// complex transform, z = x_a + i x_b, and, with sign = +1, under the
+// synthesis of B3 and B10 (pv_synth.cuh, N = 2048), which packs two
+// Hermitian half spectra into one complex inverse, Z = X_a + i X_b.
 //
 // One transform per CTA of T = N / 16 threads; each thread holds 16 points.
 // With index n = b + T a (b < T, a < 16), b = c + R a' (c < R) and output
@@ -23,8 +23,8 @@
 //           16-point DFT -> Y_e[s], and one radix-2 step through a warp
 //           shuffle finishes the 32-point DFT: X[s] = Y_0[s] + W_32^s Y_1[s]
 //           (lane half 0), X[s + 16] = Y_0[s] - W_32^s Y_1[s] (lane half 1).
-// Three barriers a transform, against fft2048.cuh's eleven; two exchange
-// buffers taken in turn, 2 * kBuf float2 of dynamic shared memory.
+// Three barriers a transform (a radix-2 transform in shared memory takes
+// log2 N); two exchange buffers, 2 * kBuf float2 of dynamic shared memory.
 //
 // Row strides (Plan<N>, in float2): a half-warp's 8-byte accesses fall on
 // distinct banks when their float2 indices differ mod 16.  Exchange 1 is
@@ -205,11 +205,12 @@ __device__ __forceinline__ void load_twiddles(Twiddles<N>& tw,
 // N); sign = +1: inverse without the 1/N scale.  out and other are two
 // distinct buffers of kBuf float2: exchange 1 and the result go to out,
 // exchange 2 to other; on return out[k] = X[k] (k < N) for every thread.
-// Every thread of the CTA must call it.  The caller swaps the two buffers
-// from one call to the next: the next call's first write then lands in the
-// buffer whose last reads the final barrier here has ordered, and its
-// second write behind its own first barrier, so no barrier is needed
-// between calls.
+// Every thread of the CTA must call it.  A caller that reads only out
+// between calls swaps the two buffers from one call to the next: the next
+// call's first write then lands in the buffer whose last reads the final
+// barrier here has ordered, and its second write behind its own first
+// barrier, so no barrier is needed between calls (a caller with a barrier
+// of its own between calls keeps them, as pv_synth.cuh does).
 template <int N>
 __device__ __forceinline__ void fft(float2 (&v)[16], const Twiddles<N>& tw,
                                     float2* out, float2* other, float sign) {

@@ -13,29 +13,24 @@
 // TPU kernel's output was (F // 64 + 1) * 64 * hop long; only this span was
 // exact, and it is the only span its caller read (sharded.py:737-738).
 //
-// Design: B3 without its phase scan, on B3's own launches (pv_synth.cuh):
-//   1. synth_kernel<kSynthPolar>: one block per frame; a polar prologue
-//      writes mag * e^{i psi} into the bit-reversed Hermitian buffer in
-//      shared memory, then the inverse fft2048, 1/2048 and the window.
-//   2. ola_kernel: the fixed-order overlap-add, no atomics.
-// Blocks on this card run in no order, so the TPU's carried OLA becomes a
-// second launch over an (F, 2048) frame matrix in device memory (scratch
-// from the wrapper).  What bounds it: mag and psi are read once and y
-// written once (~155 MB at the 180 s song's 15,104 frames, ~0.046 ms at
-// 3.35 TB/s); the frame matrix's write and read (2 x 124 MB) are what this
-// design adds over the bound.
+// Design: B3 without its phase scan, on B3's own synthesis (pv_synth.cuh):
+// the pair synthesis in its polar mode (kSynthPolar: mag * e^{i psi} staged
+// once a bin, two frames a 2048-point inverse of fft_pair.cuh), then, by
+// the hop (kpv.ola_route), the overlap-add carried in each CTA (fused, 256
+// <= hop <= 2048: one launch, the frame matrix never in device memory) or
+// the frame matrix (scratch from the wrapper) and ola_kernel.  Blocks on
+// this card run in no order, so the TPU's carry from one grid step to the
+// next becomes a carry along each CTA's own contiguous range of frames,
+// which first recomputes the few frames before it that reach its first
+// sample.  What bounds it: mag and psi are read once and y written once
+// (~155 MB at the 180 s song's 15,104 frames, ~0.046 ms at 3.35 TB/s).
 #include "pv_synth.cuh"
 
 extern "C" int mlx_pv_synth_ola(const float* mag, const float* psi,
                                 const float* win, const float2* tw,
                                 float* frames, float* y, int n_frames,
-                                int hop, cudaStream_t stream) {
-  if (n_frames <= 0 || hop <= 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  synth_kernel<kSynthPolar><<<n_frames, mlx::kFftThreads, 0, stream>>>(
-      mag, psi, nullptr, win, tw, frames, n_frames);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(launch_ola(frames, y, n_frames, hop, stream));
+                                int hop, int fused, cudaStream_t stream) {
+  return static_cast<int>(launch_synth<kSynthPolar>(
+      mag, psi, nullptr, win, tw, frames, y, n_frames, n_frames, hop, fused,
+      stream));
 }

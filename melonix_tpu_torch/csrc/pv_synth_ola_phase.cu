@@ -8,8 +8,9 @@
 // the TPU's grid is sequential: a (size - hop)-row OLA carry and the
 // frame-axis prefix sum (a lower-triangular matmul per block of frames plus
 // a running carry, pallas_pv.py:752-790) rode from one grid step to the
-// next.  Blocks on this card run in no order, so the chain becomes five
-// launches on one stream, each parallel over what it can be:
+// next.  Blocks on this card run in no order, so the chain becomes four
+// launches on one stream (five off the fused overlap-add route), each
+// parallel over what it can be:
 //
 //   1-3. the phase scan, blocked over frames as well as bins
 //      (reduce-then-scan; launch_scan below).  Per frame m and bin k:
@@ -46,32 +47,37 @@
 //           melonix_tpu/engine/phase_vocoder.py:_stretch_chunk_core:374-416.
 //      Bounded by HBM: re/im are read twice (launches 1 and 3), the half
 //      spectrum written once; the tile totals are (F / 128, 1025) float64.
-//   4. synthesis (synth_kernel<mode>, pv_synth.cuh, shared with B10's
-//      pv_synth_ola.cu): one block per frame takes the Hermitian half
-//      spectrum, drops the DC/Nyquist imaginaries as a c2r inverse does,
-//      runs the inverse fft2048, scales by 1/2048 and applies the window.
-//      Bounded by the FFT's shared-memory passes.  With lock a prologue
-//      (lock_frame) first locks the frame's phases: locking needs every bin
+//   4. synthesis (synth_pair_kernel<mode>, pv_synth.cuh, shared with B10's
+//      pv_synth_ola.cu): two frames a 2048-point inverse of the register
+//      pair transform (fft_pair.cuh): a CTA of 128 threads stages both
+//      Hermitian half spectra in shared memory in natural order (the
+//      DC/Nyquist imaginaries dropped as a c2r inverse drops them), forms
+//      Z = X_a + i X_b, inverts it, and frame a is the real part, frame b
+//      the imaginary, scaled by 1/2048 and windowed.  With lock a prologue
+//      (lock_pair) first locks both frames' phases: locking needs every bin
 //      of a frame at once, which the scan (a warp per 32 bins) never has.
-//      It loads the frame's mag, psi and phi rows into shared memory (12 KB
-//      beside the FFT's 24 KB), marks the peaks, finds each bin's nearest
-//      peak below and above with a block-wide max-scan and min-scan of peak
-//      indices (five bins a thread, warp shuffles, then the eight warp
-//      totals), and forms phi + (psi - phi)[nearest peak] exactly as the
-//      engine's natural-order identity_lock (phase_vocoder.py:129-189; the
-//      TPU kernel's scrambled full-spectrum variant, which resolves ties
-//      against the mirror image, is not followed), then the live mask and
-//      mag * e^{i psi}.
-//   5. overlap-add (ola_kernel, pv_synth.cuh): one thread per output sample
-//      sums the size/hop frames that cover it in ascending frame order: a
-//      fixed order, no atomics, deterministic.  Bounded by HBM: each frame
-//      sample is read once, coalesced.
+//      It loads both frames' mag and psi - phi rows into the transform's
+//      first exchange buffer, marks the peaks, finds each bin's nearest
+//      peak below and above with a CTA-wide max-scan and min-scan of peak
+//      indices (nine bins a thread, warp shuffles, then the four warp
+//      totals; the two frames' chains side by side), and forms phi +
+//      (psi - phi)[nearest peak] exactly as the engine's natural-order
+//      identity_lock (phase_vocoder.py:129-189; the TPU kernel's scrambled
+//      full-spectrum variant, which resolves ties against the mirror
+//      image, is not followed), then the live mask and mag * e^{i psi}.
+//   5. overlap-add, by the hop (kpv.ola_route): for 256 <= hop <= 2048 in
+//      the synthesis launch itself, carried along each CTA's contiguous
+//      range of frame pairs in a shared ring (the TPU kernel's carried OLA,
+//      the carry per CTA); otherwise the frame rows go to an (F, 2048)
+//      matrix and ola_kernel sums them.  Either way each output sample is
+//      summed from 0.0f over its frames in ascending order: a fixed order,
+//      no atomics, deterministic, and the two routes give the same bits.
 //
 // The wrapper allocates the (F, 1025) half spectrum (with lock: mag, psi
 // and a third (F, 1025) row set for phi), the scan's 2 x (ceil(F / 128),
-// 1025) float64 tile totals and prefixes and the (F, 2048) frame matrix as
-// scratch; the kernels allocate nothing.  mlx_pv_phase_scan runs launches
-// 1-3 alone (to time the scan).
+// 1025) float64 tile totals and prefixes and, off the fused route, the
+// (F, 2048) frame matrix as scratch; the kernels allocate nothing.
+// mlx_pv_phase_scan runs launches 1-3 alone (to time the scan).
 #include "pv_synth.cuh"
 
 namespace {
@@ -336,16 +342,13 @@ extern "C" int mlx_pv_synth_ola_phase(
     const float* phi_prev, double* scratch, float* s_re, float* s_im,
     float* s_phi, float* frames, float* y, float* resid_last,
     float* phi_last, float* phi0_eff, int n_frames, int m0, int f_real,
-    int hop, int cart, int lock, cudaStream_t stream) {
+    int hop, int cart, int lock, int fused, cudaStream_t stream) {
   cudaError_t err = launch_scan(a, b, da, phi0, resid_in, phi_prev, scratch,
                                 s_re, s_im, s_phi, resid_last, phi_last,
                                 phi0_eff, n_frames, m0, f_real, hop, cart,
                                 lock, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
-  auto synth = lock ? synth_kernel<kSynthLocked> : synth_kernel<kSynthHalf>;
-  synth<<<n_frames, mlx::kFftThreads, 0, stream>>>(s_re, s_im, s_phi, win, tw,
-                                                   frames, f_real);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(launch_ola(frames, y, n_frames, hop, stream));
+  auto synth = lock ? launch_synth<kSynthLocked> : launch_synth<kSynthHalf>;
+  return static_cast<int>(synth(s_re, s_im, s_phi, win, tw, frames, y,
+                                n_frames, f_real, hop, fused, stream));
 }

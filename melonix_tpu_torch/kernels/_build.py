@@ -53,8 +53,8 @@ SIGNATURES = {
     "mlx_pv_analysis": (_P, _L, _P, _P, _P, _P, _P, _I, _P),
     # re, im, da, win, tw, phi0, resid_in, phi_prev, scratch,
     # s_re, s_im, s_phi, frames, y, resid_last, phi_last, phi0_eff,
-    # n_frames, m0, f_real, hop, cart, lock, stream
-    "mlx_pv_synth_ola_phase": (_P,) * 17 + (_I,) * 6 + (_P,),
+    # n_frames, m0, f_real, hop, cart, lock, fused, stream
+    "mlx_pv_synth_ola_phase": (_P,) * 17 + (_I,) * 7 + (_P,),
     # re, im, da, phi0, resid_in, phi_prev, scratch, s_re, s_im, s_phi,
     # resid_last, phi_last, phi0_eff, n_frames, m0, f_real, hop, cart, lock,
     # stream
@@ -82,8 +82,8 @@ SIGNATURES = {
     "mlx_extract_frames": (_P, _L, _P, _P, _I, _I, _P),
     # y, n_src, pos, base, out, n_out, rows, stream
     "mlx_resample_lerp": (_P, _L, _P, _P, _P, _L, _I, _P),
-    # mag, psi, win, tw, frames, y, n_frames, hop, stream
-    "mlx_pv_synth_ola": (_P,) * 6 + (_I, _I, _P),
+    # mag, psi, win, tw, frames, y, n_frames, hop, fused, stream
+    "mlx_pv_synth_ola": (_P,) * 6 + (_I, _I, _I, _P),
     # wav, n, starts, ends, tw, tw2, scratch, out, n_cols, size, n1,
     # neg_decay, inv_size, kgain, colormap, stream
     "mlx_spectrogram_columns_4step": (_P, _L) + (_P,) * 6 + (_I, _I, _I,

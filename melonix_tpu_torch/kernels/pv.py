@@ -7,10 +7,11 @@ natural bin order and the 1025-bin half spectrum throughout.  B1
 frames at once on the register-resident ``csrc/fft_pair.cuh`` (B1 through
 ``csrc/stft_mag_pair.cuh``, which B12 runs at its power-of-two sizes); the
 synthesis of B3 (``csrc/pv_synth_ola_phase.cu``) and B10
-(``csrc/pv_synth_ola.cu``) runs a float32 radix-2 FFT in shared memory
-(``csrc/fft2048.cuh``), B3 and B10 also share their synthesis and
-overlap-add launches (``csrc/pv_synth.cuh``).  B3's phase scan is blocked
-over frames and sums in float64 (:func:`phase_scan`).
+(``csrc/pv_synth_ola.cu``) runs its inverse, two Hermitian half spectra a
+complex transform (``csrc/pv_synth.cuh``, shared by both), with the
+overlap-add carried in each CTA at the hops :func:`ola_route` names
+"fused".  B3's phase scan is blocked over frames and sums in float64
+(:func:`phase_scan`).
 
 Each wrapper takes the device of its input: a CUDA tensor launches the
 kernel (or raises), a CPU tensor runs the ``*_plain`` twin, anything else
@@ -52,16 +53,8 @@ def _cos_sin(ang: np.ndarray) -> np.ndarray:
     return np.stack([np.cos(ang), np.sin(ang)], axis=-1).astype(np.float32)
 
 
-@functools.cache
-def twiddles(device: torch.device) -> torch.Tensor:
-    """(1024, 2) float32 cos/sin(2 pi k / 2048), computed in float64 (the
-    radix-2 ``fft2048.cuh`` of B3's and B10's synthesis)."""
-    ang = 2.0 * np.pi * np.arange(FFT_N // 2, dtype=np.float64) / FFT_N
-    return torch.from_numpy(_cos_sin(ang)).to(device)
-
-
-# The sizes csrc/fft_pair.cuh instantiates (Plan<N>): B1 and B2 run 2048,
-# B12 all of them.
+# The sizes csrc/fft_pair.cuh instantiates (Plan<N>): B1, B2 and the
+# synthesis of B3 and B10 run 2048, B12 all of them.
 PAIR_SIZES = (512, 1024, 2048, 4096, 8192)
 
 
@@ -388,14 +381,45 @@ def phase_scan(a, b, da, m0: int, f_real: int, phi0, resid_in, phi_prev,
 phase_scan.launches = 0
 
 
+# The overlap-add routes of B3's and B10's synthesis (csrc/pv_synth.cuh
+# kOlaMinHop, kOlaMaxHop).  At hops with ceil(2048 / hop) <= 8 up to the
+# frame size the overlap-add is carried in each CTA of the synthesis launch
+# ("fused"); at the others the frame rows go through an (F, 2048) matrix
+# to a second launch ("frames").  Both sum each sample in the same order
+# and give the same bits.
+OLA_MIN_HOP = FFT_N // 8
+OLA_MAX_HOP = FFT_N
+OLA_ROUTES = ("fused", "frames")
+
+
+def ola_route(hop: int) -> str:
+    """The overlap-add route of B3's and B10's synthesis at ``hop``: the
+    hop alone picks it."""
+    return "fused" if OLA_MIN_HOP <= hop <= OLA_MAX_HOP else "frames"
+
+
+def _fused(hop: int, route: str | None) -> bool:
+    """Whether a launch at ``hop`` takes the fused route: ``route`` None
+    takes :func:`ola_route`'s; "frames" is taken at any hop, "fused" only
+    where :func:`ola_route` names it."""
+    want = ola_route(hop) if route is None else route
+    if want not in OLA_ROUTES or (want == "fused"
+                                  and ola_route(hop) != "fused"):
+        raise ValueError(f"no overlap-add route {route!r} at hop {hop}")
+    return want == "fused"
+
+
 def synth_ola_phase(a, b, da, window, m0: int, f_real: int, phi0,
                     resid_in, phi_prev, size: int, hop: int, cart: bool = True,
-                    lock: bool = False):
-    """B3 (``csrc/pv_synth_ola_phase.cu``, five launches on one stream: the
-    blocked phase scan's three, synthesis, overlap-add); contract of
-    :func:`synth_ola_phase_plain`.  ``cart`` picks the phase scan's entry,
-    ``(re, im)`` or ``(mag, phi)``, and ``lock`` adds identity locking to
-    the synthesis launch; one wrapper call, one count, either way."""
+                    lock: bool = False, route: str | None = None):
+    """B3 (``csrc/pv_synth_ola_phase.cu``: the blocked phase scan's three
+    launches, then the pair synthesis with the overlap-add on the route
+    :func:`ola_route` picks, or ``route`` where given, to compare the
+    two); contract of :func:`synth_ola_phase_plain`.  ``cart`` picks the
+    phase scan's entry, ``(re, im)`` or ``(mag, phi)``, and ``lock`` adds
+    identity locking to the synthesis launch; one wrapper call, one count,
+    either way."""
+    fused = _fused(hop, route)
     if a.device.type == "cpu":
         return synth_ola_phase_plain(a, b, da, window, m0, f_real, phi0,
                                      resid_in, phi_prev, size, hop, cart, lock)
@@ -405,19 +429,20 @@ def synth_ola_phase(a, b, da, window, m0: int, f_real: int, phi0,
     dev = a.device
     f = a.shape[0]
     _build.require(window, "window", torch.float32, (size,), dev)
-    frames = torch.empty((f, size), dtype=torch.float32, device=dev)  # scratch
+    frames = None if fused else torch.empty((f, size), dtype=torch.float32,
+                                            device=dev)  # scratch
     y = torch.empty(((f - 1) * hop + size,), dtype=torch.float32, device=dev)
     lib = _build.library()
     with torch.cuda.device(dev):
         err = lib.mlx_pv_synth_ola_phase(
             *(t.data_ptr() for t in (
-                a, b, da, window, twiddles(dev), phi0, resid_in, phi_prev,
-                scratch, s_re, s_im)),
+                a, b, da, window, pair_twiddles(FFT_N, dev), phi0, resid_in,
+                phi_prev, scratch, s_re, s_im)),
             s_phi.data_ptr() if lock else None,
-            *(t.data_ptr() for t in (
-                frames, y, resid_last, phi_last, phi0_eff)),
+            None if fused else frames.data_ptr(),
+            *(t.data_ptr() for t in (y, resid_last, phi_last, phi0_eff)),
             f, int(m0), int(f_real), hop, int(bool(cart)), int(bool(lock)),
-            _build.stream(dev),
+            int(fused), _build.stream(dev),
         )
     _build.check("synth_ola_phase", err)
     synth_ola_phase.launches += 1
@@ -448,10 +473,13 @@ def synth_ola_plain(mag, psi, window, size: int, hop: int) -> torch.Tensor:
     ).reshape(out_len)
 
 
-def synth_ola(mag, psi, window, size: int, hop: int) -> torch.Tensor:
-    """B10 (``csrc/pv_synth_ola.cu``, two launches on one stream); contract
-    of :func:`synth_ola_plain`.  ``mag`` is already masked to the live
-    frames; size 2048, any hop >= 1."""
+def synth_ola(mag, psi, window, size: int, hop: int,
+              route: str | None = None) -> torch.Tensor:
+    """B10 (``csrc/pv_synth_ola.cu``: B3's pair synthesis in its polar
+    mode, the overlap-add on the route :func:`ola_route` picks, or
+    ``route`` where given); contract of :func:`synth_ola_plain`.  ``mag``
+    is already masked to the live frames; size 2048, any hop >= 1."""
+    fused = _fused(hop, route)
     if mag.device.type == "cpu":
         return synth_ola_plain(mag, psi, window, size, hop)
     dev = _build.cuda_device(mag)
@@ -465,14 +493,16 @@ def synth_ola(mag, psi, window, size: int, hop: int) -> torch.Tensor:
     _build.require(mag, "mag", f32, (f, nb), dev)
     _build.require(psi, "psi", f32, (f, nb), dev)
     _build.require(window, "window", f32, (size,), dev)
-    frames = torch.empty((f, size), dtype=f32, device=dev)  # scratch
+    frames = None if fused else torch.empty((f, size), dtype=f32,
+                                            device=dev)  # scratch
     y = torch.empty(((f - 1) * hop + size,), dtype=f32, device=dev)
     lib = _build.library()
     with torch.cuda.device(dev):
         err = lib.mlx_pv_synth_ola(
             mag.data_ptr(), psi.data_ptr(), window.data_ptr(),
-            twiddles(dev).data_ptr(), frames.data_ptr(), y.data_ptr(), f, hop,
-            _build.stream(dev),
+            pair_twiddles(FFT_N, dev).data_ptr(),
+            None if fused else frames.data_ptr(), y.data_ptr(), f, hop,
+            int(fused), _build.stream(dev),
         )
     _build.check("synth_ola", err)
     synth_ola.launches += 1

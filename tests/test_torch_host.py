@@ -204,7 +204,7 @@ def test_operand_checks():
 
 def test_kernel_sources_and_build_hash():
     names = {p.name for p in _build.sources()}
-    assert {"fft2048.cuh", "stft_mag.cu", "pv_analysis.cu",
+    assert {"fft_pair.cuh", "stft_mag.cu", "pv_analysis.cu",
             "pv_synth_ola_phase.cu", "resample_pv.cu", "render_steps.cu",
             "compact.cu", "pitch_ac.cu"} <= names
     assert _build.source_hash() == _build.source_hash()

@@ -207,22 +207,16 @@ def _ulps(table32, want64):
         np.abs(want64).astype(np.float32)).astype(np.float64)
 
 
-@pytest.mark.parametrize("name", ["pair", "radix2"])
+@pytest.mark.parametrize("name", ["pair"])
 def test_twiddle_tables_within_one_ulp_of_float64(name):
-    """B1's and B2's pass twiddles (fft_pair.cuh at 2048) and the radix-2
-    table of B3's synthesis (fft2048.cuh): cos/sin of float64 angles, <= 1
-    ulp."""
-    if name == "pair":
-        got = kpv.pair_twiddles(SIZE, torch.device("cpu")).numpy()
-        k2, b = np.meshgrid(np.arange(16), np.arange(128), indexing="ij")
-        q, c = np.meshgrid(np.arange(16), np.arange(8), indexing="ij")
-        ang = np.concatenate([2 * np.pi * (b * k2).ravel() / 2048,
-                              2 * np.pi * (c * q).ravel() / 128])
-        assert got.shape == (16 * 128 + 16 * 8, 2)
-    else:
-        got = kpv.twiddles(torch.device("cpu")).numpy()
-        ang = 2 * np.pi * np.arange(1024) / 2048
-        assert got.shape == (1024, 2)
+    """The pass twiddles of fft_pair.cuh at 2048 (B1, B2 and the synthesis
+    of B3 and B10): cos/sin of float64 angles, <= 1 ulp."""
+    got = kpv.pair_twiddles(SIZE, torch.device("cpu")).numpy()
+    k2, b = np.meshgrid(np.arange(16), np.arange(128), indexing="ij")
+    q, c = np.meshgrid(np.arange(16), np.arange(8), indexing="ij")
+    ang = np.concatenate([2 * np.pi * (b * k2).ravel() / 2048,
+                          2 * np.pi * (c * q).ravel() / 128])
+    assert got.shape == (16 * 128 + 16 * 8, 2)
     assert got.dtype == np.float32
     assert _ulps(got[:, 0], np.cos(ang)).max() <= 1.0
     assert _ulps(got[:, 1], np.sin(ang)).max() <= 1.0
