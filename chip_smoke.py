@@ -10,7 +10,9 @@ the main paths once each on a 180 s, 44.1 kHz song with 12 markers (the
 2048/512 |STFT| plus the phase-vocoder render; the granular export,
 ``render_track``; the Hann |STFT| pyramid at 2048/512 and 4096/1024 and
 the waveform min/max pyramid; the spectrogram tile server's bursts and a
-1280-column viewport; the pitch curve of the song; ``autotune`` with its
+1280-column viewport; the pitch curve of the song and of a level-stepped
+copy that puts 100 dB between adjacent frames (B8 also held per frame
+against its twin on both); ``autotune`` with its
 defaults, the formant-preserving phase vocoder, on a 180 s detuned melody;
 the identity-locked render; renders at 4096/1024 (through B9) and 1000/250;
 a locked stereo PV session; the streaming phase vocoder and the Player),
@@ -64,6 +66,33 @@ def make_song(sr: int, seconds: float) -> np.ndarray:
     x += 0.2 * np.sin(2 * np.pi * 2.0 * np.cumsum(f) / sr)
     x += 0.01 * np.random.default_rng(0).standard_normal(len(t))
     return x.astype(np.float32)
+
+
+# Per 0.5 s segment: steps of 20 to 100 dB both ways, and silence
+LEVELS = (1.0, 1e-2, 1e-3, 1e-5, 0.0, 1e-5, 1e-3, 1e-2, 1.0, 1e-5)
+
+
+def make_level_steps(sr: int, seconds: float, hop: int) -> np.ndarray:
+    """:func:`make_song` scaled per 0.5 s segment through ``LEVELS``, so
+    that adjacent pitch frames differ by up to 100 dB and some are exactly
+    silent; one hop shorter than ``seconds``, which gives the pitch path's
+    frames of 2048 at a hop of 512 an odd count at 180 s."""
+    x = make_song(sr, seconds)[: int(sr * seconds) - hop]
+    t = np.arange(len(x)) / sr
+    seg = np.asarray(LEVELS)[(t / 0.5).astype(np.int64) % len(LEVELS)]
+    return (x * seg).astype(np.float32)
+
+
+def per_frame_bar(ac_k, ac_p, w_p) -> tuple[float, bool, int]:
+    """B8's per-frame bar: (the largest max_t |ac_k - ac_p| / (1e-5
+    ac_p[f, 0]) over frames with ac_p[f, 0] > 0, which must be <= 1;
+    whether ac_k is exactly 0 on every frame whose w_p is all zero; the
+    count of those frames)."""
+    live = ac_p[:, 0] > 0
+    err = (ac_k[live].double() - ac_p[live].double()).abs().amax(dim=1)
+    worst = float((err / (1e-5 * ac_p[live, 0].double())).max())
+    silent = ~(w_p != 0).any(dim=1)
+    return worst, bool((ac_k[silent] == 0).all()), int(silent.sum())
 
 
 def song_f0(t: np.ndarray) -> np.ndarray:
@@ -1540,13 +1569,19 @@ def main() -> int:
     b8 = lambda: kpitch.pitch_ac(wav, pframe, phop, pnf)  # noqa: E731
     b8p = lambda: kpitch.pitch_ac_plain(wav, pframe, phop, pnf)  # noqa: E731
     (ac_k, w_k), (ac_p, w_p) = b8(), b8p()
+    ac_k2, w_k2 = b8()
     torch.cuda.synchronize()
     s, e_w = snr_db(ac_k, ac_p), max_err(w_k, w_p)
+    same = bit_equal((ac_k2, w_k2), (ac_k, w_k))
+    worst, exact0, n_sil = per_frame_bar(ac_k, ac_p, w_p)
     print(f"[12] B8 pitch_ac ({pnf} x {pframe}): ac SNR {s:.1f} dB (bar < "
           f"-100), max abs err {max_err(ac_k, ac_p):.3e}; w max abs err "
-          f"{e_w:.3e} (bar 1e-5)", flush=True)
+          f"{e_w:.3e} (bar 1e-5); per frame max |err| / (1e-5 ac[0]) "
+          f"{worst:.4f} (bar 1), {n_sil} silent frames exactly 0 {exact0}; "
+          f"two calls bit-equal {same}", flush=True)
     check(ac_k.shape == w_k.shape == (pnf, pframe) and s < -100.0
           and e_w < 1e-5, "B8 vs twin")
+    check(worst <= 1.0 and exact0 and same, "B8 per frame on the song")
     # yardstick: cuFFT's round trip on the twin's mean-subtracted frames
     # (rfft, |.|^2, irfft: two FFT calls and one elementwise pass)
     record("pitch_ac", "melonix_tpu_torch/csrc/pitch_ac.cu",
@@ -1556,7 +1591,27 @@ def main() -> int:
                                    .square(), n=2 * pframe),
            4 * min(n, (pnf - 1) * phop + pframe) + nbytes(ac_k, w_k),
            2 * fft_flops(pnf, 2 * pframe))
-    del ac_k, w_k, ac_p
+    del ac_k, w_k, ac_p, ac_k2, w_k2
+
+    # the level-stepped fixture: 100 dB between the frames of a pair
+    # (its own names: the timed lambdas above hold ac_p and w_p)
+    lv = make_level_steps(SR, SECONDS, phop)
+    lv_d = torch.from_numpy(lv).to(dev)
+    lnf = 1 + (len(lv) - pframe) // phop
+    lv_k = kpitch.pitch_ac(lv_d, pframe, phop, lnf)
+    lac_p, lw_p = kpitch.pitch_ac_plain(lv_d, pframe, phop, lnf)
+    lv_k2 = kpitch.pitch_ac(lv_d, pframe, phop, lnf)
+    torch.cuda.synchronize()
+    e_w = max_err(lv_k[1], lw_p)
+    same = bit_equal(lv_k2, lv_k)
+    worst, exact0, n_sil = per_frame_bar(lv_k[0], lac_p, lw_p)
+    print(f"    level-stepped fixture ({lnf} frames, odd; levels {LEVELS} "
+          f"per 0.5 s): per frame max |err| / (1e-5 ac[0]) {worst:.4f} (bar "
+          f"1), {n_sil} silent frames exactly 0 {exact0}; w max abs err "
+          f"{e_w:.3e} (bar 1e-5); two calls bit-equal {same}", flush=True)
+    check(lnf % 2 == 1 and n_sil > 0 and worst <= 1.0 and exact0
+          and e_w < 1e-5 and same, "B8 per frame on the level-stepped fixture")
+    del lv_k, lv_k2, lac_p, lw_p
 
     kpitch.pitch_ac.launches = 0
     torch.cuda.synchronize()
@@ -1580,6 +1635,21 @@ def main() -> int:
     check(same_v >= 0.999 and same_n >= 0.999, "pitch_curve vs all-plain")
     check(b8_launches == 1, f"B8 launches {b8_launches} in pitch_curve")
     rows["pitch_ac"]["launches"] = b8_launches
+    kpitch.pitch_ac.launches = 0
+    curve = mt.pitch_curve(lv, SR)
+    torch.cuda.synchronize()
+    lv_launches = kpitch.pitch_ac.launches
+    with plain_twins(*twins):
+        curve_p = mt.pitch_curve(lv, SR)
+    same_v, same_n = curves_agree(curve, curve_p)
+    print(f"    pitch_curve of the level-stepped fixture ({len(curve.f0)} "
+          f"frames, {100 * curve.voiced.mean():.2f}% voiced) vs the "
+          f"all-plain run: voicing equal on {100 * same_v:.3f}%, notes "
+          f"within 0.01 st on {100 * same_n:.3f}% (bars 99.9); B8 launches "
+          f"{lv_launches} (bar 1)", flush=True)
+    check(same_v >= 0.999 and same_n >= 0.999 and lv_launches == 1,
+          "pitch_curve of the level-stepped fixture vs all-plain")
+    del lv_d
 
     # -- 13. autotune with its defaults: PV with formant preservation ---
     mel, mel_notes, mel_cents = make_melody(SR, SECONDS)

@@ -32,6 +32,7 @@ from .engine.render import build_render_plan, render_track
 from .engine.session import render_session
 from .engine.pyramid import build_pyramid
 from .engine.spectral import spectrogram_columns, stft_mags_device
+from .io.audio import DecodeError, load_audio
 from .io.wav import read_wav, write_wav
 from .markers import Marker, markers_from_json, markers_to_json, sort_markers
 from .parallel import (AudioMesh, data_parallel_pv, data_parallel_render,
@@ -82,6 +83,8 @@ __all__ = [
     "TileServer",
     "SpecPyramid",
     "build_pyramid",
+    "load_audio",
+    "DecodeError",
     "read_wav",
     "write_wav",
     "__version__",

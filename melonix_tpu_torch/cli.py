@@ -58,26 +58,16 @@ def _refuse(missing: str) -> int:
     return 2
 
 
-def _read_mono(path: str):
-    from .io.audio import downmix_mono
-    from .io.wav import read_wav
-
-    wav, rate = read_wav(path)
-    return downmix_mono(wav), rate
-
-
 def cmd_render(args) -> int:
     from .engine.session import render_session
-    from .io.audio import downmix_mono
-    from .io.wav import read_wav, write_wav
+    from .io.audio import load_audio
+    from .io.wav import write_wav
     from .markers import markers_from_json
 
     missing = _not_ported(args)
     if missing is not None:
         return _refuse(missing)
-    wav, rate = read_wav(args.input)
-    if not args.stereo:
-        wav = downmix_mono(wav)
+    wav, rate = load_audio(args.input, mono=not args.stereo)
     markers = []
     if args.markers:
         with open(args.markers) as f:
@@ -103,11 +93,12 @@ def cmd_render(args) -> int:
 
 def cmd_pitch(args) -> int:
     from .engine.pitch import pitch_curve
+    from .io.audio import load_audio
 
     missing = _not_wav(args.input)
     if missing is not None:
         return _refuse(missing)
-    wav, rate = _read_mono(args.input)
+    wav, rate = load_audio(args.input)
     t0 = time.perf_counter()
     curve = pitch_curve(wav, rate, method=args.method, device=args.device)
     dt = time.perf_counter() - t0
@@ -128,13 +119,14 @@ def cmd_pitch(args) -> int:
 
 def cmd_autotune(args) -> int:
     from .engine.autotune import autotune
+    from .io.audio import load_audio
     from .io.wav import write_wav
     from .markers import markers_to_json
 
     missing = _not_wav(args.input)
     if missing is not None:
         return _refuse(missing)
-    wav, rate = _read_mono(args.input)
+    wav, rate = load_audio(args.input)
     t0 = time.perf_counter()
     out, markers = autotune(
         wav, rate, scale=args.scale, key=args.key, strength=args.strength,
@@ -161,6 +153,7 @@ def cmd_batch(args) -> int:
 
     from .engine.autotune import suggest_markers
     from .engine.batch import render_batch
+    from .io.audio import load_audio
     from .io.wav import write_wav
     from .markers import markers_from_json, sort_markers
     from .parallel.sharded import world_size
@@ -185,7 +178,7 @@ def cmd_batch(args) -> int:
     t0 = time.perf_counter()
     by_rate: dict[int, list] = {}
     for f in files:
-        wav, rate = _read_mono(f)
+        wav, rate = load_audio(f)
         by_rate.setdefault(rate, []).append((f, wav))
     slice_n = max(4 * world_size(), 8)
     written, used_names = [], set()

@@ -4,7 +4,9 @@
 // (stft_mag_pair.cuh, every N here), which pack two real frames into one
 // complex transform, z = x_a + i x_b, and, with sign = +1, under the
 // synthesis of B3 and B10 (pv_synth.cuh, N = 2048), which packs two
-// Hermitian half spectra into one complex inverse, Z = X_a + i X_b.
+// Hermitian half spectra into one complex inverse, Z = X_a + i X_b; and
+// both ways under B8's autocorrelation (pitch_ac.cu, N = 4096: two frames
+// forward, their two real power spectra back).
 //
 // One transform per CTA of T = N / 16 threads; each thread holds 16 points.
 // With index n = b + T a (b < T, a < 16), b = c + R a' (c < R) and output

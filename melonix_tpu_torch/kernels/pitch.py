@@ -3,9 +3,14 @@
 Counterpart of ``melonix_tpu/kernels/pallas_pitch.py``.  The TPU kernel ran
 the Wiener-Khinchin round trip (mean-subtract, zero-pad to 4096, forward
 DFT, power, inverse DFT) as four-step bf16x3 MXU matmuls in a scrambled bin
-order; the port's kernel (``csrc/pitch_ac.cu``) runs both transforms as the
-float32 real-input FFT of ``csrc/fft_real.cuh`` in shared memory, one block
-per frame, bins in natural order.
+order.  The port's kernel (``csrc/pitch_ac.cu``) packs two frames into one
+complex 4096-point transform each way, on the register transform of
+``csrc/fft_pair.cuh`` (three barriers a transform, twiddles in registers,
+a persistent grid over the frame pairs).  Each frame is first scaled by a
+power of two to an rms near 1, so a loud frame's rounding does not leak
+into a quiet partner; the scale is exact and undone on the output.  The
+kernel reads each frame once and writes ``w`` and ``ac``: device memory
+bounds it.
 
 ``pitch_ac`` launches the kernel for a CUDA tensor, runs
 :func:`pitch_ac_plain` for a CPU tensor, and raises for anything else;
@@ -17,8 +22,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .pv import hop_frames
-from .stft import twiddles
+from .pv import hop_frames, pair_twiddles
 
 FRAME = 2048  # the only analysis frame the kernel takes (config.pitch_frame)
 NFFT = 2 * FRAME  # zero-padded linear-correlation length
@@ -57,7 +61,7 @@ def pitch_ac(wav, frame: int, hop: int, n_frames: int):
     lib = _build.library()
     with torch.cuda.device(dev):
         err = lib.mlx_pitch_ac(
-            wav.data_ptr(), wav.shape[0], twiddles(NFFT, dev).data_ptr(),
+            wav.data_ptr(), wav.shape[0], pair_twiddles(NFFT, dev).data_ptr(),
             ac.data_ptr(), w.data_ptr(), n_frames, hop, _build.stream(dev),
         )
     _build.check("pitch_ac", err)

@@ -3,7 +3,8 @@ and the playback ring.
 
 Counterpart of ``melonix_tpu/runtime/native.py``, limited to
 ``mlx_build_grains`` and ``mlx_build_plan`` (the granular export's host
-half) and ``mlx_ring_*`` (:class:`Ring`, the live player's backlog).  The
+half), ``mlx_ring_*`` (:class:`Ring`, the live player's backlog) and
+``mlx_wav_info`` / ``mlx_wav_read`` (:func:`decode_wav`, the WAV import).  The
 library is built from ``native/melonix_native.cpp`` alone with
 ``g++ -O3 -std=c++20 -fPIC -shared`` (the flags of ``native/Makefile``) into
 ``build/native/libmelonix_torch_native.so`` at first use, and rebuilt when
@@ -11,9 +12,10 @@ the hash of the source and flags changes.  A library that ``make -C native``
 left beside the sources is never loaded.
 
 :func:`try_load` returns ``None`` only when no C++ compiler is found; the
-callers then take the NumPy walkers.  A compiler that fails raises.
-``build_grains.calls`` and ``build_plan.calls`` count the native calls, so a
-run can show that the native backend did the work.
+callers then take the NumPy walkers and reader.  A compiler that fails
+raises.  ``build_grains.calls``, ``build_plan.calls`` and
+``decode_wav.calls`` count the native calls, so a run can show that the
+native backend did the work.
 """
 
 from __future__ import annotations
@@ -122,6 +124,12 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.mlx_ring_read.argtypes = [vp, f32p, ctypes.c_int64]
     lib.mlx_ring_clear.restype = None
     lib.mlx_ring_clear.argtypes = [vp]
+
+    lib.mlx_wav_info.restype = ctypes.c_int32
+    lib.mlx_wav_info.argtypes = [ctypes.c_char_p, i64p, i32p, i32p]
+    lib.mlx_wav_read.restype = ctypes.c_int32
+    lib.mlx_wav_read.argtypes = [ctypes.c_char_p, f32p, ctypes.c_int64,
+                                 ctypes.c_int32]
 
 
 class Ring:
@@ -235,5 +243,33 @@ def build_grains(lib: ctypes.CDLL, wav: np.ndarray, pgs: int):
     return GrainTable(starts[:count].copy(), lengths[:count].copy())
 
 
+def decode_wav(lib: ctypes.CDLL, path: str, *, mono: bool = True):
+    """Native WAV decode: ``(float32 (n,) or (n, ch), rate)``.
+
+    The two-call protocol of the reference's native decoders:
+    ``mlx_wav_info`` sizes the buffer, ``mlx_wav_read`` fills it, either
+    interleaved or downmixed (the channels summed in float32 and times
+    ``1.0f / ch``).  One channel, or ``mono``, gives ``(n,)``.  A nonzero
+    return code raises ValueError."""
+    n = ctypes.c_int64()
+    ch = ctypes.c_int32()
+    rate = ctypes.c_int32()
+    rc = lib.mlx_wav_info(path.encode(), ctypes.byref(n), ctypes.byref(ch),
+                          ctypes.byref(rate))
+    if rc != 0:
+        raise ValueError(f"{path}: not a decodable WAV (native rc {rc})")
+    frames, channels = int(n.value), int(ch.value)
+    shape = (frames,) if mono or channels == 1 else (frames, channels)
+    out = np.zeros(shape, np.float32)
+    rc = lib.mlx_wav_read(path.encode(),
+                          out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+                          frames, 1 if mono else 0)
+    if rc != 0:
+        raise ValueError(f"{path}: native WAV read failed (rc {rc})")
+    decode_wav.calls += 1
+    return out, int(rate.value)
+
+
 build_plan.calls = 0
 build_grains.calls = 0
+decode_wav.calls = 0

@@ -1,7 +1,11 @@
 """The pitch slice of melonix_tpu_torch against melonix_tpu on the CPU.
 
 B8 (per-frame autocorrelation): the port's plain twin against the Pallas
-kernel in interpret mode and a float64 Wiener-Khinchin oracle.  The NSDF and
+kernel in interpret mode and a float64 Wiener-Khinchin oracle; a float32
+model of the CUDA kernel's design (``csrc/pitch_ac.cu``: two frames a
+complex transform both ways, each balanced by a power of two) held per
+frame against the oracle on a level-stepped fixture, where the unbalanced
+packing fails; the host side of its C entry.  The NSDF and
 HPS cores and ``pitch_curve`` (nsdf, hps, hybrid) against the JAX engine on
 the JAX suite's signals, from seeded NumPy inputs; the even-count median;
 the routing of frame sizes; the device rules.  The CUDA kernel is held to
@@ -123,6 +127,216 @@ def test_pitch_ac_wrapper_refuses_other_devices():
     with pytest.raises(ValueError, match="no kernel"):
         kpitch.pitch_ac(meta, 2048, 512, 3)
     assert kpitch.pitch_ac.launches == 0
+
+
+# ----------------------------------------------------------------------
+# B8's CUDA design (csrc/pitch_ac.cu), modelled in float32
+# ----------------------------------------------------------------------
+
+LEVELS = (1.0, 1e-2, 1e-3, 1e-5, 0.0, 1e-5, 1e-3, 1e-2, 1.0, 1e-5)
+
+
+def level_steps(sr=8000, seconds=5.0, seed=11):
+    """chip_smoke.py's level-stepped fixture at a small size: the song's
+    two vibrato partials + noise, scaled per 0.5 s segment through
+    ``LEVELS`` (steps of 20 to 100 dB both ways, and a silent segment
+    longer than a frame)."""
+    t = np.arange(int(sr * seconds)) / sr
+    f = 220.0 * 2.0 ** (np.sin(2 * np.pi * 0.25 * t) * 0.5)
+    x = 0.5 * np.sin(2 * np.pi * np.cumsum(f) / sr)
+    x += 0.2 * np.sin(2 * np.pi * 2.0 * np.cumsum(f) / sr)
+    x += 0.01 * np.random.default_rng(seed).standard_normal(len(t))
+    seg = np.asarray(LEVELS)[(t / 0.5).astype(np.int64) % len(LEVELS)]
+    return (x * seg).astype(np.float32)
+
+
+def _block_sum(parts):
+    """The kernel's fixed-order block sum of (..., 256) per-thread parts:
+    a warp xor tree, then the 8 warp sums in warp order from 0."""
+    lanes = parts.reshape(parts.shape[:-1] + (8, 32))
+    for off in (16, 8, 4, 2, 1):
+        lanes = lanes + lanes[..., np.arange(32) ^ off]
+    total = np.zeros(parts.shape[:-1], parts.dtype)
+    for wi in range(8):
+        total = total + lanes[..., wi, 0]
+    return total
+
+
+def _model_frames(x, hop, n_frames):
+    xp = np.pad(x, (0, 2048 + hop))
+    return np.lib.stride_tricks.sliding_window_view(xp, 2048)[::hop][:n_frames]
+
+
+def pitch_ac_model(x, hop, n_frames, balance=True):
+    """(ac, w) of csrc/pitch_ac.cu's steps 1-6 in float32: the fixed-order
+    mean, the power-of-two balance, frames (2p, 2p + 1) packed as one
+    complex 4096-point forward transform (an odd count's last beside
+    silence), the split into two power spectra packed as one inverse."""
+    fr = _model_frames(x, hop, n_frames).astype(np.float32)
+    if n_frames % 2:
+        fr = np.concatenate([fr, np.zeros((1, 2048), np.float32)])
+    thr = fr.reshape(-1, 8, 256)  # [f][j][t]: sample t + 256 j
+    part = np.zeros((len(fr), 256), np.float32)
+    for j in range(8):  # each thread's sum over j, in order
+        part = part + thr[:, j]
+    mean = _block_sum(part) * np.float32(1.0 / 2048)
+    w = fr - mean[:, None]
+    sq = np.zeros((len(fr), 256))
+    for j in range(8):
+        sq = sq + w.reshape(-1, 8, 256)[:, j].astype(np.float64) ** 2
+    sq = _block_sum(sq)
+    e = np.where(sq > 0, np.frexp(sq / 2048)[1] >> 1, 0) if balance \
+        else np.zeros(len(fr), np.int64)
+    ws = np.ldexp(w, -e[:, None]).astype(np.float32)
+    z = torch.zeros((len(fr) // 2, 4096), dtype=torch.complex64)
+    z[:, :2048] = torch.complex(_t(ws[0::2]), _t(ws[1::2]))
+    zf = torch.fft.fft(z)
+    zn = torch.roll(torch.flip(zf, [1]), 1, 1)  # Z[(4096 - k) mod 4096]
+    ra, ia = zf.real + zn.real, zf.imag - zn.imag
+    rb, ib = zf.real - zn.real, zf.imag + zn.imag
+    pw = torch.complex(0.25 * (ra * ra + ia * ia), 0.25 * (rb * rb + ib * ib))
+    r = torch.fft.ifft(pw) * 4096  # the unscaled +1 transform
+    out = torch.stack([r.real, r.imag], 1).reshape(len(fr), 4096)[:, :2048]
+    ac = np.ldexp(out.numpy(), (2 * e - 12)[:, None]).astype(np.float32)
+    ac[sq == 0] = 0.0
+    return ac[:n_frames], w[:n_frames]
+
+
+def per_frame_excess(ac, ac_ref, w_ref):
+    """max_t |ac - ac_ref| / (1e-5 ac_ref[f, 0]) over the frames with
+    ac_ref[f, 0] > 0 (<= 1 meets the bar), and whether every frame whose
+    w_ref is all zero has ac exactly 0."""
+    live = ac_ref[:, 0] > 0
+    err = np.abs(ac[live].astype(np.float64) - ac_ref[live]).max(axis=1)
+    silent = ~np.any(w_ref != 0, axis=1)
+    return (float((err / (1e-5 * ac_ref[live, 0])).max()),
+            bool(np.all(ac[silent] == 0)), int(silent.sum()))
+
+
+@pytest.mark.parametrize("hop", [512, 128, 1024])
+def test_balanced_pair_model_meets_the_per_frame_bar(hop):
+    """The level-stepped fixture: every frame within 1e-5 ac[0] of the
+    float64 oracle, silent frames exactly 0, w within 1e-5 of the twin's."""
+    x = level_steps()
+    frames = 1 + (len(x) - 2048) // hop
+    frames -= 1 - frames % 2  # an odd count: the last frame beside silence
+    ac, w = pitch_ac_model(x, hop, frames)
+    ac64, w64 = _ac_f64(x, hop, frames)
+    excess, zeros, n_silent = per_frame_excess(ac, ac64, w64)
+    assert n_silent > 0 and zeros
+    assert excess <= 1.0, excess
+    ac_p, w_p = kpitch.pitch_ac_plain(_t(x), 2048, hop, frames)
+    assert np.abs(w - w_p.numpy()).max() < 1e-5
+    assert per_frame_excess(ac_p.numpy(), ac64, w64)[0] <= 1.0
+
+
+def test_unbalanced_pair_model_fails_the_bar():
+    """Without the balance the loud frame's rounding leaks into its quiet
+    partner far past the bar: the fixture catches the leak."""
+    x = level_steps()
+    frames = 1 + (len(x) - 2048) // 512
+    ac, _w = pitch_ac_model(x, 512, frames, balance=False)
+    ac64, w64 = _ac_f64(x, 512, frames)
+    assert per_frame_excess(ac, ac64, w64)[0] > 100.0
+
+
+@pytest.mark.parametrize("frames", [1, 2, 7])
+def test_pair_model_small_counts(frames):
+    """F = 1 (one frame beside silence), an even and an odd count: the
+    model against the oracle and the twin."""
+    x, _ = _ac_input(frames=frames, seed=frames)
+    ac, w = pitch_ac_model(x, 512, frames)
+    ac64, w64 = _ac_f64(x, 512, frames)
+    assert ac.shape == w.shape == (frames, 2048)
+    assert per_frame_excess(ac, ac64, w64)[0] <= 1.0
+    ac_p, w_p = kpitch.pitch_ac_plain(_t(x), 2048, 512, frames)
+    np.testing.assert_allclose(ac, ac_p.numpy(), rtol=0,
+                               atol=1e-5 * float(ac_p[:, 0].min()))
+    assert np.abs(w - w_p.numpy()).max() < 1e-6
+
+
+def test_model_mean_is_the_kernels_fixed_order():
+    """The block sum of the model is the kernel's xor tree: every lane of a
+    warp ends with the same sum, which is the float64 sum to rounding."""
+    parts = np.random.default_rng(2).standard_normal((3, 256)).astype(
+        np.float32)
+    got = _block_sum(parts)
+    np.testing.assert_allclose(got, parts.astype(np.float64).sum(1),
+                               rtol=1e-6)
+    lanes = parts.reshape(3, 8, 32)
+    for off in (16, 8, 4, 2, 1):
+        lanes = lanes + lanes[..., np.arange(32) ^ off]
+    assert np.all(lanes == lanes[..., :1])
+
+
+def _pair_walk(n_frames, grid):
+    """Rows written by the kernel's persistent walk: CTA c takes pairs
+    p = c, c + grid, ...; pair p writes frame 2p and, below n_frames,
+    2p + 1."""
+    rows = []
+    for c in range(grid):
+        for p in range(c, (n_frames + 1) // 2, grid):
+            rows += [2 * p] + ([2 * p + 1] if 2 * p + 1 < n_frames else [])
+    return rows
+
+
+@pytest.mark.parametrize("frames", [1, 2, 7, 75, 15500])
+def test_pair_walk_writes_every_frame_once(frames):
+    pairs = (frames + 1) // 2
+    for grid in {1, 3, min(pairs, 264)}:
+        assert sorted(_pair_walk(frames, grid)) == list(range(frames))
+    src = open(kpitch.__file__.replace("kernels/pitch.py",
+                                       "csrc/pitch_ac.cu")).read()
+    assert "const int n_pairs = (n_frames + 1) / 2;" in src
+    assert "p < n_pairs; p += gridDim.x" in src
+    assert "P::kSmem, (n_frames + 1) / 2, &grid)" in src
+    assert "fft_real.cuh" not in src.split("#include")[-1]
+
+
+def test_b8_entry_takes_the_4096_pair_table(monkeypatch):
+    """The wrapper's CUDA branch on ``meta`` tensors with a recording
+    library: one mlx_pitch_ac call with (n, F, hop), the 4096-point pair
+    twiddle table, one launch counted."""
+    import contextlib
+
+    from melonix_tpu_torch.kernels import _build
+    from melonix_tpu_torch.kernels import pv as kpv
+
+    calls, tables = [], []
+
+    class Lib:
+        def mlx_pitch_ac(self, *args):
+            calls.append(args)
+            return 0
+
+    def table(size, dev):
+        tables.append(size)
+        return kpv.pair_twiddles(size, dev)
+
+    monkeypatch.setattr(kpitch.pitch_ac, "launches", kpitch.pitch_ac.launches)
+    monkeypatch.setattr(_build, "cuda_device", lambda t: t.device)
+    monkeypatch.setattr(_build, "library", lambda: Lib())
+    monkeypatch.setattr(_build, "stream", lambda dev: 0)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(kpitch, "pair_twiddles", table)
+    meta = torch.device("meta")
+    before = kpitch.pitch_ac.launches
+    for frames in (1, 7, 15500):
+        ac, w = kpitch.pitch_ac(torch.zeros(50000).to(meta), 2048, 512,
+                                frames)
+        assert ac.shape == w.shape == (frames, 2048)
+        assert calls[-1][1] == 50000 and calls[-1][5:7] == (frames, 512)
+    assert tables == [4096] * 3
+    assert kpitch.pitch_ac.launches == before + 3
+    tab = kpv.pair_twiddles(4096, torch.device("cpu")).numpy()
+    assert tab.shape == (4096 + 256, 2) and tab.dtype == np.float32
+    ang = np.concatenate([(2 * np.pi / 4096) * np.outer(np.arange(16),
+                                                        np.arange(256)).ravel(),
+                          (2 * np.pi / 256) * np.outer(np.arange(16),
+                                                       np.arange(16)).ravel()])
+    np.testing.assert_allclose(tab[:, 0], np.cos(ang), rtol=0, atol=1e-7)
+    np.testing.assert_allclose(tab[:, 1], np.sin(ang), rtol=0, atol=1e-7)
 
 
 # ----------------------------------------------------------------------
