@@ -24,8 +24,12 @@ phasiness against classic, each stereo channel against its mono render,
 the stream against the offline render, the first buffer after an edit
 against the bent pitch, each path against its all-plain run), shows that
 each run went through every kernel of its path, and times kernels, twins,
-one-PyTorch-call yardsticks and paths beside each kernel's bound.  Any failed check raises: the script then exits
-non-zero and prints no result.  The last line of standard output is
+one-PyTorch-call yardsticks and paths beside each kernel's bound (the
+launch-bound kernels also as one CUDA graph, the device alone; B4 and B11,
+the PV render's tail and the live read, also against their routes before
+their redesign, built from a copy of the old B4 kept here, in turns).  Any
+failed check raises: the script then exits non-zero and prints no result.
+The last line of standard output is
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
@@ -315,16 +319,268 @@ def host_ms(fn, reps: int = REPS) -> float:
     return float(np.median(times))
 
 
+# B4 as it stood before its redesign (one thread per output sample, each
+# scanning its block's anchors in global memory), built beside the kernels
+# so phase 22 times the old kernel and its old host path against the new in
+# turns on one card.
+LEGACY_B4_SOURCE = r"""
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kBlk = 2048;
+constexpr float kLn2Over12 = 0.057762265046662105f;  // ln(2) / 12
+
+__global__ void resample_pv_kernel(
+    const float* __restrict__ y, long long n_src,
+    const int* __restrict__ base, const int* __restrict__ a0,
+    const int* __restrict__ cnt, const int* __restrict__ anc_j,
+    const float* __restrict__ anc_src, const float* __restrict__ anc_r,
+    const float* __restrict__ anc_s, int n_anc, float* __restrict__ out,
+    long long n_out, int sr) {
+  const long long jl = static_cast<long long>(blockIdx.x) * blockDim.x +
+                       threadIdx.x;
+  if (jl >= n_out) return;
+  const int j = static_cast<int>(jl);
+  const int b = j / kBlk;
+  const int first = a0[b];
+  const int count = cnt[b];
+  int sel = -1;
+  for (int k = 0; k < count; ++k) {
+    const int a = min(first + k, n_anc - 1);
+    if (anc_j[a] <= j) sel = a;  // ascending: the last one wins
+  }
+  float pos = 0.0f;
+  if (sel >= 0) {
+    const float srf = static_cast<float>(sr);
+    const float s = anc_s[sel];
+    const float dt = static_cast<float>(j - anc_j[sel]) / srf;
+    const float x = s * dt * kLn2Over12;
+    const float em1 = expm1f(x);
+    const bool flat = fabsf(s) < 1e-9f;
+    const float delta_p = flat ? dt : em1 / ((flat ? 1.0f : s) * kLn2Over12);
+    pos = anc_src[sel] + anc_r[sel] * (delta_p * srf - em1);
+  }
+  pos = fmaxf(pos, 0.0f);
+  const float fl = floorf(pos);
+  const float frac = pos - fl;
+  const long long i0 = static_cast<long long>(base[b]) +
+                       static_cast<long long>(fl);
+  const long long lo = min(max(i0, 0LL), n_src - 1);
+  const long long hi = min(max(i0 + 1, 0LL), n_src - 1);
+  out[jl] = (1.0f - frac) * y[lo] + frac * y[hi];
+}
+
+}  // namespace
+
+extern "C" int mlx_resample_pv_legacy(const float* y, long long n_src,
+                                      const int* base, const int* a0,
+                                      const int* cnt, const int* anc_j,
+                                      const float* anc_src,
+                                      const float* anc_r,
+                                      const float* anc_s, int n_anc,
+                                      float* out, long long n_out, int sr,
+                                      cudaStream_t stream) {
+  if (n_out <= 0) return static_cast<int>(cudaGetLastError());
+  if (n_src <= 0 || n_anc <= 0 || n_out % kBlk != 0 || n_out > 0x7fffffffLL) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int threads = 256;
+  resample_pv_kernel<<<static_cast<unsigned>((n_out + threads - 1) / threads),
+                       threads, 0, stream>>>(y, n_src, base, a0, cnt, anc_j,
+                                             anc_src, anc_r, anc_s, n_anc,
+                                             out, n_out, sr);
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+
+def start_legacy_build(_build):
+    """Start ``nvcc`` on LEGACY_B4_SOURCE (beside the kernels' own build):
+    (process, library path)."""
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    src = _build.BUILD_DIR / "legacy_resample_pv.cu"
+    src.write_text(LEGACY_B4_SOURCE)
+    lib = _build.BUILD_DIR / "liblegacy_resample_pv.so"
+    cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-shared", "-o", str(lib),
+           str(src)]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True), lib
+
+
+def load_legacy(proc, path, _build):
+    """Wait for the legacy build and load its library (raises on failure):
+    (library, its ptxas report)."""
+    import ctypes
+
+    out = proc.communicate()[0]
+    check(proc.returncode == 0, f"legacy B4 build failed:\n{out}")
+    lib = ctypes.CDLL(str(path))
+    lib.mlx_resample_pv_legacy.argtypes = _build.SIGNATURES["mlx_resample_pv"]
+    lib.mlx_resample_pv_legacy.restype = ctypes.c_int
+    return lib, [ln.strip() for ln in out.splitlines()
+                 if "registers" in ln or "spill" in ln]
+
+
+def legacy_stream(dev) -> int:
+    """The current stream as the wrappers read it before the redesign,
+    through a ``torch.cuda.Stream`` object."""
+    import torch
+
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def legacy_resample_lerp(_build, y, pos, base, rows: int):
+    """The old ``kres.resample_lerp`` host path (three operand checks, the
+    output's allocation, the stream object) on B11's entry over the whole
+    of ``pos`` into device memory: the old kernel's launch (one thread a
+    sample of the covering blocks, the same per-sample body)."""
+    import torch
+
+    dev = _build.cuda_device(y)
+    n_out = pos.shape[0]
+    _build.require(y, "y", torch.float32, (y.shape[0],), dev)
+    _build.require(pos, "pos", torch.float32, (n_out,), dev)
+    _build.require(base, "base", torch.int32, (n_out // 2048,), dev)
+    out = torch.empty((n_out,), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = _build.library().mlx_resample_lerp_window(
+            y.data_ptr(), y.shape[0], pos.data_ptr(), base.data_ptr(), 0,
+            n_out, int(rows), out.data_ptr(), 0, legacy_stream(dev))
+    _build.check("legacy resample_lerp", err)
+    return out
+
+
+def legacy_resample_pv(lib, _build, y, base, a0, cnt, anc_j, anc_src, anc_r,
+                       anc_s, sr: int, n_out: int):
+    """The old ``kres.resample_pv`` on the old kernel: seven operand checks,
+    the output's allocation, the stream object, the launch."""
+    import torch
+
+    dev = _build.cuda_device(y)
+    nb, n_anc = n_out // 2048, anc_j.shape[0]
+    _build.require(y, "y", torch.float32, (y.shape[0],), dev)
+    for name, t in (("base", base), ("a0", a0), ("cnt", cnt)):
+        _build.require(t, name, torch.int32, (nb,), dev)
+    _build.require(anc_j, "anc_j", torch.int32, (n_anc,), dev)
+    for name, t in (("anc_src", anc_src), ("anc_r", anc_r), ("anc_s", anc_s)):
+        _build.require(t, name, torch.float32, (n_anc,), dev)
+    out = torch.empty((n_out,), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.mlx_resample_pv_legacy(
+            y.data_ptr(), y.shape[0], base.data_ptr(), a0.data_ptr(),
+            cnt.data_ptr(), anc_j.data_ptr(), anc_src.data_ptr(),
+            anc_r.data_ptr(), anc_s.data_ptr(), n_anc, out.data_ptr(), n_out,
+            int(sr), legacy_stream(dev))
+    _build.check("legacy resample_pv", err)
+    return out
+
+
+@contextlib.contextmanager
+def legacy_routes(lib, _build, kres, pv, pvs):
+    """The PV render's tail and the stream's read as they stood before
+    B4's and B11's redesign: seven pageable uploads and the old B4 kernel;
+    B11 over the covering blocks into device memory, then a pageable copy;
+    both wrappers as they were.  Restores the new routes on exit."""
+    import torch
+
+    def fused(plan, y):
+        anc_j_p, src_f, r_f, s_f, n_real = plan.anc_np
+        nb = plan.n_out_pad // kres.BLK
+        a0, cnt, _kmax = kres.pv_anchor_blocks(anc_j_p[:n_real], nb)
+
+        def put(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(y.device)
+
+        return legacy_resample_pv(
+            lib, _build, y, put(plan.base), put(a0), put(cnt),
+            put(anc_j_p[:n_real]), put(src_f[:n_real]), put(r_f[:n_real]),
+            put(s_f[:n_real]), plan.sr, plan.n_out_pad)
+
+    def read(self, n):
+        out = np.zeros(n, np.float32)
+        if self.exhausted:
+            return out
+        blk, j = self._blk, self._j
+        hi = min(j + n, self.n_out)
+        b0, b1 = j // blk, -(-hi // blk)
+        self._advance_to(self._src(float(hi)) + 2.0)
+        got = legacy_resample_lerp(_build, self._y_norm,
+                                   self._pos[b0 * blk : b1 * blk],
+                                   self._base[b0:b1], self._rows)
+        out[: hi - j] = got[j - b0 * blk : hi - b0 * blk].cpu().numpy()
+        self._j = hi
+        return out
+
+    saved = (pv._resample_pv_fused, pvs.PvStream.read)
+    pv._resample_pv_fused, pvs.PvStream.read = fused, read
+    try:
+        yield
+    finally:
+        pv._resample_pv_fused, pvs.PvStream.read = saved
+
+
+def graph_ms(fn, reps: int = REPS, inner: int = KERNEL_INNER) -> float:
+    """Device time of one ``fn()``: ``inner`` calls back to back captured
+    into one CUDA graph, replayed between two events (median of ``reps``
+    after a warm-up replay), so the wrapper's host work is left out.  A
+    capture that fails raises."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(inner):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / inner)
+    del graph
+    return float(np.median(times))
+
+
+def in_turns(old, new, timer) -> tuple[float, float, list]:
+    """``timer`` of two callables in turns (old, new, new, old): the means
+    and the four readings."""
+    t = [timer(fn) for fn in (old, new, new, old)]
+    return (t[0] + t[3]) / 2, (t[1] + t[2]) / 2, t
+
+
 @contextlib.contextmanager
 def plain_twins(kpv, kres, krender, kcols, kstft, kpitch, kframes):
     """Route the main paths through the plain twins (for the all-plain
     reference runs on the card); restores the kernels on exit."""
+    class PlainReader:
+        """``kres.LerpReader``'s contract through B11's twin over the
+        covering blocks (a stream built inside the context reads so)."""
+
+        def __init__(self, y, pos, base, rows):
+            self.ops = (y, pos, base, rows)
+
+        def read(self, j, n):
+            y, pos, base, rows = self.ops
+            b0, b1 = j // kres.BLK, -(-(j + n) // kres.BLK)
+            blk = kres.BLK
+            got = kres.resample_lerp_plain(y, pos[b0 * blk : b1 * blk],
+                                           base[b0:b1], rows)
+            return got[j - b0 * blk : j + n - b0 * blk].cpu().numpy()
+
     saved = (kpv.stft_mag, kpv.analysis, kpv.synth_ola_phase,
              kres.resample_pv, krender.render_steps, krender.compact,
              kcols.spectrogram_columns_fused, kstft.stft_mag, kpitch.pitch_ac,
-             kframes.extract_frames, kres.resample_lerp)
+             kframes.extract_frames, kres.resample_lerp, kres.LerpReader)
     kframes.extract_frames = kframes.extract_frames_plain
     kres.resample_lerp = kres.resample_lerp_plain
+    kres.LerpReader = PlainReader
     kpitch.pitch_ac = kpitch.pitch_ac_plain
     kcols.spectrogram_columns_fused = kcols.spectrogram_columns_plain
     kstft.stft_mag = kstft.stft_mag_plain
@@ -345,7 +601,8 @@ def plain_twins(kpv, kres, krender, kcols, kstft, kpitch, kframes):
         (kpv.stft_mag, kpv.analysis, kpv.synth_ola_phase,
          kres.resample_pv, krender.render_steps, krender.compact,
          kcols.spectrogram_columns_fused, kstft.stft_mag,
-         kpitch.pitch_ac, kframes.extract_frames, kres.resample_lerp) = saved
+         kpitch.pitch_ac, kframes.extract_frames, kres.resample_lerp,
+         kres.LerpReader) = saved
 
 
 def load_oracle(root: str):
@@ -748,6 +1005,7 @@ def main() -> int:
     sys.path.insert(0, root)
     import melonix_tpu_torch as mt
     from melonix_tpu_torch.engine import phase_vocoder as pv
+    from melonix_tpu_torch.engine import pv_stream as pvs
     from melonix_tpu_torch.engine import render as grender
     from melonix_tpu_torch.engine.spectral import (hann_window, num_frames,
                                                    view_column_ranges)
@@ -788,10 +1046,15 @@ def main() -> int:
 
     # -- 2. build -----------------------------------------------------
     t0 = time.perf_counter()
+    legacy_proc, legacy_path = start_legacy_build(_build)
     lib_path = _build.build()
     _build.library()
-    print(f"[2] built {lib_path} in {time.perf_counter() - t0:.1f} s",
-          flush=True)
+    legacy_lib, legacy_ptxas = load_legacy(legacy_proc, legacy_path,
+                                           _build)
+    print(f"[2] built {lib_path} and the pre-redesign B4 {legacy_path.name} "
+          f"in {time.perf_counter() - t0:.1f} s", flush=True)
+    for line in legacy_ptxas:
+        print("    ptxas (pre-redesign B4):", line)
     t0 = time.perf_counter()
     check(native.try_load() is not None, "native host runtime: no compiler")
     print(f"    native host runtime {native.BUILD_DIR / native.LIB_NAME} "
@@ -826,15 +1089,18 @@ def main() -> int:
     rows = {}
 
     def record(name, source, replaces, err, fn_k, fn_p, fn_lib, n_bytes,
-               flops):
+               flops, fn_graph=None):
         """One row of the kernels line; ``fn_lib`` is the one PyTorch call
         timed beside the kernel as a yardstick (None where there is none),
-        ``n_bytes`` / ``flops`` the work the bound is computed from."""
+        ``n_bytes`` / ``flops`` the work the bound is computed from;
+        ``fn_graph`` (launch-bound rows) is what :func:`graph_ms` captures
+        for the row's ``device_ms`` (null elsewhere)."""
         bound_ms, bound_by = bound(n_bytes, flops)
         rows[name] = dict(name=name, route="cuda", source=source,
                           replaces=replaces, launches=0, max_abs_err=err,
                           bound_ms=bound_ms, bound_by=bound_by,
-                          run_kernel=fn_k, run_plain=fn_p, run_library=fn_lib)
+                          device_ms=None, run_kernel=fn_k, run_plain=fn_p,
+                          run_library=fn_lib, run_graph=fn_graph)
 
     # B3's and B10's two overlap-add routes: the hop's own (fused at the
     # path's hop) held bit for bit to the frames route, both timed in
@@ -1024,17 +1290,29 @@ def main() -> int:
         y, base, a0_d, cnt_d, *anc, SR, plan.n_out_pad)
     b4p = lambda: kres.resample_pv_plain(  # noqa: E731
         y, base, *anc, SR, plan.n_out_pad)
-    got, want = b4(), b4p()
+    b4_old = lambda: legacy_resample_pv(  # noqa: E731
+        legacy_lib, _build, y, base, a0_d, cnt_d, *anc, SR, plan.n_out_pad)
+    got, want, again = b4(), b4p(), b4()
+    glue, old = pv._resample_pv_fused(plan, y), b4_old()
     torch.cuda.synchronize()
     s, e = snr_db(got, want), max_err(got, want)
-    print(f"    B4 resample_pv (expm1f) vs twin (expm1_precise): SNR {s:.1f} dB "
-          f"(bar < -60), max abs err {e:.3e} (bar 5e-3), kmax {kmax}",
+    s_old, e_old = snr_db(old, want), max_err(old, want)
+    print(f"    B4 resample_pv (expm1f) vs twin (expm1_precise) on the song: "
+          f"SNR {s:.1f} dB (bar < -60), max abs err {e:.3e} (bar 5e-3), kmax "
+          f"{kmax} anchors a block; two calls bit-equal "
+          f"{torch.equal(got, again)}, through the render's packed upload "
+          f"bit-equal {torch.equal(got, glue)} (bars: equal); the "
+          f"pre-redesign kernel vs twin SNR {s_old:.1f} dB, max abs err "
+          f"{e_old:.3e}, vs the new max abs err {max_err(got, old):.3e}",
           flush=True)
     check(got.shape == (plan.n_out_pad,) and s < -60.0 and e < 5e-3,
           "B4 vs twin")
+    check(torch.equal(got, again) and torch.equal(got, glue),
+          "B4: two calls, or the packed upload, differ")
     record("resample_pv", "melonix_tpu_torch/csrc/resample_pv.cu",
            "melonix_tpu/kernels/pallas_resample.py:202", e, b4, b4p, None,
-           nbytes(y, base, a0_d, cnt_d, *anc, got), 0.0)
+           nbytes(y, base, a0_d, cnt_d, *anc, got), 0.0, fn_graph=b4)
+    del again, glue, old
 
     # expm1f (used by B4) vs the Horner expm1_precise, both against float64
     xs = torch.linspace(-0.7, 0.7, 1 << 20, device=dev)
@@ -1162,7 +1440,7 @@ def main() -> int:
     record("render_steps", "melonix_tpu_torch/csrc/render_steps.cu",
            "melonix_tpu/kernels/pallas_render.py:108", e, b5, b5p, None,
            4 * covered_len(g_lo, g_hi, n) + nbytes(gs_d, rate_d, sz_d, vals_k),
-           0.0)
+           0.0, fn_graph=b5)
     b6 = lambda: krender.compact(vals_k, off_d, a0g_d, cntg_d, total)  # noqa: E731
     b6p = lambda: krender.compact_plain(vals_k, off_d, total)  # noqa: E731
     got, want = b6(), b6p()
@@ -1174,7 +1452,7 @@ def main() -> int:
     # B6 reads one step value per output sample, writes the track once
     record("compact", "melonix_tpu_torch/csrc/compact.cu",
            "melonix_tpu/kernels/pallas_render.py:375", e, b6, b6p, None,
-           8 * total + nbytes(off_d, a0g_d, cntg_d), 0.0)
+           8 * total + nbytes(off_d, a0g_d, cntg_d), 0.0, fn_graph=b6)
     del vals_p, got, want
 
     # -- 8. the granular main path: render_track ----------------------
@@ -1894,7 +2172,8 @@ def main() -> int:
             record("extract_frames", "melonix_tpu_torch/csrc/extract_frames.cu",
                    "melonix_tpu/kernels/pallas_frames.py:65", max_err(got, want),
                    b9, b9p, lambda: wav_pad9[idx9],
-                   4 * covered_len(s9, s9 + sz, n) + nbytes(st_sz, got), 0.0)
+                   4 * covered_len(s9, s9 + sz, n) + nbytes(st_sz, got), 0.0,
+                   fn_graph=b9)
         del got, want
     for sz, hp in ((4096, 1024), (1000, 250)):
         p_sz = pv.build_pv_plan(knots, n, size=sz, hop=hp)
@@ -1978,31 +2257,91 @@ def main() -> int:
     y_n, pos_n, base_n, rows_n = strm._y_norm, strm._pos, strm._base, strm._rows
     got = kres.resample_lerp(y_n, pos_n, base_n, rows_n)
     want = kres.resample_lerp_plain(y_n, pos_n, base_n, rows_n)
-    j_mid = (plan.n_out // 2) // kres.BLK * kres.BLK  # one read's two blocks
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), "B11 over the whole padded output vs twin")
+
+    # The zero-copy read (kres.LerpReader: one launch into mapped host
+    # memory, one wait) against the twin over the window's covering blocks
+    def read_vs_twin(s_r, n_r):
+        j_r = s_r._j
+        got_r = s_r.read(n_r)
+        hi_r = min(j_r + n_r, s_r.n_out)
+        b0, b1 = j_r // kres.BLK, -(-hi_r // kres.BLK)
+        want_r = kres.resample_lerp_plain(
+            s_r._y_norm, s_r._pos[b0 * kres.BLK : b1 * kres.BLK],
+            s_r._base[b0:b1], s_r._rows)[j_r - b0 * kres.BLK :
+                                         hi_r - b0 * kres.BLK]
+        return (j_r, hi_r - j_r, np.array_equal(got_r[: hi_r - j_r],
+                                                want_r.cpu().numpy())
+                and not got_r[hi_r - j_r :].any())
+
+    kres.resample_lerp.launches = 0
+    windows = []
+    for start_sec, sizes in ((0.0, (1024, 2048, 32768)),
+                             (60.0, (1024, 2048, 32768)),  # mid-block
+                             ((plan.n_out - 3000) / SR, (32768,))):
+        s_w = mt.PvStream(wav, knots, start_sec=start_sec)
+        windows += [read_vs_twin(s_w, n_r) for n_r in sizes]
+        if start_sec > 60.0:
+            check(s_w.exhausted, "the final odd block's read did not end "
+                  "the stream")
+    torch.cuda.synchronize()
+    check(plan.n_out % kres.BLK != 0
+          and sum(windows[-1][:2]) == plan.n_out,
+          "the last window does not end the final odd block")
+    print("     B11 zero-copy reads vs twin over the same window (bars: "
+          "equal; launches = reads): "
+          + ", ".join(f"[{j_r}, +{m_r}) {ok}" for j_r, m_r, ok in windows)
+          + f"; B11 launches {kres.resample_lerp.launches}; whole padded "
+          f"output ({pos_n.shape[0]} samples, kres.resample_lerp) equal "
+          f"True; slab rows {rows_n}", flush=True)
+    check(all(ok for *_, ok in windows)
+          and kres.resample_lerp.launches == len(windows),
+          "B11 zero-copy read vs twin")
+
+    # One 1024-sample read across a block boundary mid-song: the launcher
+    # alone (the row's kernel time), the whole read (launch, wait, copy),
+    # and the pre-redesign read (kres.resample_lerp over the two covering
+    # blocks into device memory, then a pageable copy) timed in phase 22
+    rd = strm._reader
+    j_mid = (plan.n_out // 2) // kres.BLK * kres.BLK
+    j_w = j_mid + kres.BLK - 512
     pos_r, base_r = pos_n[j_mid : j_mid + 2 * kres.BLK], base_n[
         j_mid // kres.BLK : j_mid // kres.BLK + 2]
-    b11 = lambda: kres.resample_lerp(y_n, pos_r, base_r, rows_n)  # noqa: E731
+    w0 = j_w - j_mid  # the window's offset in its two blocks
+    b11 = lambda: rd.launch(j_w, 1024)  # noqa: E731
+    b11_read = lambda: rd.read(j_w, 1024)  # noqa: E731
+    b11_old = lambda: legacy_resample_lerp(  # noqa: E731
+        _build, y_n, pos_r, base_r, rows_n)
+    b11_old_read = lambda: b11_old()[w0 : w0 + 1024].cpu().numpy()  # noqa: E731
     b11p = lambda: kres.resample_lerp_plain(  # noqa: E731
-        y_n, pos_r, base_r, rows_n)
-    got_r, want_r = b11(), b11p()
-    torch.cuda.synchronize()
-    print(f"     B11 resample_lerp vs twin: whole padded output "
-          f"({pos_n.shape[0]} samples) equal {torch.equal(got, want)}, one "
-          f"read's two blocks equal {torch.equal(got_r, want_r)} (bars: "
-          f"equal); slab rows {rows_n}", flush=True)
-    check(torch.equal(got, want) and torch.equal(got_r, want_r), "B11 vs twin")
-    b11_full_ms = cuda_ms(lambda: kres.resample_lerp(y_n, pos_n, base_n,
-                                                     rows_n))
+        y_n, pos_r, base_r, rows_n)[w0 : w0 + 1024]
+    got_r, want_r = b11_read().copy(), b11p()
+    check(np.array_equal(got_r, want_r.cpu().numpy())
+          and np.array_equal(b11_old_read(), got_r), "B11 timed read vs twin")
+    b11_full = lambda: kres.resample_lerp(y_n, pos_n, base_n, rows_n)  # noqa: E731
+
+    def tap_bytes(pos_t, base_t):
+        """4 bytes for each distinct source sample the lerp touches."""
+        i0 = (base_t.long().repeat_interleave(kres.BLK)[: pos_t.shape[0]]
+              + torch.floor(pos_t).clamp(0, rows_n * 128 - 2).long())
+        return 4 * int(torch.unique(torch.cat([i0, i0 + 1])).numel())
+
     # the bytes one read needs: its positions and bases, the taps it
     # touches, its output
-    i0 = (base_r.long().repeat_interleave(kres.BLK)
-          + torch.floor(pos_r).clamp(0, rows_n * 128 - 2).long())
-    taps = int(torch.unique(torch.cat([i0, i0 + 1])).numel())
+    pos_w = pos_n[j_w : j_w + 1024]
+    i0_w = (base_r.long().repeat_interleave(kres.BLK)[w0 : w0 + 1024]
+            + torch.floor(pos_w).clamp(0, rows_n * 128 - 2).long())
+    w_bytes = (4 * int(torch.unique(torch.cat([i0_w, i0_w + 1])).numel())
+               + nbytes(pos_w, base_r, want_r))
     record("resample_lerp", "melonix_tpu_torch/csrc/resample_lerp.cu",
            "melonix_tpu/kernels/pallas_resample.py:248",
-           max_err(got_r, want_r), b11, b11p, None,
-           4 * taps + nbytes(pos_r, base_r, got_r), 0.0)
+           max_err(torch.from_numpy(got_r).to(dev), want_r), b11, b11p, None,
+           w_bytes, 0.0, fn_graph=b11)
     rows["resample_lerp"]["launches"] = b11_launches
+    full_bound, _by = bound(tap_bytes(pos_n, base_n)
+                            + nbytes(pos_n, base_n, got), 0.0)
+    rows["resample_lerp"]["full_bound_ms"] = full_bound
     del got, want, live, pulls
 
     # the bench's interactive fixtures (bench.py:341-369): edit to audio
@@ -2287,11 +2626,77 @@ def main() -> int:
         r["library_ms"] = (None if lib is None else cuda_ms(lib, inner=inner))
         lib_txt = ("none" if lib is None
                    else f"{r['library_ms']:.4f} ms")
-        print(f"[22] {r['name']}: kernel {r['ms']:.4f} ms, plain twin "
-              f"{r['plain_ms']:.4f} ms, one PyTorch call {lib_txt}, bound "
+        g = r.pop("run_graph")
+        if g is not None:
+            r["device_ms"] = graph_ms(g, inner=inner)
+        dev_txt = ("" if g is None else f" (device alone, one CUDA graph of "
+                   f"the {inner} calls: {r['device_ms']:.4f} ms)")
+        print(f"[22] {r['name']}: kernel {r['ms']:.4f} ms{dev_txt}, plain "
+              f"twin {r['plain_ms']:.4f} ms, one PyTorch call {lib_txt}, bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}); launches on its "
               f"main path {r['launches']} (mean of {inner} "
               f"back-to-back calls) | {card}", flush=True)
+
+    # B4 and B11 against their routes before the redesign, in turns on this
+    # card (old, new, new, old): events around 10 back-to-back calls, and
+    # the same calls as one CUDA graph (the device alone)
+    def k_ms(fn):
+        return cuda_ms(fn, inner=KERNEL_INNER)
+
+    def old_glue():
+        with legacy_routes(legacy_lib, _build, kres, pv, pvs):
+            return pv._resample_pv_fused(plan, y)
+
+    r4, r11 = rows["resample_pv"], rows["resample_lerp"]
+    r4["before_ms"], k_new, t_k = in_turns(b4_old, b4, k_ms)
+    r4["before_device_ms"], g_new, t_g = in_turns(b4_old, b4, graph_ms)
+    glue_old, glue_new, t_h = in_turns(old_glue,
+                                       lambda: pv._resample_pv_fused(plan, y),
+                                       k_ms)
+
+    def turns(vals):
+        return ", ".join(f"{v:.4f}" for v in vals)
+
+    print(f"[22] B4 before / after its redesign (means of the turns old, new, "
+          f"new, old): kernel {r4['before_ms']:.4f} / {k_new:.4f} ms "
+          f"({turns(t_k)}), device alone {r4['before_device_ms']:.4f} / "
+          f"{g_new:.4f} ms ({turns(t_g)}); the render's tail with its uploads "
+          f"(seven, then one) {glue_old:.4f} / {glue_new:.4f} ms "
+          f"({turns(t_h)}); bound {r4['bound_ms']:.4f} ms | {card}",
+          flush=True)
+    r11["before_ms"], k_new, t_k = in_turns(b11_old, b11, k_ms)
+    r11["before_device_ms"], g_new, t_g = in_turns(b11_old, b11, graph_ms)
+    r11["before_read_ms"], r11["read_ms"], t_r = in_turns(b11_old_read,
+                                                         b11_read, k_ms)
+    r11["full_ms"] = k_ms(b11_full)
+    r11["full_device_ms"] = graph_ms(b11_full)
+    print(f"[22] B11 a 1024-sample read before / after its redesign (means of "
+          f"the turns old, new, new, old): the launch {r11['before_ms']:.4f} "
+          f"/ {k_new:.4f} ms ({turns(t_k)}), device alone "
+          f"{r11['before_device_ms']:.4f} / {g_new:.4f} ms ({turns(t_g)}); "
+          f"the whole read (launch, wait, samples in NumPy) "
+          f"{r11['before_read_ms']:.4f} / {r11['read_ms']:.4f} ms "
+          f"({turns(t_r)}); over the whole padded output ({pos_n.shape[0]} "
+          f"samples) {r11['full_ms']:.4f} ms, device alone "
+          f"{r11['full_device_ms']:.4f} ms, bound {r11['full_bound_ms']:.4f} "
+          f"ms (bytes) | {card}", flush=True)
+
+    def old_pipeline():
+        with legacy_routes(legacy_lib, _build, kres, pv, pvs):
+            return pipeline()
+
+    def old_live_reads():
+        with legacy_routes(legacy_lib, _build, kres, pv, pvs):
+            live_reads()
+
+    m_old, m_new, t_m = in_turns(old_pipeline, pipeline, cuda_ms)
+    l_old, l_new, t_l = in_turns(old_live_reads, live_reads, cuda_ms)
+    print(f"[22] before / after B4's and B11's redesign (turns old, new, new, "
+          f"old; each a median of {REPS}): main path {m_old:.2f} / "
+          f"{m_new:.2f} ms (" + ", ".join(f"{v:.2f}" for v in t_m)
+          + f"); live, 200 reads of 1024 from a restart at 60 s "
+          f"{l_old:.2f} / {l_new:.2f} ms (" + ", ".join(f"{v:.2f}" for v in t_l)
+          + f") | {card}", flush=True)
     cumsum32_ms = cuda_ms(lambda: torch.cumsum(incr_sc, dim=0),
                           inner=KERNEL_INNER)
     print(f"[22] B3's phase scan yardsticks: torch.cumsum of the "
@@ -2383,8 +2788,6 @@ def main() -> int:
               f"device ms by name: "
               + ", ".join(f"{k[:48]} {v:.3f}" for k, v in top) + f" | {card}",
               flush=True)
-    print(f"[22] B11 over the whole padded output ({pos_n.shape[0]} samples): "
-          f"{b11_full_ms:.4f} ms | {card}", flush=True)
 
     print(card)  # the card's name and power limit, near the end again
     print(json.dumps({"kernels": list(rows.values())}))

@@ -19,26 +19,34 @@
 // (kernels/resample.py:lerp) torch ops take them, so the two are equal bit
 // for bit.
 //
-// Design: one thread per output sample; the two taps are neighbouring loads
-// whose addresses rise with j (coalesced where the rate is near 1, and the
-// block's slab stays in L1/L2).  Samples past the end read as 0 instead of
-// a padded copy of the track per call.  Bounded by device memory: ~12
-// bytes per output sample (position, output, taps).
+// One entry, mlx_resample_lerp_window, computes exactly the samples
+// [j0, j0 + n), one thread per sample, and stores them through a device
+// address, optionally waiting for them in the same C call:
+// - kres.resample_lerp: the whole of its output (j0 = 0) into device memory;
+// - kres.LerpReader: one live read, exactly the delivered samples and
+//   nothing else of their blocks, into page-locked host memory mapped into
+//   the card's address space, waited for.  A read moves a few KB, so it is
+//   bound by its launch and its wait, not by bytes: one C call does both,
+//   with no allocation and no separate copy.
+// Over a whole output the two taps are neighbouring loads whose addresses
+// rise with j (coalesced where the rate is near 1, and the block's slab
+// stays in L1/L2): bounded by device memory, ~12 bytes per output sample
+// (position, output, taps).
+//
+// mlx_host_device_pointer gives the device address of such host memory,
+// and fails where the memory is not mapped.
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kBlk = 2048;
+constexpr int kThreads = 256;
 
-__global__ void resample_lerp_kernel(const float* __restrict__ y,
-                                     long long n_src,
-                                     const float* __restrict__ pos,
-                                     const int* __restrict__ base,
-                                     float* __restrict__ out, long long n_out,
-                                     int rel_max) {
-  const long long j = static_cast<long long>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
-  if (j >= n_out) return;
+__device__ __forceinline__ float lerp_at(const float* __restrict__ y,
+                                         long long n_src,
+                                         const float* __restrict__ pos,
+                                         const int* __restrict__ base,
+                                         long long j, int rel_max) {
   const float p = pos[j];
   const float fl = floorf(p);
   const float frac = __fsub_rn(p, fl);
@@ -49,24 +57,45 @@ __global__ void resample_lerp_kernel(const float* __restrict__ y,
   const float hi = i0 + 1 < n_src ? y[i0 + 1] : 0.0f;
   const double a = __dmul_rn(static_cast<double>(__fsub_rn(1.0f, frac)),
                              static_cast<double>(lo));
-  out[j] = __double2float_rn(
+  return __double2float_rn(
       __dadd_rn(a, static_cast<double>(__fmul_rn(frac, hi))));
+}
+
+// out[k] = sample j0 + k, k < n: positions and bases are the stream's whole
+// arrays, indexed by the absolute output sample.
+__global__ void resample_lerp_window_kernel(const float* __restrict__ y,
+                                            long long n_src,
+                                            const float* __restrict__ pos,
+                                            const int* __restrict__ base,
+                                            long long j0, int n,
+                                            int rel_max,
+                                            float* __restrict__ out) {
+  const int k = blockIdx.x * blockDim.x + threadIdx.x;
+  if (k >= n) return;
+  out[k] = lerp_at(y, n_src, pos, base, j0 + k, rel_max);
 }
 
 }  // namespace
 
-extern "C" int mlx_resample_lerp(const float* y, long long n_src,
-                                 const float* pos, const int* base,
-                                 float* out, long long n_out, int rows,
-                                 cudaStream_t stream) {
-  if (n_out <= 0) return static_cast<int>(cudaGetLastError());
-  if (n_src <= 0 || rows < 1 || n_out % kBlk != 0) {
+// `out` is a device address (of device memory, or of mapped host memory
+// for the live read); `wait` != 0 returns only once the samples are there.
+extern "C" int mlx_resample_lerp_window(const float* y, long long n_src,
+                                        const float* pos, const int* base,
+                                        long long j0, int n, int rows,
+                                        float* out, int wait,
+                                        cudaStream_t stream) {
+  if (n_src <= 0 || rows < 1 || j0 < 0 || n <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int threads = 256;
-  resample_lerp_kernel<<<static_cast<unsigned>((n_out + threads - 1) /
-                                               threads),
-                         threads, 0, stream>>>(y, n_src, pos, base, out,
-                                               n_out, rows * 128 - 2);
-  return static_cast<int>(cudaGetLastError());
+  resample_lerp_window_kernel<<<static_cast<unsigned>((n + kThreads - 1) /
+                                                      kThreads),
+                                kThreads, 0, stream>>>(
+      y, n_src, pos, base, j0, n, rows * 128 - 2, out);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || !wait) return static_cast<int>(err);
+  return static_cast<int>(cudaStreamSynchronize(stream));
+}
+
+extern "C" int mlx_host_device_pointer(void* host, void** device) {
+  return static_cast<int>(cudaHostGetDevicePointer(device, host, 0));
 }

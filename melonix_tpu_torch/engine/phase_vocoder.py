@@ -419,20 +419,15 @@ def _accum_at(y, y_c, off: int):
 
 
 def _resample_pv_fused(plan: PVPlan, y):
-    """Positions + lerp from a PVPlan: B4 on CUDA, its twin on CPU."""
-    dev = y.device
+    """Positions + lerp from a PVPlan: B4 on CUDA, its twin on CPU.  The
+    seven operands go up in one packed upload."""
     anc_j_p, src_f, r_f, s_f, n_real = plan.anc_np
     nb = plan.n_out_pad // kres.BLK
     a0, cnt, _kmax = kres.pv_anchor_blocks(anc_j_p[:n_real], nb)
-
-    def put(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-
-    return kres.resample_pv(
-        y, put(plan.base), put(a0), put(cnt), put(anc_j_p[:n_real]),
-        put(src_f[:n_real]), put(r_f[:n_real]), put(s_f[:n_real]),
-        plan.sr, plan.n_out_pad,
-    )
+    ops = kres.upload_pv_operands(plan.base, a0, cnt, anc_j_p[:n_real],
+                                  src_f[:n_real], r_f[:n_real], s_f[:n_real],
+                                  y.device)
+    return kres.resample_pv(y, *ops, plan.sr, plan.n_out_pad)
 
 
 def render_track_pv(

@@ -12,10 +12,12 @@ only, which is a stream:
   at other frame sizes; formants and locking as asked) into a stretched
   buffer on the device, normalised by the window-square sum up to the last
   fully covered sample;
-* each **read** resamples the 2048-sample output blocks that cover it with
-  one launch of kernel B11 (``kres.resample_lerp``) at positions computed
-  once per stream (``kres.positions_rel_plain``), and only the samples
-  delivered to the consumer go to the host;
+* each **read** resamples at positions computed once per stream
+  (``kres.positions_rel_plain``): on the card with one launch of kernel
+  B11 through the stream's ``kres.LerpReader``, which computes exactly the
+  delivered samples straight into mapped host memory and waits; on the CPU
+  through B11's twin (``kres.resample_lerp``) over the 2048-sample output
+  blocks that cover the read;
 * an **edit or seek restarts** the stream at the cursor: frames strictly
   before the splice's coverage window are skipped (every frame touching the
   first emitted sample IS rendered, so amplitude at the splice is exact)
@@ -125,6 +127,9 @@ class PvStream:
         self._base = self._put(plan.base)
         self._rows = kres.rows_for(max(plan.rho_max, float(plan.rho_m.max()),
                                        1.0))
+        self._reader = (None if dev.type == "cpu" else
+                        kres.LerpReader(self._y_norm, self._pos, self._base,
+                                        self._rows))
 
     def _put(self, a) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self._wav_dev.device)
@@ -189,18 +194,22 @@ class PvStream:
     def read(self, n: int) -> np.ndarray:
         """Next n samples (float32); zeros past the warped duration.  A read
         that delivers real samples stretches what they need and resamples
-        the output blocks covering them with one B11 launch."""
+        them with one B11 launch."""
         out = np.zeros(n, np.float32)
         if self.exhausted:
             return out
         blk, j = self._blk, self._j
         hi = min(j + n, self.n_out)
-        b0, b1 = j // blk, -(-hi // blk)
         # Gate: the lerp touches floor(src) + 1; +2 covers the float32
         # positions' rounding.
         self._advance_to(self._src(float(hi)) + 2.0)
-        got = kres.resample_lerp(self._y_norm, self._pos[b0 * blk : b1 * blk],
-                                 self._base[b0:b1], self._rows)
-        out[: hi - j] = got[j - b0 * blk : hi - b0 * blk].cpu().numpy()
+        if self._reader is not None:
+            out[: hi - j] = self._reader.read(j, hi - j)
+        else:
+            b0, b1 = j // blk, -(-hi // blk)
+            got = kres.resample_lerp(self._y_norm,
+                                     self._pos[b0 * blk : b1 * blk],
+                                     self._base[b0:b1], self._rows)
+            out[: hi - j] = got[j - b0 * blk : hi - b0 * blk].numpy()
         self._j = hi
         return out

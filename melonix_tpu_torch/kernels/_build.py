@@ -80,8 +80,10 @@ SIGNATURES = {
     "mlx_pitch_ac": (_P, _L, _P, _P, _P, _I, _I, _P),
     # wav, n, starts, out, n_frames, size, stream
     "mlx_extract_frames": (_P, _L, _P, _P, _I, _I, _P),
-    # y, n_src, pos, base, out, n_out, rows, stream
-    "mlx_resample_lerp": (_P, _L, _P, _P, _P, _L, _I, _P),
+    # y, n_src, pos, base, j0, n, rows, out, wait, stream
+    "mlx_resample_lerp_window": (_P, _L, _P, _P, _L, _I, _I, _P, _I, _P),
+    # host, &device
+    "mlx_host_device_pointer": (_P, ctypes.POINTER(_P)),
     # mag, psi, win, tw, frames, y, n_frames, hop, fused, stream
     "mlx_pv_synth_ola": (_P,) * 6 + (_I, _I, _I, _P),
     # wav, n, starts, ends, tw, tw2, scratch, out, n_cols, size, n1,
@@ -208,9 +210,29 @@ def require(t, name: str, dtype, shape: tuple, device) -> None:
         raise ValueError(f"{name}: must be contiguous")
 
 
+def host_device_pointer(t) -> int:
+    """The card's address of page-locked host tensor ``t``'s data
+    (``cudaHostGetDevicePointer``); raises where the memory is not pinned
+    and mapped into the card's address space."""
+    if t.device.type != "cpu" or not t.is_pinned():
+        raise ValueError("host_device_pointer: needs a pinned host tensor")
+    out = ctypes.c_void_p()
+    check("host_device_pointer",
+          library().mlx_host_device_pointer(t.data_ptr(), ctypes.byref(out)))
+    return int(out.value)
+
+
 def stream(device) -> int:
-    """PyTorch's current CUDA stream on ``device``, as the kernels take it."""
-    return torch.cuda.current_stream(device).cuda_stream
+    """PyTorch's current CUDA stream on ``device``, as the kernels take it:
+    its raw handle, read without building a ``torch.cuda.Stream`` object
+    (which costs a short kernel's launch several microseconds more).  It
+    reads the handle through ``torch._C._cuda_getCurrentRawStream``, a
+    private API of PyTorch that every wrapper relies on here; should it go,
+    ``torch.cuda.current_stream(device).cuda_stream`` gives the same handle."""
+    index = device.index
+    if index is None:
+        index = torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def cuda_device(t):

@@ -7,10 +7,13 @@ positions would lose sub-sample precision past 2^23 source samples (~3 min
 at 44.1 kHz).
 
 ``resample_pv`` (B4, ``csrc/resample_pv.cu``) evaluates the offsets from
-the block's piecewise-analytic anchors, the offline PV render's tail;
-``resample_lerp`` (B11, ``csrc/resample_lerp.cu``) takes them as given,
-every read of the live ``PvStream``.  Each launches its kernel for CUDA
-tensors and runs its ``*_plain`` twin for CPU tensors.
+the block's piecewise-analytic anchors, the offline PV render's tail; its
+seven operands travel in one array (:func:`upload_pv_operands`).
+``resample_lerp`` (B11, ``csrc/resample_lerp.cu``) takes them as given.
+Each launches its kernel for CUDA tensors and runs its ``*_plain`` twin for
+CPU tensors.  The live ``PvStream`` reads through :class:`LerpReader`, B11
+for one stream's operands, validated once: one launch a read, straight into
+mapped host memory.
 """
 
 from __future__ import annotations
@@ -72,6 +75,12 @@ def positions_rel_plain(anc_j, anc_src, anc_r, anc_s, sr: int, n_out: int,
     ``melonix_tpu/engine/phase_vocoder.py:_positions_rel_device``)."""
     j = torch.arange(j0, j0 + n_out, dtype=torch.int32, device=anc_j.device)
     a = (torch.searchsorted(anc_j, j, right=True) - 1).clamp_min(0)
+    return position_at(j, a, anc_j, anc_src, anc_r, anc_s, sr)
+
+
+def position_at(j, a, anc_j, anc_src, anc_r, anc_s, sr: int):
+    """float32 block-relative positions of int32 output samples ``j``, each
+    from the constants of its anchor ``a`` (same shape as ``j``)."""
     s = anc_s[a]
     srf = float(np.float32(sr))
     ln = float(np.float32(LN2_12))
@@ -111,11 +120,26 @@ def resample_pv_plain(y, base, anc_j, anc_src, anc_r, anc_s, sr: int,
     return lerp_resample_rel(y, pos, base, y.shape[0])
 
 
+def upload_pv_operands(base, a0, cnt, anc_j, anc_src, anc_r, anc_s,
+                       device):
+    """B4's seven operands, packed into one int32 host array (the float32
+    sections by their bits) and uploaded to ``device`` in one copy: views
+    of it in :func:`resample_pv`'s order (base, a0, cnt, anc_j int32;
+    anc_src, anc_r, anc_s float32)."""
+    ints = [np.asarray(a, np.int32) for a in (base, a0, cnt, anc_j)]
+    floats = [np.ascontiguousarray(a, np.float32).view(np.int32)
+              for a in (anc_src, anc_r, anc_s)]
+    packed = torch.from_numpy(np.concatenate(ints + floats)).to(device)
+    views = torch.split(packed, [a.shape[0] for a in ints + floats])
+    return views[:4] + tuple(v.view(torch.float32) for v in views[4:])
+
+
 def resample_pv(y, base, a0, cnt, anc_j, anc_src, anc_r, anc_s, sr: int,
                 n_out: int) -> torch.Tensor:
-    """B4 (``csrc/resample_pv.cu``): contract of :func:`resample_pv_plain`;
+    """B4 (``csrc/resample_pv.cu``): contract of :func:`resample_pv_plain`
+    for sources under 2^31 samples with ``base`` from :func:`block_bases`;
     ``a0``/``cnt`` (from :func:`pv_anchor_blocks`) give each block's anchor
-    range, so a thread scans a handful of anchors instead of all."""
+    range, which its CTA stages once in shared memory."""
     if y.device.type == "cpu":
         return resample_pv_plain(y, base, anc_j, anc_src, anc_r, anc_s, sr,
                                  n_out)
@@ -124,8 +148,9 @@ def resample_pv(y, base, a0, cnt, anc_j, anc_src, anc_r, anc_s, sr: int,
         raise ValueError(f"n_out {n_out} is not a multiple of {BLK}")
     nb = n_out // BLK
     n_anc = anc_j.shape[0]
-    if y.shape[0] == 0 or n_anc == 0:
-        raise ValueError("empty source or anchor list")
+    if y.shape[0] == 0 or n_anc == 0 or y.shape[0] >= 1 << 31:
+        raise ValueError(f"source of {y.shape[0]} samples (1 to 2^31 - 1), "
+                         f"{n_anc} anchors")
     _build.require(y, "y", torch.float32, (y.shape[0],), dev)
     for name, t in (("base", base), ("a0", a0), ("cnt", cnt)):
         _build.require(t, name, torch.int32, (nb,), dev)
@@ -169,27 +194,104 @@ def resample_lerp_plain(y, pos, base, rows: int) -> torch.Tensor:
 def resample_lerp(y, pos, base, rows: int) -> torch.Tensor:
     """B11 (``csrc/resample_lerp.cu``): contract of
     :func:`resample_lerp_plain`; ``len(pos)`` is a multiple of BLK and
-    ``base`` holds one int32 per block."""
+    ``base`` holds one int32 per block.  On the card: the window entry that
+    :class:`LerpReader` reads through, over the whole output into device
+    memory."""
     if y.device.type == "cpu":
         return resample_lerp_plain(y, pos, base, rows)
     dev = _build.cuda_device(y)
     n_out = pos.shape[0]
-    if n_out % BLK != 0 or rows < 1:
-        raise ValueError(f"n_out {n_out} (a multiple of {BLK}), rows {rows}")
+    if n_out % BLK != 0 or n_out >= 1 << 31 or rows < 1:
+        raise ValueError(f"n_out {n_out} (a multiple of {BLK} under 2^31), "
+                         f"rows {rows}")
     if y.shape[0] == 0:
         raise ValueError("empty source")
     _build.require(y, "y", torch.float32, (y.shape[0],), dev)
     _build.require(pos, "pos", torch.float32, (n_out,), dev)
     _build.require(base, "base", torch.int32, (n_out // BLK,), dev)
     out = torch.empty((n_out,), dtype=torch.float32, device=dev)
+    if n_out == 0:
+        return out
     lib = _build.library()
     with torch.cuda.device(dev):
-        err = lib.mlx_resample_lerp(y.data_ptr(), y.shape[0], pos.data_ptr(),
-                                    base.data_ptr(), out.data_ptr(), n_out,
-                                    int(rows), _build.stream(dev))
+        err = lib.mlx_resample_lerp_window(
+            y.data_ptr(), y.shape[0], pos.data_ptr(), base.data_ptr(), 0,
+            n_out, int(rows), out.data_ptr(), 0, _build.stream(dev))
     _build.check("resample_lerp", err)
     resample_lerp.launches += 1
     return out
 
 
 resample_lerp.launches = 0
+
+
+def _pinned(n: int) -> torch.Tensor:
+    return torch.empty((n,), dtype=torch.float32, pin_memory=True)
+
+
+class LerpReader:
+    """B11 for one stream: the operands of :func:`resample_lerp_plain` over
+    the whole padded output (``y``, ``pos``, ``base``, ``rows``), checked
+    once.  :meth:`read` computes exactly the samples [j, j + n) with one
+    launch of ``mlx_resample_lerp_window`` into a page-locked host buffer
+    mapped into the card's address space, waits for it, and returns them;
+    each sample is :func:`resample_lerp_plain`'s over the covering blocks,
+    bit for bit.  The launch goes on the device's current stream, so it
+    follows whatever the caller queued there; where another card is current,
+    the read makes the reader's card current for its launch.  Launches count
+    on ``resample_lerp.launches``.  CUDA only: other tensors raise.
+    """
+
+    def __init__(self, y, pos, base, rows: int):
+        n_out = pos.shape[0] if pos.dim() == 1 else -1
+        if n_out % BLK != 0 or y.dim() != 1 or y.shape[0] == 0:
+            raise ValueError(f"positions {tuple(pos.shape)} (a multiple of "
+                             f"{BLK}), source {tuple(y.shape)} (not empty)")
+        if not 1 <= rows <= (2**31 + 1) // 128:
+            raise ValueError(f"rows {rows}: rows * 128 - 2 must fit int32")
+        _build.require(y, "y", torch.float32, (y.shape[0],), y.device)
+        _build.require(pos, "pos", torch.float32, (n_out,), y.device)
+        _build.require(base, "base", torch.int32, (n_out // BLK,), y.device)
+        self.device = _build.cuda_device(y)
+        self._index = (torch.cuda.current_device() if self.device.index is None
+                       else self.device.index)
+        self.n_out = n_out
+        self._ops = (y, pos, base)  # keeps the addresses alive
+        self._args = (y.data_ptr(), y.shape[0], pos.data_ptr(),
+                      base.data_ptr())
+        self._rows = int(rows)
+        self._lib = _build.library()
+        self._host = self._host_np = None
+        self._host_ptr = 0
+
+    def _buffer(self, n: int) -> None:
+        """Grow the mapped host buffer to the next power of two >= n."""
+        if self._host is not None and self._host.shape[0] >= n:
+            return
+        if self._host is not None:  # a launch may still write the old one
+            torch.cuda.current_stream(self.device).synchronize()
+        self._host = _pinned(1 << (max(n, BLK) - 1).bit_length())
+        self._host_np = self._host.numpy()
+        self._host_ptr = _build.host_device_pointer(self._host)
+
+    def launch(self, j: int, n: int, wait: bool = False) -> None:
+        """Queue samples [j, j + n) into the host buffer; ``wait`` returns
+        once they are there."""
+        if not (0 <= j and 0 < n and j + n <= self.n_out):
+            raise ValueError(f"window [{j}, {j + n}) outside [0, "
+                             f"{self.n_out})")
+        if torch.cuda.current_device() != self._index:
+            with torch.cuda.device(self._index):
+                return self.launch(j, n, wait)
+        self._buffer(n)
+        err = self._lib.mlx_resample_lerp_window(
+            *self._args, j, n, self._rows, self._host_ptr, int(wait),
+            _build.stream(self.device))
+        _build.check("resample_lerp_window", err)
+        resample_lerp.launches += 1
+
+    def read(self, j: int, n: int) -> np.ndarray:
+        """Samples [j, j + n) as a view of the host buffer, valid until the
+        next launch."""
+        self.launch(j, n, wait=True)
+        return self._host_np[:n]
