@@ -25,9 +25,7 @@ the stream against the offline render, the first buffer after an edit
 against the bent pitch, each path against its all-plain run), shows that
 each run went through every kernel of its path, and times kernels, twins,
 one-PyTorch-call yardsticks and paths beside each kernel's bound (the
-launch-bound kernels also as one CUDA graph, the device alone; B4 and B11,
-the PV render's tail and the live read, also against their routes before
-their redesign, built from a copy of the old B4 kept here, in turns).  Any
+launch-bound kernels also as one CUDA graph, the device alone).  Any
 failed check raises: the script then exits non-zero and prints no result.
 The last line of standard output is
 
@@ -319,207 +317,6 @@ def host_ms(fn, reps: int = REPS) -> float:
     return float(np.median(times))
 
 
-# B4 as it stood before its redesign (one thread per output sample, each
-# scanning its block's anchors in global memory), built beside the kernels
-# so phase 22 times the old kernel and its old host path against the new in
-# turns on one card.
-LEGACY_B4_SOURCE = r"""
-#include <cuda_runtime.h>
-
-namespace {
-
-constexpr int kBlk = 2048;
-constexpr float kLn2Over12 = 0.057762265046662105f;  // ln(2) / 12
-
-__global__ void resample_pv_kernel(
-    const float* __restrict__ y, long long n_src,
-    const int* __restrict__ base, const int* __restrict__ a0,
-    const int* __restrict__ cnt, const int* __restrict__ anc_j,
-    const float* __restrict__ anc_src, const float* __restrict__ anc_r,
-    const float* __restrict__ anc_s, int n_anc, float* __restrict__ out,
-    long long n_out, int sr) {
-  const long long jl = static_cast<long long>(blockIdx.x) * blockDim.x +
-                       threadIdx.x;
-  if (jl >= n_out) return;
-  const int j = static_cast<int>(jl);
-  const int b = j / kBlk;
-  const int first = a0[b];
-  const int count = cnt[b];
-  int sel = -1;
-  for (int k = 0; k < count; ++k) {
-    const int a = min(first + k, n_anc - 1);
-    if (anc_j[a] <= j) sel = a;  // ascending: the last one wins
-  }
-  float pos = 0.0f;
-  if (sel >= 0) {
-    const float srf = static_cast<float>(sr);
-    const float s = anc_s[sel];
-    const float dt = static_cast<float>(j - anc_j[sel]) / srf;
-    const float x = s * dt * kLn2Over12;
-    const float em1 = expm1f(x);
-    const bool flat = fabsf(s) < 1e-9f;
-    const float delta_p = flat ? dt : em1 / ((flat ? 1.0f : s) * kLn2Over12);
-    pos = anc_src[sel] + anc_r[sel] * (delta_p * srf - em1);
-  }
-  pos = fmaxf(pos, 0.0f);
-  const float fl = floorf(pos);
-  const float frac = pos - fl;
-  const long long i0 = static_cast<long long>(base[b]) +
-                       static_cast<long long>(fl);
-  const long long lo = min(max(i0, 0LL), n_src - 1);
-  const long long hi = min(max(i0 + 1, 0LL), n_src - 1);
-  out[jl] = (1.0f - frac) * y[lo] + frac * y[hi];
-}
-
-}  // namespace
-
-extern "C" int mlx_resample_pv_legacy(const float* y, long long n_src,
-                                      const int* base, const int* a0,
-                                      const int* cnt, const int* anc_j,
-                                      const float* anc_src,
-                                      const float* anc_r,
-                                      const float* anc_s, int n_anc,
-                                      float* out, long long n_out, int sr,
-                                      cudaStream_t stream) {
-  if (n_out <= 0) return static_cast<int>(cudaGetLastError());
-  if (n_src <= 0 || n_anc <= 0 || n_out % kBlk != 0 || n_out > 0x7fffffffLL) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const int threads = 256;
-  resample_pv_kernel<<<static_cast<unsigned>((n_out + threads - 1) / threads),
-                       threads, 0, stream>>>(y, n_src, base, a0, cnt, anc_j,
-                                             anc_src, anc_r, anc_s, n_anc,
-                                             out, n_out, sr);
-  return static_cast<int>(cudaGetLastError());
-}
-"""
-
-
-def start_legacy_build(_build):
-    """Start ``nvcc`` on LEGACY_B4_SOURCE (beside the kernels' own build):
-    (process, library path)."""
-    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    src = _build.BUILD_DIR / "legacy_resample_pv.cu"
-    src.write_text(LEGACY_B4_SOURCE)
-    lib = _build.BUILD_DIR / "liblegacy_resample_pv.so"
-    cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-shared", "-o", str(lib),
-           str(src)]
-    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True), lib
-
-
-def load_legacy(proc, path, _build):
-    """Wait for the legacy build and load its library (raises on failure):
-    (library, its ptxas report)."""
-    import ctypes
-
-    out = proc.communicate()[0]
-    check(proc.returncode == 0, f"legacy B4 build failed:\n{out}")
-    lib = ctypes.CDLL(str(path))
-    lib.mlx_resample_pv_legacy.argtypes = _build.SIGNATURES["mlx_resample_pv"]
-    lib.mlx_resample_pv_legacy.restype = ctypes.c_int
-    return lib, [ln.strip() for ln in out.splitlines()
-                 if "registers" in ln or "spill" in ln]
-
-
-def legacy_stream(dev) -> int:
-    """The current stream as the wrappers read it before the redesign,
-    through a ``torch.cuda.Stream`` object."""
-    import torch
-
-    return torch.cuda.current_stream(dev).cuda_stream
-
-
-def legacy_resample_lerp(_build, y, pos, base, rows: int):
-    """The old ``kres.resample_lerp`` host path (three operand checks, the
-    output's allocation, the stream object) on B11's entry over the whole
-    of ``pos`` into device memory: the old kernel's launch (one thread a
-    sample of the covering blocks, the same per-sample body)."""
-    import torch
-
-    dev = _build.cuda_device(y)
-    n_out = pos.shape[0]
-    _build.require(y, "y", torch.float32, (y.shape[0],), dev)
-    _build.require(pos, "pos", torch.float32, (n_out,), dev)
-    _build.require(base, "base", torch.int32, (n_out // 2048,), dev)
-    out = torch.empty((n_out,), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        err = _build.library().mlx_resample_lerp_window(
-            y.data_ptr(), y.shape[0], pos.data_ptr(), base.data_ptr(), 0,
-            n_out, int(rows), out.data_ptr(), 0, legacy_stream(dev))
-    _build.check("legacy resample_lerp", err)
-    return out
-
-
-def legacy_resample_pv(lib, _build, y, base, a0, cnt, anc_j, anc_src, anc_r,
-                       anc_s, sr: int, n_out: int):
-    """The old ``kres.resample_pv`` on the old kernel: seven operand checks,
-    the output's allocation, the stream object, the launch."""
-    import torch
-
-    dev = _build.cuda_device(y)
-    nb, n_anc = n_out // 2048, anc_j.shape[0]
-    _build.require(y, "y", torch.float32, (y.shape[0],), dev)
-    for name, t in (("base", base), ("a0", a0), ("cnt", cnt)):
-        _build.require(t, name, torch.int32, (nb,), dev)
-    _build.require(anc_j, "anc_j", torch.int32, (n_anc,), dev)
-    for name, t in (("anc_src", anc_src), ("anc_r", anc_r), ("anc_s", anc_s)):
-        _build.require(t, name, torch.float32, (n_anc,), dev)
-    out = torch.empty((n_out,), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        err = lib.mlx_resample_pv_legacy(
-            y.data_ptr(), y.shape[0], base.data_ptr(), a0.data_ptr(),
-            cnt.data_ptr(), anc_j.data_ptr(), anc_src.data_ptr(),
-            anc_r.data_ptr(), anc_s.data_ptr(), n_anc, out.data_ptr(), n_out,
-            int(sr), legacy_stream(dev))
-    _build.check("legacy resample_pv", err)
-    return out
-
-
-@contextlib.contextmanager
-def legacy_routes(lib, _build, kres, pv, pvs):
-    """The PV render's tail and the stream's read as they stood before
-    B4's and B11's redesign: seven pageable uploads and the old B4 kernel;
-    B11 over the covering blocks into device memory, then a pageable copy;
-    both wrappers as they were.  Restores the new routes on exit."""
-    import torch
-
-    def fused(plan, y):
-        anc_j_p, src_f, r_f, s_f, n_real = plan.anc_np
-        nb = plan.n_out_pad // kres.BLK
-        a0, cnt, _kmax = kres.pv_anchor_blocks(anc_j_p[:n_real], nb)
-
-        def put(a):
-            return torch.from_numpy(np.ascontiguousarray(a)).to(y.device)
-
-        return legacy_resample_pv(
-            lib, _build, y, put(plan.base), put(a0), put(cnt),
-            put(anc_j_p[:n_real]), put(src_f[:n_real]), put(r_f[:n_real]),
-            put(s_f[:n_real]), plan.sr, plan.n_out_pad)
-
-    def read(self, n):
-        out = np.zeros(n, np.float32)
-        if self.exhausted:
-            return out
-        blk, j = self._blk, self._j
-        hi = min(j + n, self.n_out)
-        b0, b1 = j // blk, -(-hi // blk)
-        self._advance_to(self._src(float(hi)) + 2.0)
-        got = legacy_resample_lerp(_build, self._y_norm,
-                                   self._pos[b0 * blk : b1 * blk],
-                                   self._base[b0:b1], self._rows)
-        out[: hi - j] = got[j - b0 * blk : hi - b0 * blk].cpu().numpy()
-        self._j = hi
-        return out
-
-    saved = (pv._resample_pv_fused, pvs.PvStream.read)
-    pv._resample_pv_fused, pvs.PvStream.read = fused, read
-    try:
-        yield
-    finally:
-        pv._resample_pv_fused, pvs.PvStream.read = saved
-
-
 def graph_ms(fn, reps: int = REPS, inner: int = KERNEL_INNER) -> float:
     """Device time of one ``fn()``: ``inner`` calls back to back captured
     into one CUDA graph, replayed between two events (median of ``reps``
@@ -548,13 +345,6 @@ def graph_ms(fn, reps: int = REPS, inner: int = KERNEL_INNER) -> float:
     return float(np.median(times))
 
 
-def in_turns(old, new, timer) -> tuple[float, float, list]:
-    """``timer`` of two callables in turns (old, new, new, old): the means
-    and the four readings."""
-    t = [timer(fn) for fn in (old, new, new, old)]
-    return (t[0] + t[3]) / 2, (t[1] + t[2]) / 2, t
-
-
 @contextlib.contextmanager
 def plain_twins(kpv, kres, krender, kcols, kstft, kpitch, kframes):
     """Route the main paths through the plain twins (for the all-plain
@@ -575,7 +365,7 @@ def plain_twins(kpv, kres, krender, kcols, kstft, kpitch, kframes):
             return got[j - b0 * blk : j + n - b0 * blk].cpu().numpy()
 
     saved = (kpv.stft_mag, kpv.analysis, kpv.synth_ola_phase,
-             kres.resample_pv, krender.render_steps, krender.compact,
+             kres.resample_pv, krender.render_granular,
              kcols.spectrogram_columns_fused, kstft.stft_mag, kpitch.pitch_ac,
              kframes.extract_frames, kres.resample_lerp, kres.LerpReader)
     kframes.extract_frames = kframes.extract_frames_plain
@@ -590,16 +380,15 @@ def plain_twins(kpv, kres, krender, kcols, kstft, kpitch, kframes):
     kres.resample_pv = (
         lambda y, base, a0, cnt, *rest: kres.resample_pv_plain(y, base, *rest)
     )
-    krender.render_steps = krender.render_steps_plain
-    krender.compact = (
-        lambda vals, off, a0, cnt, out_len: krender.compact_plain(vals, off,
-                                                                  out_len)
+    krender.render_granular = (
+        lambda wav, gs, rate, sz, off, a0, cnt, out_len, szmax:
+        krender.render_granular_plain(wav, gs, rate, sz, off, out_len, szmax)
     )
     try:
         yield
     finally:
         (kpv.stft_mag, kpv.analysis, kpv.synth_ola_phase,
-         kres.resample_pv, krender.render_steps, krender.compact,
+         kres.resample_pv, krender.render_granular,
          kcols.spectrogram_columns_fused, kstft.stft_mag,
          kpitch.pitch_ac, kframes.extract_frames, kres.resample_lerp,
          kres.LerpReader) = saved
@@ -1005,7 +794,6 @@ def main() -> int:
     sys.path.insert(0, root)
     import melonix_tpu_torch as mt
     from melonix_tpu_torch.engine import phase_vocoder as pv
-    from melonix_tpu_torch.engine import pv_stream as pvs
     from melonix_tpu_torch.engine import render as grender
     from melonix_tpu_torch.engine.spectral import (hann_window, num_frames,
                                                    view_column_ranges)
@@ -1046,15 +834,10 @@ def main() -> int:
 
     # -- 2. build -----------------------------------------------------
     t0 = time.perf_counter()
-    legacy_proc, legacy_path = start_legacy_build(_build)
     lib_path = _build.build()
     _build.library()
-    legacy_lib, legacy_ptxas = load_legacy(legacy_proc, legacy_path,
-                                           _build)
-    print(f"[2] built {lib_path} and the pre-redesign B4 {legacy_path.name} "
-          f"in {time.perf_counter() - t0:.1f} s", flush=True)
-    for line in legacy_ptxas:
-        print("    ptxas (pre-redesign B4):", line)
+    print(f"[2] built {lib_path} in {time.perf_counter() - t0:.1f} s",
+          flush=True)
     t0 = time.perf_counter()
     check(native.try_load() is not None, "native host runtime: no compiler")
     print(f"    native host runtime {native.BUILD_DIR / native.LIB_NAME} "
@@ -1290,21 +1073,15 @@ def main() -> int:
         y, base, a0_d, cnt_d, *anc, SR, plan.n_out_pad)
     b4p = lambda: kres.resample_pv_plain(  # noqa: E731
         y, base, *anc, SR, plan.n_out_pad)
-    b4_old = lambda: legacy_resample_pv(  # noqa: E731
-        legacy_lib, _build, y, base, a0_d, cnt_d, *anc, SR, plan.n_out_pad)
     got, want, again = b4(), b4p(), b4()
-    glue, old = pv._resample_pv_fused(plan, y), b4_old()
+    glue = pv._resample_pv_fused(plan, y)
     torch.cuda.synchronize()
     s, e = snr_db(got, want), max_err(got, want)
-    s_old, e_old = snr_db(old, want), max_err(old, want)
     print(f"    B4 resample_pv (expm1f) vs twin (expm1_precise) on the song: "
           f"SNR {s:.1f} dB (bar < -60), max abs err {e:.3e} (bar 5e-3), kmax "
           f"{kmax} anchors a block; two calls bit-equal "
           f"{torch.equal(got, again)}, through the render's packed upload "
-          f"bit-equal {torch.equal(got, glue)} (bars: equal); the "
-          f"pre-redesign kernel vs twin SNR {s_old:.1f} dB, max abs err "
-          f"{e_old:.3e}, vs the new max abs err {max_err(got, old):.3e}",
-          flush=True)
+          f"bit-equal {torch.equal(got, glue)} (bars: equal)", flush=True)
     check(got.shape == (plan.n_out_pad,) and s < -60.0 and e < 5e-3,
           "B4 vs twin")
     check(torch.equal(got, again) and torch.equal(got, glue),
@@ -1312,7 +1089,7 @@ def main() -> int:
     record("resample_pv", "melonix_tpu_torch/csrc/resample_pv.cu",
            "melonix_tpu/kernels/pallas_resample.py:202", e, b4, b4p, None,
            nbytes(y, base, a0_d, cnt_d, *anc, got), 0.0, fn_graph=b4)
-    del again, glue, old
+    del again, glue
 
     # expm1f (used by B4) vs the Horner expm1_precise, both against float64
     xs = torch.linspace(-0.7, 0.7, 1 << 20, device=dev)
@@ -1408,7 +1185,8 @@ def main() -> int:
     t_fix = time.perf_counter() - t0
     gmax, szmax = krender._buckets(gplan)
     offs = gplan.out_offset[:-1]
-    a0g, cntg, kmax_g = krender.compact_blocks(offs, -(-total // krender.CBLK))
+    _a0, _cnt, kmax_g = krender.compact_blocks(offs,
+                                               -(-total // krender.CBLK))
     n_fix = int((fix_idx < total).sum())
     print(f"[6] granular host: grains {len(table)} (native {1e3 * t_grains:.2f}"
           f" ms, NumPy {1e3 * t_grains_np:.1f} ms, equal), plan steps "
@@ -1417,50 +1195,77 @@ def main() -> int:
           f"gmax {gmax} szmax {szmax}, compact kmax {kmax_g}, seam fixes "
           f"{n_fix} ({1e3 * t_fix:.2f} ms)", flush=True)
 
-    # -- 7. B5 and B6 against their twins, bit for bit ----------------
-    gs_d = put(gplan.grain_start.astype(np.int32))
-    rate_d = put(gplan.rate.astype(np.float32))
-    sz_d = put(gplan.sz.astype(np.int32))
-    off_d = put(offs.astype(np.int32))
-    a0g_d, cntg_d = put(a0g), put(cntg)
-    b5 = lambda: krender.render_steps(wav, gs_d, rate_d, sz_d, szmax)  # noqa: E731
-    b5p = lambda: krender.render_steps_plain(  # noqa: E731
-        wav, gs_d, rate_d, sz_d, szmax)
-    vals_k, vals_p = b5(), b5p()
-    torch.cuda.synchronize()
-    e = max_err(vals_k, vals_p)
-    print(f"[7] B5 render_steps ({gplan.n_steps} x {szmax}): equal "
-          f"{torch.equal(vals_k, vals_p)}, max abs err {e:.3e} (bar: equal)",
-          flush=True)
-    check(vals_k.shape == (gplan.n_steps, szmax) and torch.equal(vals_k, vals_p),
-          "B5 vs twin")
-    # B5 reads each step's grain span [gs, gs + sz * rate] (+1 lerp tap)
-    g_lo = gplan.grain_start.astype(np.int64)
-    g_hi = g_lo + np.ceil(gplan.sz * gplan.rate.astype(np.float64)) + 2
-    record("render_steps", "melonix_tpu_torch/csrc/render_steps.cu",
-           "melonix_tpu/kernels/pallas_render.py:108", e, b5, b5p, None,
-           4 * covered_len(g_lo, g_hi, n) + nbytes(gs_d, rate_d, sz_d, vals_k),
-           0.0, fn_graph=b5)
-    b6 = lambda: krender.compact(vals_k, off_d, a0g_d, cntg_d, total)  # noqa: E731
-    b6p = lambda: krender.compact_plain(vals_k, off_d, total)  # noqa: E731
-    got, want = b6(), b6p()
-    torch.cuda.synchronize()
-    e = max_err(got, want)
-    print(f"    B6 compact ({total} samples): equal {torch.equal(got, want)}, "
-          f"max abs err {e:.3e} (bar: equal)", flush=True)
-    check(got.shape == (total,) and torch.equal(got, want), "B6 vs twin")
-    # B6 reads one step value per output sample, writes the track once
-    record("compact", "melonix_tpu_torch/csrc/compact.cu",
-           "melonix_tpu/kernels/pallas_render.py:375", e, b6, b6p, None,
-           8 * total + nbytes(off_d, a0g_d, cntg_d), 0.0, fn_graph=b6)
-    del vals_p, got, want
+    # -- 7. B5 + B6, one kernel, against its twin and the two twins ----
+    # on the song's plan and on one with +-24 st bends (rates 0.25 to 4,
+    # a larger szmax, more candidates a block); the six plan and block
+    # arrays go up in one packed copy, as render_full sends them
+    bend_knots = mt.MapKnots.from_markers(
+        [mt.Marker(sample=int((i + 1) * n / 14), note=57.0, d_time=0.0,
+                   pitch_bend=24.0 * (-1) ** i) for i in range(12)], SR, n)
+
+    def granular_calls(ops, out_len, p_szmax):
+        """(kernel, twin) calls of one plan's packed operands."""
+        gs_, sz_, off_, a0_, cnt_, rate_ = ops
+        return (lambda: krender.render_granular(wav, gs_, rate_, sz_, off_,
+                                                a0_, cnt_, out_len, p_szmax),
+                lambda: krender.render_granular_plain(wav, gs_, rate_, sz_,
+                                                      off_, out_len, p_szmax))
+
+    for label, p in (("the song's plan", gplan),
+                     ("a plan with +-24 st bends",
+                      mt.build_render_plan(table, bend_knots))):
+        p_offs, p_total = p.out_offset[:-1], p.total_out
+        _g, p_szmax = krender._buckets(p)
+        p_a0, p_cnt, p_kmax = krender.compact_blocks(
+            p_offs, -(-p_total // krender.CBLK))
+        ops = _build.upload_packed(
+            (p.grain_start, p.sz, p_offs, p_a0, p_cnt), (p.rate,), dev)
+        gs_d, sz_d, off_d, _a0, _cnt, rate_d = ops
+        b56, b56p = granular_calls(ops, p_total, p_szmax)
+        got, again, want = b56(), b56(), b56p()
+        pair = krender.compact_plain(krender.render_steps_plain(
+            wav, gs_d, rate_d, sz_d, p_szmax), off_d, p_total)
+        torch.cuda.synchronize()
+        e = max_err(got, want)
+        print(f"[7] B5 + B6 render_granular, {label} ({p.n_steps} steps, "
+              f"rates {float(p.rate.min()):.4f}-{float(p.rate.max()):.4f}, "
+              f"szmax {p_szmax}, kmax {p_kmax} steps a block, {p_total} "
+              f"samples): equal to its twin {torch.equal(got, want)}, to "
+              f"compact_plain(render_steps_plain) {torch.equal(got, pair)}, "
+              f"two calls {torch.equal(got, again)}; max abs err {e:.3e} "
+              f"(bars: equal)", flush=True)
+        check(got.shape == (p_total,) and torch.equal(got, want)
+              and torch.equal(got, pair) and torch.equal(got, again),
+              f"render_granular vs twins, {label}")
+        if p is gplan:
+            # the least it must move: each tap of the live outputs once,
+            # the track written once, the plan and block arrays read once
+            j_out = torch.arange(p_total, device=dev)
+            step = (torch.searchsorted(off_d.long(), j_out, right=True)
+                    - 1).clamp_min(0)
+            rel = j_out - off_d.long()[step]
+            live = (rel >= 0) & (rel < sz_d.long()[step].clamp_max(p_szmax))
+            src = (gs_d.long()[step]
+                   + torch.floor(rel.float() * rate_d[step]).long())[live]
+            taps = torch.cat([src, src + 1])
+            n_taps = int(torch.unique(taps[(taps >= 0) & (taps < n)]).numel())
+            record("render_granular",
+                   "melonix_tpu_torch/csrc/render_granular.cu",
+                   "melonix_tpu/kernels/pallas_render.py:108 + :375", e, b56,
+                   b56p, None, 4 * n_taps + nbytes(got, *ops), 0.0,
+                   fn_graph=b56)
+            print(f"    the bound's bytes: {n_taps} taps read, {p_total} "
+                  f"samples written, plan and blocks {nbytes(*ops)}",
+                  flush=True)
+            del j_out, step, rel, live, src, taps
+        del got, again, want, pair, ops
 
     # -- 8. the granular main path: render_track ----------------------
     def granular():
         tab = mt.build_grain_table(x)
         return mt.render_track(x, tab, knots, device=dev, device_out=True)
 
-    gcounters = (krender.render_steps, krender.compact)
+    gcounters = (krender.render_granular,)
     for fn in gcounters:
         fn.launches = 0
     torch.cuda.synchronize()
@@ -1501,14 +1306,14 @@ def main() -> int:
         src, dst = os.path.join(tmp, "in.wav"), os.path.join(tmp, "out.wav")
         clip = x[: 20 * SR]
         mt.write_wav(src, clip, SR, dtype="float32")
-        before = krender.render_steps.launches
+        before = krender.render_granular.launches
         check(cli_main(["render", src, "-o", dst, "--dtype", "float32"]) == 0,
               "CLI render")
         cli_out, _rate = mt.read_wav(dst)
         want = mt.render_track(clip, mt.build_grain_table(clip),
                                mt.MapKnots.from_markers([], SR, len(clip)),
                                device="cpu")
-        check(krender.render_steps.launches > before, "CLI ran no kernel")
+        check(krender.render_granular.launches > before, "CLI ran no kernel")
         check(np.array_equal(cli_out, want), "CLI (cuda) vs render_track (cpu)")
     print("    CLI render (granular, --device cuda by default) equals the CPU "
           "render_track bit for bit", flush=True)
@@ -2300,9 +2105,8 @@ def main() -> int:
           "B11 zero-copy read vs twin")
 
     # One 1024-sample read across a block boundary mid-song: the launcher
-    # alone (the row's kernel time), the whole read (launch, wait, copy),
-    # and the pre-redesign read (kres.resample_lerp over the two covering
-    # blocks into device memory, then a pageable copy) timed in phase 22
+    # alone (the row's kernel time) and the whole read (launch, wait, copy),
+    # timed in phase 22
     rd = strm._reader
     j_mid = (plan.n_out // 2) // kres.BLK * kres.BLK
     j_w = j_mid + kres.BLK - 512
@@ -2311,14 +2115,11 @@ def main() -> int:
     w0 = j_w - j_mid  # the window's offset in its two blocks
     b11 = lambda: rd.launch(j_w, 1024)  # noqa: E731
     b11_read = lambda: rd.read(j_w, 1024)  # noqa: E731
-    b11_old = lambda: legacy_resample_lerp(  # noqa: E731
-        _build, y_n, pos_r, base_r, rows_n)
-    b11_old_read = lambda: b11_old()[w0 : w0 + 1024].cpu().numpy()  # noqa: E731
     b11p = lambda: kres.resample_lerp_plain(  # noqa: E731
         y_n, pos_r, base_r, rows_n)[w0 : w0 + 1024]
     got_r, want_r = b11_read().copy(), b11p()
-    check(np.array_equal(got_r, want_r.cpu().numpy())
-          and np.array_equal(b11_old_read(), got_r), "B11 timed read vs twin")
+    check(np.array_equal(got_r, want_r.cpu().numpy()),
+          "B11 timed read vs twin")
     b11_full = lambda: kres.resample_lerp(y_n, pos_n, base_n, rows_n)  # noqa: E731
 
     def tap_bytes(pos_t, base_t):
@@ -2637,66 +2438,25 @@ def main() -> int:
               f"main path {r['launches']} (mean of {inner} "
               f"back-to-back calls) | {card}", flush=True)
 
-    # B4 and B11 against their routes before the redesign, in turns on this
-    # card (old, new, new, old): events around 10 back-to-back calls, and
-    # the same calls as one CUDA graph (the device alone)
+    # B4's render tail with its one packed upload; B11's whole read (launch,
+    # wait, samples in NumPy) and its whole padded output
     def k_ms(fn):
         return cuda_ms(fn, inner=KERNEL_INNER)
 
-    def old_glue():
-        with legacy_routes(legacy_lib, _build, kres, pv, pvs):
-            return pv._resample_pv_fused(plan, y)
-
     r4, r11 = rows["resample_pv"], rows["resample_lerp"]
-    r4["before_ms"], k_new, t_k = in_turns(b4_old, b4, k_ms)
-    r4["before_device_ms"], g_new, t_g = in_turns(b4_old, b4, graph_ms)
-    glue_old, glue_new, t_h = in_turns(old_glue,
-                                       lambda: pv._resample_pv_fused(plan, y),
-                                       k_ms)
-
-    def turns(vals):
-        return ", ".join(f"{v:.4f}" for v in vals)
-
-    print(f"[22] B4 before / after its redesign (means of the turns old, new, "
-          f"new, old): kernel {r4['before_ms']:.4f} / {k_new:.4f} ms "
-          f"({turns(t_k)}), device alone {r4['before_device_ms']:.4f} / "
-          f"{g_new:.4f} ms ({turns(t_g)}); the render's tail with its uploads "
-          f"(seven, then one) {glue_old:.4f} / {glue_new:.4f} ms "
-          f"({turns(t_h)}); bound {r4['bound_ms']:.4f} ms | {card}",
+    glue_ms = k_ms(lambda: pv._resample_pv_fused(plan, y))
+    print(f"[22] B4 the render's tail with its one upload {glue_ms:.4f} ms; "
+          f"kernel {r4['ms']:.4f} ms, bound {r4['bound_ms']:.4f} ms | {card}",
           flush=True)
-    r11["before_ms"], k_new, t_k = in_turns(b11_old, b11, k_ms)
-    r11["before_device_ms"], g_new, t_g = in_turns(b11_old, b11, graph_ms)
-    r11["before_read_ms"], r11["read_ms"], t_r = in_turns(b11_old_read,
-                                                         b11_read, k_ms)
+    r11["read_ms"] = k_ms(b11_read)
     r11["full_ms"] = k_ms(b11_full)
     r11["full_device_ms"] = graph_ms(b11_full)
-    print(f"[22] B11 a 1024-sample read before / after its redesign (means of "
-          f"the turns old, new, new, old): the launch {r11['before_ms']:.4f} "
-          f"/ {k_new:.4f} ms ({turns(t_k)}), device alone "
-          f"{r11['before_device_ms']:.4f} / {g_new:.4f} ms ({turns(t_g)}); "
-          f"the whole read (launch, wait, samples in NumPy) "
-          f"{r11['before_read_ms']:.4f} / {r11['read_ms']:.4f} ms "
-          f"({turns(t_r)}); over the whole padded output ({pos_n.shape[0]} "
-          f"samples) {r11['full_ms']:.4f} ms, device alone "
+    print(f"[22] B11 a 1024-sample read: the launch {r11['ms']:.4f} ms, the "
+          f"whole read (launch, wait, samples in NumPy) {r11['read_ms']:.4f} "
+          f"ms; over the whole padded output ({pos_n.shape[0]} samples) "
+          f"{r11['full_ms']:.4f} ms, device alone "
           f"{r11['full_device_ms']:.4f} ms, bound {r11['full_bound_ms']:.4f} "
           f"ms (bytes) | {card}", flush=True)
-
-    def old_pipeline():
-        with legacy_routes(legacy_lib, _build, kres, pv, pvs):
-            return pipeline()
-
-    def old_live_reads():
-        with legacy_routes(legacy_lib, _build, kres, pv, pvs):
-            live_reads()
-
-    m_old, m_new, t_m = in_turns(old_pipeline, pipeline, cuda_ms)
-    l_old, l_new, t_l = in_turns(old_live_reads, live_reads, cuda_ms)
-    print(f"[22] before / after B4's and B11's redesign (turns old, new, new, "
-          f"old; each a median of {REPS}): main path {m_old:.2f} / "
-          f"{m_new:.2f} ms (" + ", ".join(f"{v:.2f}" for v in t_m)
-          + f"); live, 200 reads of 1024 from a restart at 60 s "
-          f"{l_old:.2f} / {l_new:.2f} ms (" + ", ".join(f"{v:.2f}" for v in t_l)
-          + f") | {card}", flush=True)
     cumsum32_ms = cuda_ms(lambda: torch.cumsum(incr_sc, dim=0),
                           inner=KERNEL_INNER)
     print(f"[22] B3's phase scan yardsticks: torch.cumsum of the "
@@ -2732,7 +2492,7 @@ def main() -> int:
     g_fix_ms = host_ms(lambda: grender.seam_fixes(gplan, x, total))
     print(f"[22] granular path ({SECONDS:.0f} s): wall {g_wall_ms:.2f} ms = "
           f"host grains {g_grains_ms:.2f} + plan {g_plan_ms:.2f} + seam fixes "
-          f"{g_fix_ms:.2f} ms + device part (uploads, B5, B6, fixes) "
+          f"{g_fix_ms:.2f} ms + device part (uploads, B5 + B6, fixes) "
           f"{g_dev_ms:.3f} ms with the kernels, {g_dev_plain_ms:.3f} ms "
           f"all-plain | {card}", flush=True)
     path_ms = cuda_ms(pipeline)

@@ -16,9 +16,10 @@ is exhausted, then emits ``preferred_grain_size`` zeros.
   start, length, f32 rate, output span, seam index), and ``seam_fixes`` the
   exact values where the upper lerp tap is not ``wav[src + 1]``.  Copied
   from the JAX package.
-* **Execute (device)** — ``render`` runs kernel B5 (per-step grain lerp)
-  and B6 (block compact) on a CUDA tensor, their plain twins on a CPU
-  tensor, then scatters the seam fixes (``kernels/render.render_full``).
+* **Execute (device)** — ``render`` runs B5 (per-step grain lerp) and B6
+  (block compact) as one output-indexed kernel on a CUDA tensor, its plain
+  twin on a CPU tensor, then scatters the seam fixes
+  (``kernels/render.render_full``).
   ``render_device`` is an independent plain-torch formulation of the same
   output (one step lookup and two waveform gathers per output sample), used
   as a whole-path reference.  Rate arithmetic is float32 throughout and
@@ -310,11 +311,11 @@ def render(
     device=None,
     device_out: bool = False,
 ):
-    """Execute a RenderPlan: B5 → B6 → seam fixes on CUDA, their plain twins
-    on the CPU.  ``wav`` is a NumPy array or a tensor (see ``_operands`` for
-    the device); returns a float32 NumPy array, or the tensor on the render
-    device with ``device_out``.  An empty plan returns its ``total_out``
-    zeros without a launch."""
+    """Execute a RenderPlan: B5 + B6 (one kernel) → seam fixes on CUDA, the
+    plain twin on the CPU.  ``wav`` is a NumPy array or a tensor (see
+    ``_operands`` for the device); returns a float32 NumPy array, or the
+    tensor on the render device with ``device_out``.  An empty plan returns
+    its ``total_out`` zeros without a launch."""
     wav_np, wav_dev = _operands(wav, device)
     dev = wav_dev.device
     n_grain_out = int(plan.out_offset[-1]) if len(plan.out_offset) else 0

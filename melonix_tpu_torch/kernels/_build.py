@@ -25,6 +25,7 @@ import subprocess
 import threading
 from pathlib import Path
 
+import numpy as np
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -62,10 +63,10 @@ SIGNATURES = {
     # y, n_src, base, a0, cnt, anc_j, anc_src, anc_r, anc_s, n_anc,
     # out, n_out, sr, stream
     "mlx_resample_pv": (_P, _L, _P, _P, _P, _P, _P, _P, _P, _I, _P, _L, _I, _P),
-    # wav, n, gs, rate, sz, n_steps, szmax, out, stream
-    "mlx_render_steps": (_P, _L, _P, _P, _P, _I, _I, _P, _P),
-    # vals, n_steps, szmax, off, a0, cnt, out, out_len, stream
-    "mlx_compact": (_P, _I, _I, _P, _P, _P, _P, _I, _P),
+    # wav, n, gs, rate, sz, off, n_steps, a0, cnt, szmax, out, out_len,
+    # stream
+    "mlx_render_granular": (_P, _L, _P, _P, _P, _P, _I, _P, _P, _I, _P, _I,
+                            _P),
     # wav, n, win, tw, out, n_frames, size, hop, scale, stream
     "mlx_stft_mag_sizes": (_P, _L, _P, _P, _P, _I, _I, _I, _F, _P),
     "mlx_stft_mag_pair": (_P, _L, _P, _P, _P, _I, _I, _I, _F, _P),
@@ -208,6 +209,20 @@ def require(t, name: str, dtype, shape: tuple, device) -> None:
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
+
+
+def upload_packed(ints, floats, device) -> tuple:
+    """A kernel's small operands in one host-to-device copy: the int32
+    arrays ``ints`` and the float32 arrays ``floats`` (by their bits),
+    back to back in one int32 host array, uploaded to ``device``; returns
+    views of it in that order (int32, then float32)."""
+    ints = [np.asarray(a, np.int32) for a in ints]
+    floats = [np.ascontiguousarray(a, np.float32).view(np.int32)
+              for a in floats]
+    packed = torch.from_numpy(np.concatenate(ints + floats)).to(device)
+    views = torch.split(packed, [a.shape[0] for a in ints + floats])
+    return views[: len(ints)] + tuple(v.view(torch.float32)
+                                      for v in views[len(ints):])
 
 
 def host_device_pointer(t) -> int:

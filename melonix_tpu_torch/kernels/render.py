@@ -1,27 +1,30 @@
 """Granular render: kernels B5 (per-step grain lerp) and B6 (block compact),
-each beside its plain PyTorch twin.
+fused into one output-indexed CUDA kernel, beside their plain PyTorch twins.
 
-Counterpart of ``melonix_tpu/kernels/pallas_render.py``.  The render of a
-plan runs in two passes (``render_full``):
+Counterpart of ``melonix_tpu/kernels/pallas_render.py``.  The TPU render of
+a plan runs in two passes, each with its plain twin here:
 
-* B5 ``render_steps`` resamples each plan step's grain at ``i * rate`` with
-  a lerp into a step-major ``(S, szmax)`` float32 array, zero past the
-  step's ``sz``.  The upper tap is ``wav[src + 1]`` (zero at or past the
-  end of the track): across a grain boundary that is the next grain's first
-  sample, which is the reference's seam wherever grains tile.
-* B6 ``compact`` places the rows into the flat track at the plan's
-  ascending offsets, the last step covering a sample winning (each step's
-  zero tail is overwritten by its successor).
-* The host's seam fixes (``engine/render.seam_fixes``: warp jumps,
-  track-end grains) are scattered on top.
+* B5 (:func:`render_steps_plain`) resamples each plan step's grain at
+  ``i * rate`` with a lerp into a step-major ``(S, szmax)`` float32 array,
+  zero past the step's ``sz``.  The upper tap is ``wav[src + 1]`` (zero at
+  or past the end of the track): across a grain boundary that is the next
+  grain's first sample, which is the reference's seam wherever grains tile.
+* B6 (:func:`compact_plain`) places the rows into the flat track at the
+  plan's ascending offsets, the last step covering a sample winning (each
+  step's zero tail is overwritten by its successor).
 
-Both kernels are bit-exact against their twins, and the whole pass against
-``tests/oracle.py``: B5 rounds every operation as the oracle does (no FMA
-contraction), B6 only moves data.
+On the card one kernel computes both (:func:`render_granular`,
+``csrc/render_granular.cu``): each output sample finds its step and lerps
+its taps straight from the track, so the step-major array is never built;
+:func:`render_granular_plain` is its twin, output-indexed the same way and
+bit-equal to ``compact_plain(render_steps_plain(...))``.  The host's seam
+fixes (``engine/render.seam_fixes``: warp jumps, track-end grains) are
+scattered on top (:func:`render_full`).
 
-``render_steps`` and ``compact`` launch ``csrc/render_steps.cu`` and
-``csrc/compact.cu`` for CUDA tensors and run ``render_steps_plain`` and
-``compact_plain`` for CPU tensors.
+All of it is bit-exact against ``tests/oracle.py``: the lerp rounds every
+operation as the oracle does (no FMA contraction), the placement only moves
+data.  ``render_granular`` launches the kernel for CUDA tensors and runs
+its twin for CPU tensors.
 """
 
 from __future__ import annotations
@@ -81,34 +84,6 @@ def render_steps_plain(wav, gs, rate, sz, szmax: int) -> torch.Tensor:
     return torch.where(i[None, :] < sz[:, None], val, 0.0)
 
 
-def render_steps(wav, gs, rate, sz, szmax: int) -> torch.Tensor:
-    """B5 (``csrc/render_steps.cu``): contract of :func:`render_steps_plain`,
-    bit-exact."""
-    if wav.device.type == "cpu":
-        return render_steps_plain(wav, gs, rate, sz, szmax)
-    dev = _build.cuda_device(wav)
-    n_steps = gs.shape[0]
-    if n_steps == 0 or szmax <= 0:
-        raise ValueError(f"empty render: {n_steps} steps, szmax {szmax}")
-    _build.require(wav, "wav", torch.float32, (wav.shape[0],), dev)
-    _build.require(gs, "gs", torch.int32, (n_steps,), dev)
-    _build.require(rate, "rate", torch.float32, (n_steps,), dev)
-    _build.require(sz, "sz", torch.int32, (n_steps,), dev)
-    out = torch.empty((n_steps, szmax), dtype=torch.float32, device=dev)
-    lib = _build.library()
-    with torch.cuda.device(dev):
-        err = lib.mlx_render_steps(
-            wav.data_ptr(), wav.shape[0], gs.data_ptr(), rate.data_ptr(),
-            sz.data_ptr(), n_steps, szmax, out.data_ptr(), _build.stream(dev),
-        )
-    _build.check("render_steps", err)
-    render_steps.launches += 1
-    return out
-
-
-render_steps.launches = 0
-
-
 def compact_plain(vals, off, out_len: int) -> torch.Tensor:
     """(out_len,) float32: sample j takes ``vals[s, j - off[s]]`` from the
     last step s with ``off[s] <= j < off[s] + szmax``, 0 where none does
@@ -123,57 +98,95 @@ def compact_plain(vals, off, out_len: int) -> torch.Tensor:
     return torch.where(live, got, 0.0)
 
 
-def compact(vals, off, a0, cnt, out_len: int) -> torch.Tensor:
-    """B6 (``csrc/compact.cu``): contract of :func:`compact_plain`;
+def render_granular_plain(wav, gs, rate, sz, off, out_len: int,
+                          szmax: int) -> torch.Tensor:
+    """(out_len,) float32, output-indexed: sample j takes the last step s
+    with ``off[s] <= j`` (offsets ascend), ``rel = j - off[s]``, and is
+    :func:`render_steps_plain`'s row s at column rel if ``rel < min(sz[s],
+    szmax)``, else 0 (also where no step starts at or before j); taps
+    outside ``[0, len(wav))`` read 0.  Bit-equal to
+    ``compact_plain(render_steps_plain(...), off, out_len)`` without the
+    ``(S, szmax)`` array."""
+    dev = wav.device
+    n = wav.shape[0]
+    j = torch.arange(out_len, dtype=torch.int64, device=dev)
+    off64 = off.to(torch.int64)
+    s = (torch.searchsorted(off64, j, right=True) - 1).clamp_min(0)
+    rel = j - off64[s]
+    live = (rel >= 0) & (rel < sz.to(torch.int64)[s].clamp_max(szmax))
+    x = rel.to(torch.float32) * rate[s]
+    idx = torch.floor(x)
+    frac = x - idx
+    src = gs.to(torch.int64)[s] + idx.to(torch.int64)
+    wpad = torch.cat([wav, torch.zeros(1, dtype=wav.dtype, device=dev)])
+
+    def tap(i):
+        return wpad[torch.where((i >= 0) & (i < n), i, n)]
+
+    val = (1.0 - frac) * tap(src) + frac * tap(src + 1)
+    return torch.where(live, val, 0.0)
+
+
+def render_granular(wav, gs, rate, sz, off, a0, cnt, out_len: int,
+                    szmax: int) -> torch.Tensor:
+    """B5 + B6 (``csrc/render_granular.cu``): contract of
+    :func:`render_granular_plain` for int32 plans and ``out_len < 2^31``;
     ``a0``/``cnt`` (from :func:`compact_blocks`) give each 2048-sample
-    block's candidate steps."""
-    if vals.device.type == "cpu":
-        return compact_plain(vals, off, out_len)
-    dev = _build.cuda_device(vals)
-    if vals.dim() != 2 or vals.shape[0] == 0:
-        raise ValueError(f"vals must be (S >= 1, szmax), got {tuple(vals.shape)}")
-    n_steps, szmax = vals.shape
+    block's candidate steps, which its CTA stages in shared memory."""
+    if wav.device.type == "cpu":
+        return render_granular_plain(wav, gs, rate, sz, off, out_len, szmax)
+    dev = _build.cuda_device(wav)
+    n_steps = gs.shape[0]
+    if n_steps == 0 or szmax <= 0 or wav.shape[0] == 0:
+        raise ValueError(f"empty render: {n_steps} steps, szmax {szmax}, "
+                         f"track of {wav.shape[0]} samples")
     if not 0 < out_len < 2**31:
-        raise ValueError(f"out_len {out_len} outside int32 offsets")
+        raise ValueError(f"out_len {out_len} outside 1 to 2^31 - 1 "
+                         "(int32 offsets)")
     nb = -(-out_len // CBLK)
-    _build.require(vals, "vals", torch.float32, (n_steps, szmax), dev)
-    _build.require(off, "off", torch.int32, (n_steps,), dev)
+    _build.require(wav, "wav", torch.float32, (wav.shape[0],), dev)
+    for name, t in (("gs", gs), ("sz", sz), ("off", off)):
+        _build.require(t, name, torch.int32, (n_steps,), dev)
+    _build.require(rate, "rate", torch.float32, (n_steps,), dev)
     _build.require(a0, "a0", torch.int32, (nb,), dev)
     _build.require(cnt, "cnt", torch.int32, (nb,), dev)
     out = torch.empty((out_len,), dtype=torch.float32, device=dev)
     lib = _build.library()
     with torch.cuda.device(dev):
-        err = lib.mlx_compact(
-            vals.data_ptr(), n_steps, szmax, off.data_ptr(), a0.data_ptr(),
-            cnt.data_ptr(), out.data_ptr(), out_len, _build.stream(dev),
+        err = lib.mlx_render_granular(
+            wav.data_ptr(), wav.shape[0], gs.data_ptr(), rate.data_ptr(),
+            sz.data_ptr(), off.data_ptr(), n_steps, a0.data_ptr(),
+            cnt.data_ptr(), szmax, out.data_ptr(), out_len,
+            _build.stream(dev),
         )
-    _build.check("compact", err)
-    compact.launches += 1
+    _build.check("render_granular", err)
+    render_granular.launches += 1
     return out
 
 
-compact.launches = 0
+render_granular.launches = 0
 
 
 def render_full(wav, grain_start, rate, sz, offsets, out_len: int, fix_idx,
                 fix_val, szmax: int) -> torch.Tensor:
-    """(out_len,) render of a plan on ``wav``'s device: B5, then B6, then the
-    seam fixes ``out[fix_idx] = fix_val`` (indices at or past ``out_len``
-    dropped).  The plan arrays (``offsets`` = ``out_offset[:-1]``) and the
-    fixes are host NumPy; the block map is built here and everything is
-    uploaded once."""
-    dev = wav.device
+    """(out_len,) render of a plan on ``wav``'s device: :func:`render_granular`
+    (B5 + B6), then the seam fixes ``out[fix_idx] = fix_val`` (indices at or
+    past ``out_len`` dropped).  The plan arrays (``offsets`` =
+    ``out_offset[:-1]``) and the fixes are host NumPy; the block map is built
+    here, and the six plan and block arrays go up in one copy."""
     offsets = np.asarray(offsets, np.int64)
+    for name, a in (("grain_start", grain_start), ("offsets", offsets)):
+        a = np.asarray(a)
+        if a.size and (a.min() < -(2**31) or a.max() >= 2**31):
+            raise ValueError(f"{name} outside int32")
     a0, cnt, _kmax = compact_blocks(offsets, -(-out_len // CBLK))
-
-    def put(a, dtype):
-        return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(dev)
-
-    vals = render_steps(wav, put(grain_start, np.int32), put(rate, np.float32),
-                        put(sz, np.int32), szmax)
-    out = compact(vals, put(offsets, np.int32), put(a0, np.int32),
-                  put(cnt, np.int32), out_len)
+    gs_d, sz_d, off_d, a0_d, cnt_d, rate_d = _build.upload_packed(
+        (grain_start, sz, offsets, a0, cnt), (rate,), wav.device)
+    out = render_granular(wav, gs_d, rate_d, sz_d, off_d, a0_d, cnt_d,
+                          out_len, szmax)
     keep = np.asarray(fix_idx) < out_len
-    out[put(np.asarray(fix_idx)[keep], np.int64)] = put(
-        np.asarray(fix_val)[keep], np.float32)
+    idx = torch.from_numpy(np.asarray(fix_idx, np.int64)[keep])
+    val = torch.from_numpy(np.ascontiguousarray(np.asarray(fix_val)[keep],
+                                                np.float32))
+    out[idx.to(wav.device)] = val.to(wav.device)
     return out

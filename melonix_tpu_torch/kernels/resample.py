@@ -126,12 +126,8 @@ def upload_pv_operands(base, a0, cnt, anc_j, anc_src, anc_r, anc_s,
     sections by their bits) and uploaded to ``device`` in one copy: views
     of it in :func:`resample_pv`'s order (base, a0, cnt, anc_j int32;
     anc_src, anc_r, anc_s float32)."""
-    ints = [np.asarray(a, np.int32) for a in (base, a0, cnt, anc_j)]
-    floats = [np.ascontiguousarray(a, np.float32).view(np.int32)
-              for a in (anc_src, anc_r, anc_s)]
-    packed = torch.from_numpy(np.concatenate(ints + floats)).to(device)
-    views = torch.split(packed, [a.shape[0] for a in ints + floats])
-    return views[:4] + tuple(v.view(torch.float32) for v in views[4:])
+    return _build.upload_packed((base, a0, cnt, anc_j),
+                                (anc_src, anc_r, anc_s), device)
 
 
 def resample_pv(y, base, a0, cnt, anc_j, anc_src, anc_r, anc_s, sr: int,

@@ -161,7 +161,8 @@ def test_compact_blocks_equal_jax():
 
 
 # ----------------------------------------------------------------------
-# B5 / B6 twins against the TPU kernels (interpret mode)
+# B5 / B6 twins against the TPU kernels (interpret mode); on the card both
+# run as one kernel (tests/test_torch_render_granular.py)
 # ----------------------------------------------------------------------
 
 
@@ -191,9 +192,9 @@ def test_render_steps_plain_matches_tpu_kernel(name):
     assert (gmax, szmax) == pallas_render._buckets(plan)
     gs = plan.grain_start.astype(np.int32)
     sz = plan.sz.astype(np.int32)
-    got = krender.render_steps(torch.from_numpy(x), torch.from_numpy(gs),
-                               torch.from_numpy(plan.rate),
-                               torch.from_numpy(sz), szmax).numpy()
+    got = krender.render_steps_plain(torch.from_numpy(x), torch.from_numpy(gs),
+                                     torch.from_numpy(plan.rate),
+                                     torch.from_numpy(sz), szmax).numpy()
     # the TPU kernel's padded 128-lane layout (granular_render_pallas)
     g_rows = gmax // 128 + 2
     total = 128 * -(-(len(x) + gmax + g_rows * 128) // 128)
@@ -223,10 +224,9 @@ def test_compact_plain_matches_tpu_kernel_and_fori():
     vals = rng.standard_normal((n_steps, szmax)).astype(np.float32)
     nb = -(-out_len // krender.CBLK)
     a0, cnt, kmax = krender.compact_blocks(offsets, nb)
-    got = krender.compact(torch.from_numpy(vals),
-                          torch.from_numpy(offsets.astype(np.int32)),
-                          torch.from_numpy(a0), torch.from_numpy(cnt),
-                          out_len).numpy()
+    got = krender.compact_plain(torch.from_numpy(vals),
+                                torch.from_numpy(offsets.astype(np.int32)),
+                                out_len).numpy()
     fori = np.asarray(pallas_render._compact(
         jnp.asarray(vals), jnp.asarray(offsets, jnp.int32), out_len, szmax))
     kpow = max(1, 1 << (kmax - 1).bit_length())
@@ -238,14 +238,19 @@ def test_compact_plain_matches_tpu_kernel_and_fori():
 
 
 def test_render_wrappers_refuse_other_devices():
+    """B5 and B6 run on the card as one kernel (render_granular): its wrapper
+    refuses a ``meta`` tensor, as does the whole render, without a launch."""
     meta = torch.empty(4096, device="meta")
     i32 = torch.empty(3, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="no kernel"):
-        krender.render_steps(meta, i32, torch.empty(3, device="meta"), i32, 1024)
+        krender.render_granular(meta, i32, torch.empty(3, device="meta"), i32,
+                                i32, i32[:2], i32[:2], 4096, 1024)
     with pytest.raises(ValueError, match="no kernel"):
-        krender.compact(torch.empty((3, 1024), device="meta"), i32, i32, i32,
-                        2048)
-    assert krender.render_steps.launches == krender.compact.launches == 0
+        krender.render_full(meta, np.zeros(3, np.int32),
+                            np.ones(3, np.float32), np.ones(3, np.int32),
+                            np.arange(3), 2048, np.zeros(0, np.int64),
+                            np.zeros(0, np.float32), 1024)
+    assert krender.render_granular.launches == 0
 
 
 # ----------------------------------------------------------------------
@@ -271,8 +276,8 @@ def test_render_track_equals_oracle(chirp, case):
 
 @pytest.mark.parametrize("case", [1, 3])
 def test_render_device_equals_the_twin_pair(chirp, case):
-    """The plain two-gather ``render_device`` and the B5 -> B6 -> fixes
-    twins give the same track, bit for bit."""
+    """The plain two-gather ``render_device`` and the B5 + B6 twin -> fixes
+    give the same track, bit for bit."""
     x, sr = chirp
     _jk, pk = _knots(MARKER_CASES[case], sr, len(x))
     plan = mt.build_render_plan(mt.build_grain_table(x), pk)
@@ -290,10 +295,10 @@ def test_export_no_grains():
     table = mt.build_grain_table(x)
     assert len(table) == 0
     knots = mt.MapKnots.from_markers([], 8000, len(x))
-    launches = krender.render_steps.launches, krender.compact.launches
+    launches = krender.render_granular.launches
     out = mt.render_track(x, table, knots, device="cpu")
     assert out.shape == (1500,) and not out.any()
-    assert (krender.render_steps.launches, krender.compact.launches) == launches
+    assert krender.render_granular.launches == launches
 
 
 def test_streaming_plan_renders_the_full_prefix(chirp):

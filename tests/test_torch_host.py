@@ -205,8 +205,9 @@ def test_operand_checks():
 def test_kernel_sources_and_build_hash():
     names = {p.name for p in _build.sources()}
     assert {"fft_pair.cuh", "stft_mag.cu", "pv_analysis.cu",
-            "pv_synth_ola_phase.cu", "resample_pv.cu", "render_steps.cu",
-            "compact.cu", "pitch_ac.cu"} <= names
+            "pv_synth_ola_phase.cu", "resample_pv.cu", "render_granular.cu",
+            "pitch_ac.cu"} <= names
+    assert not {"render_steps.cu", "compact.cu"} & names  # B5 + B6: one kernel
     assert _build.source_hash() == _build.source_hash()
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     # every C entry point named in SIGNATURES is defined in some source

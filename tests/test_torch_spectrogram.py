@@ -88,11 +88,21 @@ def test_columns_plain_matches_tpu_kernel(colormap):
     (the quantisation bar of test_pallas.py:138-141)."""
     size, wav, starts, ends = _awkward_columns()
     k = 16384.0
+    # The twin runs first, on its own copies of the inputs and on one
+    # intra-op thread, before this test's JAX work: JAX may alias a
+    # 64-byte-aligned NumPy buffer, and the interpret-mode call may be the
+    # first computation (client start and compile) of the worker process.
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        got = kcols.spectrogram_columns_plain(
+            _t(wav.copy()), _t(starts.copy()), _t(ends.copy()), k,
+            size=size, colormap=colormap).numpy()
+    finally:
+        torch.set_num_threads(saved)
     want = np.asarray(pallas_columns.spectrogram_columns_fused(
         jnp.asarray(wav), jnp.asarray(starts), jnp.asarray(ends), k,
         size=size, colormap=colormap, interpret=True))
-    got = kcols.spectrogram_columns_plain(_t(wav), _t(starts), _t(ends), k,
-                                          size=size, colormap=colormap).numpy()
     assert got.shape == want.shape == (4, size // 2)
     assert got.dtype == want.dtype
     if colormap:
