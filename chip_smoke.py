@@ -2249,29 +2249,40 @@ def main() -> int:
     del got, want
 
     # -- 19. B7 and B12 above 49,152 points ---------------------------
-    # 65,536 points on fft_large.cuh's 2-CTA cluster; the four-step route at
-    # sizes it still takes (B7 50,176 = 1024 x 49, B12 98,304 = 3 x 2^15);
-    # B12 at 512 x 12,289 (an odd factor above 12,288): Bluestein columns;
-    # at 512 x 16,411 (N2 above 16,384): direct column sums, one frame pair
-    for big, way, name in ((65536, "large", "spectrogram_columns_65536"),
-                           (50176, "four_step",
-                            "spectrogram_columns_four_step_50176")):
+    # 65,536 points on fft_large.cuh's 2-CTA cluster; B7's other sizes, 1024
+    # j for j = 49 .. 63, on fft_mixed.cuh's 2-CTA cluster, every one held
+    # (50,176, 57,344 and 64,512 timed); B12's four-step route where it stays
+    # (98,304 = 3 x 2^15); its Bluestein columns on 2-CTA clusters (512 x
+    # 12,289) and on 4-CTA clusters (512 x 16,411, 16,385 and 32,749); the
+    # direct column sums above N2 = 32,768 (512 x 32,771), one call a rep
+    timed_b7 = {65536: "spectrogram_columns_65536",
+                50176: "spectrogram_columns_cluster_50176",
+                57344: "spectrogram_columns_cluster_57344",
+                64512: "spectrogram_columns_cluster_64512"}
+    for big in [65536] + [1024 * j for j in range(49, 64)]:
+        way = "large" if big == 65536 else "cluster"
         ends_b = np.linspace(big // 2, n - 1, 64).astype(np.int64)
         b7_check(big, way, "64 columns", ends_b - span, ends_b, 19)
         launches_b = b7_oracle(big, np.linspace(big, n - 1, 12).astype(
             np.int64), 19)
-        b7_row(name, big, ends_b - span, ends_b, launches_b)
+        if big in timed_b7:
+            b7_row(timed_b7[big], big, ends_b - span, ends_b, launches_b)
     for sz, hp, way, name in (
             (65536, 8192, "large", "stft_mag_sizes_large_65536"),
             (98304, 12288, "four_step", "stft_mag_sizes_four_step_98304")):
         b12_check(sz, hp, num_frames(n, sz, hp), way, name, 19)
-    odd = 512 * 12289  # N1 512, N2 12,289 (prime)
-    check(kstft.four_step_plan(odd) == (512, 12289), "B12 512 x 12,289 plan")
-    b12_check(odd, odd // 4, 2, "bluestein", "stft_mag_sizes_bluestein", 19)
-    odd = 512 * 16411  # N1 512, N2 16,411 (prime)
-    check(kstft.four_step_plan(odd) == (512, 16411), "B12 512 x 16,411 plan")
-    b12_check(odd, odd // 4, 2, "direct", "stft_mag_sizes_direct", 19)
-    rows["stft_mag_sizes_direct"]["inner"] = 1  # ~0.2 s a call
+    for n2, way, ctas, name in (
+            (12289, "bluestein", 2, "stft_mag_sizes_bluestein"),
+            (16411, "bluestein", 4, "stft_mag_sizes_bluestein_4cta"),
+            (16385, "bluestein", 4, "stft_mag_sizes_bluestein_4cta_16385"),
+            (32749, "bluestein", 4, "stft_mag_sizes_bluestein_4cta_32749"),
+            (32771, "direct", None, "stft_mag_sizes_direct")):
+        odd = 512 * n2  # N1 512, N2 prime
+        check(kstft.four_step_plan(odd) == (512, n2), f"B12 512 x {n2} plan")
+        check(ctas is None or kstft.bluestein_cluster(n2) == ctas,
+              f"B12 512 x {n2} cluster")
+        b12_check(odd, odd // 4, 2, way, name, 19)
+    rows["stft_mag_sizes_direct"]["inner"] = 1  # seconds a call
 
     # -- 20. two ranks on gloo, each on this card ----------------------
     with tempfile.TemporaryDirectory() as tmp:

@@ -97,6 +97,35 @@ def worker(root: str) -> dict:
                 render_full_ms=full_ms, render_full_peak_mb=peak_mb)
 
 
+def run_turns(script: str, other_root: str, label) -> tuple[str, dict]:
+    """Run ``script --worker ROOT`` once a turn, other, this, this, other
+    (this being ``script``'s own checkout), print each turn as ``label(side,
+    turn)`` beside the card, and return (the card's ``nvidia-smi`` name and
+    power limit, {side: [turn, turn]}); None for a turn that failed, after
+    printing its output."""
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    roots = {"other": os.path.abspath(other_root),
+             "this": os.path.dirname(os.path.abspath(script))}
+    got: dict[str, list[dict]] = {"other": [], "this": []}
+    for side in ("other", "this", "this", "other"):
+        out = subprocess.run(
+            [sys.executable, os.path.abspath(script), "--worker", roots[side]],
+            capture_output=True, text=True, timeout=600)
+        if out.returncode != 0:
+            print(out.stdout + out.stderr, file=sys.stderr)
+            return card, None
+        turn = json.loads(out.stdout.strip().splitlines()[-1])
+        got[side].append(turn)
+        print(f"{label(side, turn)} | {card}", flush=True)
+    return card, got
+
+
+KEYS = ("kernels_ms", "device_ms", "render_full_ms", "render_full_peak_mb")
+
+
 def main(argv) -> int:
     if len(argv) == 2 and argv[0] == "--worker":
         print(json.dumps(worker(os.path.abspath(argv[1]))))
@@ -104,30 +133,13 @@ def main(argv) -> int:
     if len(argv) != 1:
         print(__doc__, file=sys.stderr)
         return 2
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()[0]
-    roots = {"other": os.path.abspath(argv[0]), "this": HERE}
-    got: dict[str, list[dict]] = {"other": [], "this": []}
-    for side in ("other", "this", "this", "other"):
-        out = subprocess.run(
-            [sys.executable, os.path.abspath(__file__), "--worker",
-             roots[side]], capture_output=True, text=True, timeout=600)
-        if out.returncode != 0:
-            print(out.stdout + out.stderr, file=sys.stderr)
-            return 1
-        turn = json.loads(out.stdout.strip().splitlines()[-1])
-        got[side].append(turn)
-        print(f"{side} ({turn['route']}): " + ", ".join(
-            f"{k} {turn[k]:.4f}" for k in ("kernels_ms", "device_ms",
-                                            "render_full_ms",
-                                            "render_full_peak_mb"))
-              + f" | {card}", flush=True)
+    card, got = run_turns(__file__, argv[0], lambda side, turn: (
+        f"{side} ({turn['route']}): "
+        + ", ".join(f"{k} {turn[k]:.4f}" for k in KEYS)))
+    if got is None:
+        return 1
     for side, turns in got.items():
-        mean = {k: sum(t[k] for t in turns) / len(turns)
-                for k in ("kernels_ms", "device_ms", "render_full_ms",
-                          "render_full_peak_mb")}
+        mean = {k: sum(t[k] for t in turns) / len(turns) for k in KEYS}
         print(f"{side} mean of two turns ({turns[0]['route']}, "
               f"{turns[0]['steps']} steps, {turns[0]['samples']} samples): "
               + ", ".join(f"{k} {v:.4f}" for k, v in mean.items())

@@ -1,9 +1,10 @@
 // The real-input DFT of one N-point frame that no on-chip route takes, as a
-// four-step transform through a scratch buffer in device memory.  B7
-// (spectrogram_columns.cu) and B12 (stft_mag_sizes.cu) take it above 49,152
-// points at the sizes fft_large.cuh does not (a power of two above 65,536,
-// or any other size: 50,176 = 1024 * 49, 98,304 = 3 * 2^15); below that
-// both keep their one-block route.
+// four-step transform through a scratch buffer in device memory: B12
+// (stft_mag_sizes.cu) above 49,152 points at the sizes fft_large.cuh does
+// not take (a power of two above 65,536, or any other size: 98,304 = 3 *
+// 2^15, 512 * 16,411); below that B12 keeps its one-block route.  B7 takes
+// none of it: its sizes above 49,152 run on chip (fft_large.cuh at 65,536,
+// fft_mixed.cuh at the others).
 //
 // N = N1 * N2, N1 a power of two; sample x[n1 + N1*n2] (n1 < N1, n2 < N2).
 //   1. Columns, one block per (frame, n1): the real N2-point DFT of the
@@ -12,10 +13,10 @@
 //      column is real).  For N2 = 2^b * m (m odd) with b >= 2 and N2 <=
 //      kMaxColumn it is fft_real.cuh's one-block route in shared memory,
 //      4*N2 bytes.  Any other N2 (an odd factor of N above 12,288) takes
-//      Bluestein's chirp-z form up to kBluesteinMax (two columns a 2-CTA
-//      cluster, four_step_column_bluestein) and above it a direct sum over
-//      n2 per bin, the column passing through shared memory in tiles
-//      (four_step_direct).
+//      Bluestein's chirp-z form up to kBluesteinMax = 32,768 (two columns a
+//      cluster, four_step_column_bluestein: 2 CTAs up to N2 = 16,384, 4
+//      above) and above it a direct sum over n2 per bin, the column passing
+//      through shared memory in tiles (four_step_direct).
 //   2. Twiddles: Y[n1, k2] = W_N^(n1*k2) C[n1, k2], applied as step 3 reads.
 //   3. Rows, one block per (frame, k2), k2 < N2: the complex N1-point DFT
 //      over n1 (radix 2, bit-reversed input, 8*N1 bytes of shared memory)
@@ -26,10 +27,9 @@
 // j < N/2 for M = N (steps 2-3); for step 1, M = N2, j < N2/2 on the FFT
 // route and j < N2 (the whole circle: N2 may be odd) on the direct one; the
 // Bluestein route's table is kernels/stft.py:bluestein_table.  The direct
-// route costs N * N2 / 2 multiply-adds a frame, Bluestein's two 32,768-point
-// transforms per column pair.  Speed is not this route's aim: the columns
-// read strided samples and the rows write strided bins (each a sector per
-// value).
+// route costs N * N2 / 2 multiply-adds a frame, Bluestein's two L-point
+// transforms per column pair.  The FFT columns read strided samples and the
+// rows write strided bins (each a sector per value).
 #pragma once
 
 #include "fft_large.cuh"
@@ -145,72 +145,95 @@ __device__ __forceinline__ void four_step_column_direct(
   }
 }
 
-// Bluestein's form of step 1 (Large<16384> on a 2-CTA cluster, L = 32,768
-// points, N2 <= kBluesteinMax): the columns n1a and n1a + 1 as one complex
-// sequence z[n2] = x[n1a + N1 n2] + i x[n1a + 1 + N1 n2], its N2-point DFT
+// Bluestein's form of step 1 (Large<16384> on a cluster of C CTAs, L = C *
+// 16,384 points, C = bluestein_cluster(N2): 2 up to N2 = 16,384, 4 up to
+// kBluesteinMax): the columns n1a and n1a + 1 as one complex sequence z[n2]
+// = x[n1a + N1 n2] + i x[n1a + 1 + N1 n2], its N2-point DFT
 //   Z[k] = conj(b_k) sum_n (z_n conj(b_n)) b_(k-n),  b_n = e^(i pi n^2 / N2)
 // a circular convolution of length L >= 2 N2 - 1: the forward transform on
-// the cluster (CTA r the points 2m + r, then the cross-CTA radix-2 step),
-// the product with the chirp's spectrum (scaled by 1 / L) in registers, and
-// the inverse by decimation in frequency (CTA 0 sums P[n] + P[n + L/2] and
-// transforms to the even outputs, CTA 1 the twiddled differences to the odd
-// ones).  The two real columns come apart by Hermitian symmetry,
-// C_a[k] = (Z[k] + conj Z[N2-k]) / 2, C_b[k] = (Z[k] - conj Z[N2-k]) / 2i,
-// for k <= N2 / 2, written to the scratch rows as one 16-byte store (n1a is
-// even).  `tab` is kernels/stft.py:bluestein_table(N2): b_n (n < N2), the
-// spectrum (L), Large<L/2>'s pass table, W_L^k (k < L/2).  `load(n)` is the
-// windowed pair (x[n1a + N1 n], x[n1a + 1 + N1 n]).  Every thread of both
-// CTAs calls it; `buf` holds Large<16384>::kSmem bytes.
-constexpr int kBluesteinL = 32768;
-constexpr int kBluesteinMax = kBluesteinL / 2;
+// the cluster (CTA r the points C m + r, then the cross-CTA radix-C step),
+// whose epilogue multiplies by the chirp's spectrum (scaled by 1 / L), and
+// the inverse by decimation in frequency (CTA q sums the C parts of P,
+// P[n + j L / C] on CTA j, twiddled by W_C^(-q j), times W_L^(-q n), and
+// transforms to the outputs C m + q).  The two real columns come apart by
+// Hermitian symmetry, C_a[k] = (Z[k] + conj Z[N2-k]) / 2, C_b[k] = (Z[k] -
+// conj Z[N2-k]) / 2i, for k <= N2 / 2, written to the scratch rows as one
+// 16-byte store (n1a is even).  `tab` is kernels/stft.py:bluestein_table(N2)
+// (BluesteinPlan<C>): b_n (n < N2), the spectrum (L), Large<16384>'s pass
+// table, the cluster step's C - 1 rows W_L^(r k) (k < 16,384).  `load(n)`
+// is the windowed pair (x[n1a + N1 n], x[n1a + 1 + N1 n]).  Every thread of
+// the cluster calls it; `buf` holds Large<16384>::kSmem bytes.
+constexpr int kBluesteinM = 16384;  // points a CTA transforms: Large<16384>
+constexpr int kBluesteinMax = 2 * kBluesteinM;  // 4 CTAs: 2 N2 - 1 <= 65,536
 
-template <class Load>
+// The cluster Bluestein takes for an N2-point column: 2 CTAs (L = 32,768)
+// up to N2 = 16,384, 4 (L = 65,536) above (kernels/stft.py:bluestein_cluster).
+__host__ __device__ constexpr int bluestein_cluster(int n2) {
+  return n2 <= kBluesteinM ? 2 : 4;
+}
+
+template <int C>
+struct BluesteinPlan {
+  static constexpr int kL = C * kBluesteinM;  // the convolution's length
+  // table offsets past the chirp's N2 entries
+  static constexpr int kSpec = 0, kTw = kL;
+  static constexpr int kMid = kTw + large::Large<kBluesteinM>::kTwiddles;
+  static constexpr int kTable = kMid + (C - 1) * kBluesteinM;
+};
+
+template <int C, class Load>
 __device__ __forceinline__ void four_step_column_bluestein(
     float2* buf, const FourStep& f, const float2* __restrict__ tab, int n1a,
     Load load, float2* __restrict__ c) {
   namespace cg = cooperative_groups;
-  constexpr int H = kBluesteinL / 2, T = large::Large<H>::kThreads;
+  using BP = BluesteinPlan<C>;
+  constexpr int H = kBluesteinM, T = large::Large<H>::kThreads;
   const cg::cluster_group cl = cg::this_cluster();
-  const int r = static_cast<int>(cl.block_rank()), t = threadIdx.x;
+  const int q = static_cast<int>(cl.block_rank()), t = threadIdx.x;
   const int n2 = f.n2;
   const float2* chirp = tab;
-  const float2* spec = tab + n2;
-  const float2* tw = spec + kBluesteinL;
-  const float2* mid = tw + large::Large<H>::kTwiddles;
-  // forward: a_n = z_n conj(b_n), zero from N2 on
-  large::fft_cluster<H>(
+  const float2* spec = tab + n2 + BP::kSpec;
+  const float2* tw = tab + n2 + BP::kTw;
+  const float2* mid = tab + n2 + BP::kMid;
+  // forward: a_n = z_n conj(b_n), zero from N2 on; P[k + q H] = A[k + q H]
+  // times the spectrum, in place
+  large::fft_cluster<H, C>(
       [&](int n) {
         return n < n2 ? pairfft::ctw(load(n), __ldg(chirp + n), -1.0f)
                       : make_float2(0.0f, 0.0f);
       },
-      buf, tw, mid, -1.0f, cl);
-  const float2* peer = cl.map_shared_rank(buf, r ^ 1);
-  // P[k + r H] = A[k + r H] * spectrum, in place
-  for (int k = t; k < H; k += T) {
-    buf[k] = pairfft::ctw(buf[k], __ldg(spec + k + r * H), 1.0f);
-  }
-  cl.sync();  // P complete on both CTAs
-  // inverse, decimation in frequency; pass 1's writes wait for the peer's
+      buf, tw, mid, -1.0f, cl,
+      [&](int k, float2 a) {
+        return pairfft::ctw(a, __ldg(spec + k + q * H), 1.0f);
+      });
+  const float2* src[C];
+#pragma unroll
+  for (int j = 0; j < C; ++j) src[j] = cl.map_shared_rank(buf, j);
+  // inverse, decimation in frequency; pass 1's writes wait for the peers'
   // reads of this buffer (the fence)
   large::fft<H>(
       [&](int n) {
-        const float2 p0 = r ? peer[n] : buf[n], p1 = r ? buf[n] : peer[n];
-        return r ? pairfft::ctw(pairfft::csub(p0, p1), __ldg(mid + n), 1.0f)
-                 : pairfft::cadd(p0, p1);
+        float2 acc = src[0][n];
+#pragma unroll
+        for (int j = 1; j < C; ++j) {
+          acc = pairfft::cadd(acc, large::rot4(src[j][n], (4 / C) * q * j,
+                                               1.0f));
+        }
+        return q ? pairfft::ctw(acc, __ldg(mid + (q - 1) * H + n), 1.0f)
+                 : acc;
       },
       [&] { cl.sync(); }, buf, tw, 1.0f);
-  cl.sync();  // conv[2q + r] is in buf[q] of CTA r
+  cl.sync();  // conv[C m + q] is in buf[m] of CTA q
   auto z = [&](int k) {  // Z[k] = conj(b_k) conv[k]
-    const float2* src = (k & 1) == r ? buf : peer;
-    return pairfft::ctw(src[k >> 1], __ldg(chirp + k), -1.0f);
+    return pairfft::ctw(src[k % C][k / C], __ldg(chirp + k), -1.0f);
   };
-  for (int k = 2 * t + r; k <= n2 / 2; k += 2 * T) {
+  for (int k = C * t + q; k <= n2 / 2; k += C * T) {
     const float2 zk = z(k), zm = z(k == 0 ? 0 : n2 - k);
     *reinterpret_cast<float4*>(c + static_cast<long long>(k) * f.n1 + n1a) =
         make_float4(0.5f * (zk.x + zm.x), 0.5f * (zk.y - zm.y),
                     0.5f * (zk.y + zm.y), -0.5f * (zk.x - zm.x));
   }
-  cl.sync();  // the peer's reads of this buffer are done
+  cl.sync();  // the peers' reads of this buffer are done
 }
 
 // Steps 2-3 for row k2 of one frame: `store(k, X)` takes bin k < N/2.

@@ -1,10 +1,11 @@
-// A complex FFT of M = 16,384 points in one CTA and of 2M points on a
-// cluster of two CTAs, held in shared memory, and the real-input transforms
-// built on them: the transform under B7 (spectrogram_columns.cu) and B12
-// (stft_mag_sizes.cu) at 16,384, 32,768 and 65,536 points, and under B12's
-// Bluestein columns (fft_fourstep.cuh).  It replaces, for these sizes, the
-// four-step MXU factorisation of melonix_tpu/kernels/pallas_columns.py and
-// the dense DFT-matrix tiles of melonix_tpu/kernels/pallas_stft.py.
+// A complex FFT of M = 16,384 points in one CTA and of C M points on a
+// cluster of C = 2 or 4 CTAs, held in shared memory, and the real-input
+// transforms built on them: the transform under B7 (spectrogram_columns.cu)
+// and B12 (stft_mag_sizes.cu) at 16,384, 32,768 and 65,536 points, and under
+// B12's Bluestein columns (fft_fourstep.cuh: 32,768 points on two CTAs,
+// 65,536 on four).  It replaces, for these sizes, the four-step MXU
+// factorisation of melonix_tpu/kernels/pallas_columns.py and the dense
+// DFT-matrix tiles of melonix_tpu/kernels/pallas_stft.py.
 //
 // Large<M> (M = 16,384 = 4096 * R4, R4 = 4): a CTA of T = M / 32 = 512
 // threads, in place in ONE shared buffer of M + M / 16 float2 (139,264
@@ -18,8 +19,8 @@
 //     32 points in registers.  In place, a pass reads all its points, meets
 //     a barrier, then writes; pass 1 reads through the caller's `load` and
 //     meets the caller's `fence` instead (a no-op when the input lies
-//     elsewhere; a cluster barrier when it is a buffer the peer still
-//     reads).  Pass 4 writes where it read (j < 4096): no barrier.
+//     elsewhere; a cluster barrier when it is a buffer the peers still
+//     read).  Pass 4 writes where it read (j < 4096): no barrier.
 //   * Banks: a half-warp's 8-byte accesses fall on distinct banks when their
 //     float2 indices differ mod 16.  Every read is along j (consecutive),
 //     and so are the writes of passes 2-4; pass 1 writes 16 j + k, so its
@@ -27,13 +28,14 @@
 //     padded.  tests/test_torch_fft_large.py enumerates every access.
 //   * Six barriers a transform, against fft_real.cuh's fourteen stages at
 //     32,768 real points.
-// fft_cluster (2M points): CTA r of the pair transforms the even (r = 0) or
-// odd (r = 1) points with Large<M> in its own buffer, then one radix-2 step
-// reads the peer's buffer through distributed shared memory:
-// X[k + r M] = E[k] + (-1)^r W_2M^k O[k].  cluster.sync() orders the steps:
-// before the first remote read (the peer's transform is done), after the
-// last (before a CTA overwrites its buffer with its half of X) and before
-// the caller reads X across the pair.
+// fft_cluster<M, C> (C M points): CTA r of the cluster transforms the points
+// C m + r with Large<M> in its own buffer, Y_r, then one radix-C step reads
+// the peers' buffers through distributed shared memory: CTA q forms
+// X[k + q M] = sum_r W_C^(q r) W_(CM)^(r k) Y_r[k], every buffer read at
+// the same k.  cluster.sync() orders the steps: before the first remote read
+// (the peers' transforms are done), after the last (before a CTA overwrites
+// its buffer with its part of X) and before the caller reads X across the
+// cluster.
 //
 // Real input: an N-point real frame packs as z[q] = x[2q] + i x[2q+1], N / 2
 // complex points (RealPlan<N>: 16,384 real on fft_pair.cuh's 8192 instance,
@@ -49,8 +51,9 @@
 // the CTA transform's (fft_pair.cuh's, or Large<M>'s pass table: dense
 // W_256 and W_4096 tables whose strided reads stay in L1, and W_M^j, j <
 // 4096, whose powers pass 4 forms by two products), the cluster step's
-// W_2M^k (k < M), the split's W_N^k (k < N / 2).  No __sincosf, no TF32, no
-// tensor cores.
+// W_2M^k (k < M), the split's W_N^k (k < N / 2).  The cluster step of C CTAs
+// reads C - 1 rows, row r - 1 holding W_(CM)^(r k), k < M.  No __sincosf, no
+// TF32, no tensor cores.
 //
 // Bounds on the card: one column or frame of 32,768 real points reads 128
 // KB and writes 64 KB; device memory bounds a 256-column drain (~14 us at
@@ -219,34 +222,61 @@ __device__ __forceinline__ void fft(Load load, Fence fence, float2* buf,
   __syncthreads();
 }
 
-// The 2M-point transform (Large<M> on each CTA) of z[q] = load(q), q < 2M,
-// on a cluster of two CTAs: on return CTA r's buf[k] holds X[k + r M] and
-// every remote read of the step is ordered (the caller reads X across the
-// pair and ends with cl.sync() before it exits or overwrites buf).  tw:
-// Large<M>'s pass table; mid: (cos, sin)(2 pi k / 2M), k < M.
-template <int M, class Load>
+// a * e^(sign 2 pi i e / 4), e < 4: exact (a swap and sign changes).
+__device__ __forceinline__ float2 rot4(float2 a, int e, float sign) {
+  switch (e & 3) {
+    case 0: return a;
+    case 1: return make_float2(-sign * a.y, sign * a.x);
+    case 2: return make_float2(-a.x, -a.y);
+    default: return make_float2(sign * a.y, -sign * a.x);
+  }
+}
+
+// fft_cluster's default epilogue: X as it is.
+struct KeepX {
+  __device__ __forceinline__ float2 operator()(int, float2 x) const {
+    return x;
+  }
+};
+
+// The C M-point transform (Large<M> on each CTA, C = 2 or 4) of z[q] =
+// load(q), q < C M, on a cluster of C CTAs: on return CTA q's buf[k] holds
+// post(k, X[k + q M]) and every remote read of the step is ordered (the
+// caller reads buf across the cluster and ends with cl.sync() before it
+// exits or overwrites buf).  tw: Large<M>'s pass table; mid: C - 1 rows of
+// M, row r - 1 the (cos, sin)(2 pi r k / (C M)), k < M.
+template <int M, int C, class Load, class Post = KeepX>
 __device__ __forceinline__ void fft_cluster(Load load, float2* buf,
                                             const float2* __restrict__ tw,
                                             const float2* __restrict__ mid,
                                             float sign,
-                                            const cg::cluster_group& cl) {
+                                            const cg::cluster_group& cl,
+                                            Post post = Post()) {
+  static_assert(C == 2 || C == 4, "a cluster of 2 or 4 CTAs");
   constexpr int T = Large<M>::kThreads, kPer = M / T;
-  const int r = static_cast<int>(cl.block_rank()), t = threadIdx.x;
-  fft<M>([&](int m) { return load(2 * m + r); }, [] {}, buf, tw, sign);
-  cl.sync();  // the peer's half is transformed
-  const float2* peer = cl.map_shared_rank(buf, r ^ 1);
+  const int q = static_cast<int>(cl.block_rank()), t = threadIdx.x;
+  fft<M>([&](int m) { return load(C * m + q); }, [] {}, buf, tw, sign);
+  cl.sync();  // the peers' parts are transformed
+  const float2* src[C];
+#pragma unroll
+  for (int r = 0; r < C; ++r) src[r] = cl.map_shared_rank(buf, r);
   float2 x[kPer];
 #pragma unroll
   for (int i = 0; i < kPer; ++i) {
     const int k = t + T * i;
-    const float2 a = buf[k], b = peer[k];
-    const float2 wo = pairfft::ctw(r ? a : b, __ldg(mid + k), sign);
-    x[i] = r ? pairfft::csub(b, wo) : pairfft::cadd(a, wo);
+    float2 acc = src[0][k];
+#pragma unroll
+    for (int r = 1; r < C; ++r) {
+      const float2 y = pairfft::ctw(src[r][k], __ldg(mid + (r - 1) * M + k),
+                                    sign);
+      acc = pairfft::cadd(acc, rot4(y, (4 / C) * q * r, sign));
+    }
+    x[i] = post(k, acc);
   }
   cl.sync();  // every remote read of buf is done
 #pragma unroll
   for (int i = 0; i < kPer; ++i) buf[t + T * i] = x[i];
-  cl.sync();  // X is in place on both CTAs
+  cl.sync();  // X is in place on every CTA
 }
 
 // Bin k of the N-point real frame from the packed transform's Z[k], Z[M-k]
@@ -323,7 +353,7 @@ __device__ __forceinline__ void real_fft(const float* __restrict__ wav,
     constexpr int H = M / 2;  // X[q] is on CTA q / H at q mod H
     const cg::cluster_group cl = cg::this_cluster();
     const int rank = static_cast<int>(cl.block_rank());
-    fft_cluster<H>(packed, smem, tw, tw + RP::kMid, -1.0f, cl);
+    fft_cluster<H, 2>(packed, smem, tw, tw + RP::kMid, -1.0f, cl);
     const float2* peer = cl.map_shared_rank(smem, rank ^ 1);
     for (int k = rank * H + t; k < (rank + 1) * H; k += T) {
       const int km = (M - k) & (M - 1);

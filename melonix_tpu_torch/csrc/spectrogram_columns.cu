@@ -27,16 +27,18 @@
 // * Other sizes up to 49,152 points: one block of 512 threads per column
 //   runs the real-input FFT of fft_real.cuh in shared memory (samples stored
 //   packed and bit-reversed, one barrier a radix-2 stage).
-// * Other sizes above 49,152 points (4 * N bytes no longer fit a block):
-//   the four-step route of fft_fourstep.cuh, columns_four_step_cols (one
-//   block per (column, n1): the real N2-point transforms of the strided
-//   samples, into a scratch buffer) then columns_four_step_rows (one block
-//   per (column, k2): twiddles, the complex N1-point transform, the epilogue
-//   above).  Same contract, two launches.
+// * The other sizes above 49,152 points, 1024 j for j = 49 ... 63 (4 * N
+//   bytes no longer fit a block): fft_mixed.cuh on a 2-CTA cluster a
+//   column, the frame split between the pair by the parity of its m
+//   decimated sub-sequences (N = L m, m odd), read once as it lands, the
+//   m-point sums reading the peer's half through distributed shared memory,
+//   the epilogue above storing each bin once.  One launch, no scratch: 64
+//   columns are 128 CTAs, one wave.
 #include <cstdint>
 
-#include "fft_fourstep.cuh"
 #include "fft_large.cuh"
+#include "fft_mixed.cuh"
+#include "fft_real.cuh"
 
 namespace {
 
@@ -154,36 +156,27 @@ columns_large(const float* __restrict__ wav, long long n,
       s, tw);
 }
 
-// Four-step route, step 1: grid (columns, N1).
-__global__ void __launch_bounds__(kThreads)
-columns_four_step_cols(const float* __restrict__ wav, long long n,
-                       const int* __restrict__ starts,
-                       const int* __restrict__ ends,
-                       const float2* __restrict__ tw2, mlx::FourStep f,
-                       float neg_decay, float2* __restrict__ scratch) {
+// The cluster route (fft_mixed.cuh) at N = 2P m, P = 512 ... 4096, m odd:
+// one 2-CTA cluster per column; tw is kcols.cluster_table(N).
+template <int P>
+__global__ void __launch_bounds__(mlx::mixed::kThreads, 1)
+columns_cluster(const float* __restrict__ wav, long long n,
+                const int* __restrict__ starts, const int* __restrict__ ends,
+                const float2* __restrict__ tw, mlx::mixed::MixedPlan mp,
+                float neg_decay, float inv_size, float kgain, int colormap,
+                void* out) {
   extern __shared__ float2 s[];
-  const int c = blockIdx.x;
+  const int c = blockIdx.x / 2;
   long long first, dist0;
-  column_span(starts, ends, c, n, f.n, &first, &dist0);
-  mlx::four_step_column(
-      s, f, tw2, blockIdx.y,
+  column_span(starts, ends, c, n, mp.n, &first, &dist0);
+  const long long row = static_cast<long long>(c) * (mp.n / 2);
+  mlx::mixed::real_fft_cluster<P>(
+      mp,
       [&](int p) { return column_sample(wav, n, first, dist0, p, neg_decay); },
-      scratch + c * mlx::four_step_scratch(f));
-}
-
-// Four-step route, steps 2-3: grid (columns, N2).
-__global__ void __launch_bounds__(kThreads)
-columns_four_step_rows(const float2* __restrict__ tw, mlx::FourStep f,
-                       const float2* __restrict__ scratch, float inv_size,
-                       float kgain, int colormap, void* out) {
-  extern __shared__ float2 s[];
-  const int c = blockIdx.x;
-  const long long row = static_cast<long long>(c) * (f.n / 2);
-  mlx::four_step_row(s, f, tw, blockIdx.y,
-                     scratch + c * mlx::four_step_scratch(f),
-                     [&](int k, float2 v) {
-                       store_bin(out, row, k, v, inv_size, kgain, colormap);
-                     });
+      [&](int k, float2 v) {
+        store_bin(out, row, k, v, inv_size, kgain, colormap);
+      },
+      s, tw);
 }
 
 }  // namespace
@@ -246,31 +239,58 @@ extern "C" int mlx_spectrogram_columns_large(
   }
 }
 
-// B7 above 49,152 points at the other sizes: the four-step route.
-// `scratch` holds n_cols * (size / n1 / 2 + 1) * n1 float2 values; tw the
-// size-point table, tw2 the (size / n1)-point one.
-extern "C" int mlx_spectrogram_columns_4step(
+template <int P>
+cudaError_t launch_columns_cluster(const float* wav, long long n,
+                                   const int* starts, const int* ends,
+                                   const float2* tw, void* out, int n_cols,
+                                   int size, float neg_decay, float inv_size,
+                                   float kgain, int colormap,
+                                   cudaStream_t stream) {
+  const mlx::mixed::MixedPlan mp = mlx::mixed::make_mixed_plan(size, P);
+  return mlx::launch_clustered(columns_cluster<P>, dim3(2 * n_cols),
+                               mlx::mixed::kThreads,
+                               mlx::mixed::mixed_smem(mp, P), 2, stream, wav,
+                               n, starts, ends, tw, mp, neg_decay, inv_size,
+                               kgain, colormap, out);
+}
+
+// B7 at 1024 j points, j = 49 ... 63: the cluster route; tw is
+// kcols.cluster_table(size).  Any other size is refused
+// (cudaErrorInvalidValue); a cluster the card cannot hold is refused at
+// launch (cudaErrorLaunchOutOfResources), never run another way.
+extern "C" int mlx_spectrogram_columns_cluster(
     const float* wav, long long n, const int* starts, const int* ends,
-    const float2* tw, const float2* tw2, float2* scratch, void* out,
-    int n_cols, int size, int n1, float neg_decay, float inv_size,
-    float kgain, int colormap, cudaStream_t stream) {
-  if (n_cols > 0) {
-    const mlx::FourStep f = mlx::make_four_step(size, n1);
-    const size_t smem_cols = mlx::real_dft_smem(f.col);
-    const size_t smem_rows = static_cast<size_t>(n1) * sizeof(float2);
-    cudaError_t err = mlx::allow_smem(columns_four_step_cols, smem_cols);
-    if (err == cudaSuccess) {
-      err = mlx::allow_smem(columns_four_step_rows, smem_rows);
-    }
-    if (err != cudaSuccess) return static_cast<int>(err);
-    columns_four_step_cols<<<dim3(n_cols, f.n1), kThreads, smem_cols,
-                             stream>>>(wav, n, starts, ends, tw2, f,
-                                       neg_decay, scratch);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    columns_four_step_rows<<<dim3(n_cols, f.n2), kThreads, smem_rows,
-                             stream>>>(tw, f, scratch, inv_size, kgain,
-                                       colormap, out);
+    const float2* tw, void* out, int n_cols, int size, float neg_decay,
+    float inv_size, float kgain, int colormap, cudaStream_t stream) {
+  const int m = size / (size & -size);
+  if (size % 1024 != 0 || size / 1024 < 49 || size / 1024 > 63 || m < 7) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
+  if (n_cols <= 0) return static_cast<int>(cudaGetLastError());
+  cudaError_t err = cudaErrorInvalidValue;
+  switch ((size & -size) / 2) {
+    case 512:
+      err = launch_columns_cluster<512>(wav, n, starts, ends, tw, out, n_cols,
+                                        size, neg_decay, inv_size, kgain,
+                                        colormap, stream);
+      break;
+    case 1024:
+      err = launch_columns_cluster<1024>(wav, n, starts, ends, tw, out,
+                                         n_cols, size, neg_decay, inv_size,
+                                         kgain, colormap, stream);
+      break;
+    case 2048:
+      err = launch_columns_cluster<2048>(wav, n, starts, ends, tw, out,
+                                         n_cols, size, neg_decay, inv_size,
+                                         kgain, colormap, stream);
+      break;
+    case 4096:
+      err = launch_columns_cluster<4096>(wav, n, starts, ends, tw, out,
+                                         n_cols, size, neg_decay, inv_size,
+                                         kgain, colormap, stream);
+      break;
+    default:
+      break;
+  }
+  return static_cast<int>(err);
 }

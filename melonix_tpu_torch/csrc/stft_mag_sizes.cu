@@ -39,10 +39,11 @@
 //   complex N1-point transform, |X| * scale for the bins below N/2).
 //
 // * Where N's odd factor is above 12,288 the four-step columns are no FFT:
-//   up to N2 = 16,384 mlx_stft_mag_bluestein runs them by Bluestein
-//   (stft_four_step_cols_bluestein: two columns a 2-CTA cluster, two
-//   32,768-point transforms), above it stft_four_step_cols_direct sums them
-//   directly; the rows stay.
+//   up to N2 = 32,768 mlx_stft_mag_bluestein runs them by Bluestein
+//   (stft_four_step_cols_bluestein: two columns a cluster, two 32,768-point
+//   transforms on 2 CTAs up to N2 = 16,384, two 65,536-point transforms on
+//   4 above), above it stft_four_step_cols_direct sums them directly; the
+//   rows stay.
 #include "fft_fourstep.cuh"
 #include "fft_large.cuh"
 #include "stft_mag_pair.cuh"
@@ -128,8 +129,10 @@ stft_four_step_cols_direct(const float* __restrict__ wav, long long n,
 }
 
 // Four-step route, step 1 by Bluestein (N2 <= mlx::kBluesteinMax): grid
-// (N1, frames) in 2-CTA clusters along x, columns 2p and 2p + 1 on cluster
-// p; `tab` is kstft.bluestein_table(N2).
+// (N1 * C / 2, frames) in clusters of C CTAs along x (C =
+// mlx::bluestein_cluster(N2)), columns 2p and 2p + 1 on cluster p; `tab` is
+// kstft.bluestein_table(N2).
+template <int C>
 __global__ void __launch_bounds__(mlx::large::Large<16384>::kThreads, 1)
 stft_four_step_cols_bluestein(const float* __restrict__ wav, long long n,
                               const float* __restrict__ win,
@@ -138,12 +141,12 @@ stft_four_step_cols_bluestein(const float* __restrict__ wav, long long n,
                               float2* __restrict__ scratch) {
   extern __shared__ float2 s[];
   const long long start = static_cast<long long>(blockIdx.y) * hop;
-  const int n1a = blockIdx.x & ~1;
+  const int n1a = static_cast<int>(blockIdx.x / C) * 2;
   auto x = [&](int i) {
     const long long idx = start + i;
     return (idx < n ? wav[idx] : 0.0f) * win[i];
   };
-  mlx::four_step_column_bluestein(
+  mlx::four_step_column_bluestein<C>(
       s, f, tab, n1a,
       [&](int q) {
         const int i = n1a + f.n1 * q;
@@ -261,10 +264,11 @@ extern "C" int mlx_stft_mag_large(const float* wav, long long n,
 }
 
 // B12 where the four-step columns take Bluestein (an odd factor above
-// 12,288, N2 <= 16,384): the columns on 2-CTA clusters, then the four-step
-// rows.  `scratch` as mlx_stft_mag_4step's; tw the size-point table, tab
-// kstft.bluestein_table(size / n1).  Other plans are refused
-// (cudaErrorInvalidValue).
+// 12,288, N2 <= 32,768): the columns on clusters of 2 CTAs (N2 <= 16,384)
+// or 4, then the four-step rows.  `scratch` as mlx_stft_mag_4step's; tw the
+// size-point table, tab kstft.bluestein_table(size / n1).  Other plans are
+// refused (cudaErrorInvalidValue); a cluster the card cannot hold is refused
+// at launch (cudaErrorLaunchOutOfResources), never run another way.
 extern "C" int mlx_stft_mag_bluestein(const float* wav, long long n,
                                       const float* win, const float2* tw,
                                       const float2* tab, float2* scratch,
@@ -277,11 +281,18 @@ extern "C" int mlx_stft_mag_bluestein(const float* wav, long long n,
       n_frames > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  using L = mlx::large::Large<16384>;
+  const int cluster = mlx::bluestein_cluster(f.n2);
+  const dim3 grid(n1 / 2 * cluster, n_frames);
+  cudaError_t err =
+      cluster == 2
+          ? mlx::launch_clustered(stft_four_step_cols_bluestein<2>, grid,
+                                  L::kThreads, L::kSmem, 2, stream, wav, n,
+                                  win, tab, f, hop, scratch)
+          : mlx::launch_clustered(stft_four_step_cols_bluestein<4>, grid,
+                                  L::kThreads, L::kSmem, 4, stream, wav, n,
+                                  win, tab, f, hop, scratch);
   const size_t smem_rows = static_cast<size_t>(n1) * sizeof(float2);
-  cudaError_t err = mlx::launch_clustered(
-      stft_four_step_cols_bluestein, dim3(n1, n_frames),
-      mlx::large::Large<16384>::kThreads, mlx::large::Large<16384>::kSmem, 2,
-      stream, wav, n, win, tab, f, hop, scratch);
   if (err == cudaSuccess) err = mlx::allow_smem(stft_four_step_rows, smem_rows);
   if (err != cudaSuccess) return static_cast<int>(err);
   stft_four_step_rows<<<dim3(n_frames, min(f.n2, 65535)), kThreads, smem_rows,

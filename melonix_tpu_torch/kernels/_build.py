@@ -77,6 +77,8 @@ SIGNATURES = {
                                 _I, _P),
     "mlx_spectrogram_columns_large": (_P, _L, _P, _P, _P, _P, _I, _I, _F, _F,
                                       _F, _I, _P),
+    "mlx_spectrogram_columns_cluster": (_P, _L, _P, _P, _P, _P, _I, _I, _F,
+                                        _F, _F, _I, _P),
     # wav, n, tw, ac, w, n_frames, hop, stream
     "mlx_pitch_ac": (_P, _L, _P, _P, _P, _I, _I, _P),
     # wav, n, starts, out, n_frames, size, stream
@@ -87,11 +89,6 @@ SIGNATURES = {
     "mlx_host_device_pointer": (_P, ctypes.POINTER(_P)),
     # mag, psi, win, tw, frames, y, n_frames, hop, fused, stream
     "mlx_pv_synth_ola": (_P,) * 6 + (_I, _I, _I, _P),
-    # wav, n, starts, ends, tw, tw2, scratch, out, n_cols, size, n1,
-    # neg_decay, inv_size, kgain, colormap, stream
-    "mlx_spectrogram_columns_4step": (_P, _L) + (_P,) * 6 + (_I, _I, _I,
-                                                             _F, _F, _F, _I,
-                                                             _P),
     # wav, n, win, tw, tw2, scratch, out, n_frames, size, n1, hop, scale,
     # stream
     "mlx_stft_mag_4step": (_P, _L) + (_P,) * 5 + (_I, _I, _I, _I, _F, _P),

@@ -14,9 +14,10 @@ takes a route by size (:func:`route`): at ``kernels.stft.LARGE_SIZES``
 (16,384, 32,768 and 65,536 points) one transform per column held on chip
 (``csrc/fft_large.cuh``: 65,536 on a 2-CTA cluster); at the other sizes up
 to ``kernels.stft.MAX_SIZE`` one block per column running the real-input
-FFT of ``csrc/fft_real.cuh`` in shared memory; above it the four-step route
-of ``csrc/fft_fourstep.cuh`` (two launches through a scratch buffer).
-``spectrogram_columns_fused`` launches it for a CUDA tensor,
+FFT of ``csrc/fft_real.cuh`` in shared memory; above it (1024 * j, j = 49
+.. 63) one 2-CTA cluster per column holding the frame in both CTAs' shared
+memory (``csrc/fft_mixed.cuh``, table :func:`cluster_table`).  Every route
+is one launch.  ``spectrogram_columns_fused`` launches it for a CUDA tensor,
 runs :func:`spectrogram_columns_plain` for a CPU tensor, and raises for
 anything else; ``spectrogram_columns_fused.launches`` counts its launches.
 """
@@ -26,9 +27,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+import functools
+
 from . import _build
-from .stft import (LARGE_SIZES, MAX_SIZE, four_step_plan, four_step_scratch,
-                   large_twiddles,
+from .stft import (LARGE_SIZES, MAX_SIZE, circle, large_twiddles,
                    twiddles)  # the FFT routes and tables shared with B12
 
 N1 = 128  # the TPU kernel's lane factor, kept for its size predicate
@@ -47,10 +49,43 @@ def route(size: int) -> str:
     """The kernel route B7 takes at ``size`` points, by the size alone:
     ``"large"`` (``kernels.stft.LARGE_SIZES``: one column per transform held
     on chip, 65,536 on a 2-CTA cluster), ``"one_block"`` (any other size up
-    to :data:`MAX_SIZE`: ``fft_real.cuh``), ``"four_step"`` above it."""
+    to :data:`MAX_SIZE`: ``fft_real.cuh``), ``"cluster"`` above it (1024 *
+    j, j = 49 .. 63: ``fft_mixed.cuh``, one 2-CTA cluster a column)."""
     if size in LARGE_SIZES:
         return "large"
-    return "one_block" if size <= MAX_SIZE else "four_step"
+    return "one_block" if size <= MAX_SIZE else "cluster"
+
+
+def cluster_plan(size: int) -> tuple[int, int]:
+    """(P, m) of the cluster route at ``size`` = 2 P m points: P = 512 ..
+    4096 points of each packed sub-transform, m odd, 7 .. 63 sub-sequences
+    (``csrc/fft_mixed.cuh:make_mixed_plan``)."""
+    if not (supported(size) and route(size) == "cluster"):
+        raise ValueError(f"B7's cluster route takes 1024 * (49 .. 63) "
+                         f"points, not {size}")
+    low = size & -size
+    return low // 2, size // low
+
+
+@functools.cache
+def cluster_table(size: int, device: torch.device) -> torch.Tensor:
+    """The one float32 table of the cluster route at ``size`` points
+    (``MixedPlan``'s offsets), computed in float64 and rounded once:
+    :func:`~melonix_tpu_torch.kernels.stft.circle` of 256 (pass 2) and of P
+    (pass 3); (cos, sin)(2 pi x / size) for x < 128 and for x = 128 y, y <
+    size / 256 (any W_N^x, x < size / 2, as one product); the m-point
+    DFT's (cos, sin)(2 pi s p / m), s < m, 1 <= p <= (m - 1) / 2, at s h + p
+    - 1."""
+    p, m = cluster_plan(size)
+    h = (m - 1) // 2
+    x = np.concatenate([np.arange(128), 128 * np.arange(size // 256)])
+    sp = (np.arange(m)[:, None] * np.arange(1, h + 1)[None, :]) % m
+    ang = np.concatenate([2.0 * np.pi * x.astype(np.float64) / size,
+                          2.0 * np.pi * sp.ravel().astype(np.float64) / m])
+    tail = np.stack([np.cos(ang), np.sin(ang)], axis=1).astype(np.float32)
+    cpu = torch.device("cpu")
+    return torch.cat([circle(256, cpu), circle(p, cpu),
+                      torch.from_numpy(tail)]).to(device)
 
 
 def _pack_rgb(mags, kgain):
@@ -116,28 +151,17 @@ def spectrogram_columns_fused(wav, starts, ends, kgain, size: int = 32768,
                       dtype=torch.int32 if colormap else torch.float32,
                       device=dev)
     lib = _build.library()
+    entry, tw = {
+        "large": (lib.mlx_spectrogram_columns_large, large_twiddles),
+        "one_block": (lib.mlx_spectrogram_columns, twiddles),
+        "cluster": (lib.mlx_spectrogram_columns_cluster, cluster_table),
+    }[way]
     with torch.cuda.device(dev):
-        if way != "four_step":
-            entry, tw = ((lib.mlx_spectrogram_columns_large, large_twiddles)
-                         if way == "large" else
-                         (lib.mlx_spectrogram_columns, twiddles))
-            err = entry(
-                wav.data_ptr(), wav.shape[0], starts.data_ptr(),
-                ends.data_ptr(), tw(size, dev).data_ptr(), out.data_ptr(), b,
-                size, -float(decay), 1.0 / size, float(kgain), int(colormap),
-                _build.stream(dev),
-            )
-        else:
-            # every supported size above MAX_SIZE has an FFT plan
-            n1, n2 = four_step_plan(size)
-            scratch = four_step_scratch(b, n1, n2, dev)
-            err = lib.mlx_spectrogram_columns_4step(
-                wav.data_ptr(), wav.shape[0], starts.data_ptr(),
-                ends.data_ptr(), twiddles(size, dev).data_ptr(),
-                twiddles(n2, dev).data_ptr(), scratch.data_ptr(),
-                out.data_ptr(), b, size, n1, -float(decay), 1.0 / size,
-                float(kgain), int(colormap), _build.stream(dev),
-            )
+        err = entry(
+            wav.data_ptr(), wav.shape[0], starts.data_ptr(), ends.data_ptr(),
+            tw(size, dev).data_ptr(), out.data_ptr(), b, size, -float(decay),
+            1.0 / size, float(kgain), int(colormap), _build.stream(dev),
+        )
     _build.check("spectrogram_columns", err)
     spectrogram_columns_fused.launches += 1
     return out

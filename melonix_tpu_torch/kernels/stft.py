@@ -15,7 +15,9 @@ four-step route of ``csrc/fft_fourstep.cuh`` through a scratch buffer
 (:func:`four_step_plan` picks its factors, :func:`four_step_plain` spells
 its arithmetic in torch), whose column transforms, where the odd factor
 does not fit one block, are Bluestein convolutions on the cluster
-transform up to :data:`BLUESTEIN_MAX` points and direct sums above.
+transform up to :data:`BLUESTEIN_MAX` points (two columns a cluster of
+:func:`bluestein_cluster` CTAs: 2 up to :data:`LARGE_M` points, 4 above)
+and direct sums above that.
 
 ``stft_mag`` launches the kernel for a CUDA tensor, runs
 :func:`stft_mag_plain` for a CPU tensor, and raises for anything else;
@@ -38,8 +40,8 @@ from .pv import stft_mag_plain  # size-generic: the twin of B1 and B12
 
 __all__ = ["MAX_SIZE", "LARGE_SIZES", "BLUESTEIN_MAX", "supported", "route",
            "stft_mag", "stft_mag_plain", "twiddles", "circle",
-           "large_pass_table", "large_twiddles", "bluestein_table",
-           "four_step_plan", "four_step_plain"]
+           "large_pass_table", "large_twiddles", "bluestein_cluster",
+           "bluestein_table", "four_step_plan", "four_step_plain"]
 
 # The one-block transform keeps 4 * size bytes in dynamic shared memory
 # (fft_real.cuh); 49152 points take 192 KB of the block's 227 KB.  Larger
@@ -50,10 +52,9 @@ MAX_N1 = 16384  # the four-step rows keep 8 * N1 bytes: 128 KB
 # 8192, 16,384 and 32,768 packed complex points.
 LARGE_SIZES = (16384, 32768, 65536)
 LARGE_M = 16384  # points of Large<M>, the one-CTA transform
-# Bluestein's convolution length (the cluster transform) and the largest
-# four-step column it takes (2 * N2 - 1 <= L).
-BLUESTEIN_L = 2 * LARGE_M
-BLUESTEIN_MAX = BLUESTEIN_L // 2
+# The largest four-step column Bluestein takes: its convolution runs on a
+# cluster of up to 4 CTAs of LARGE_M points, L = 65,536 >= 2 * N2 - 1.
+BLUESTEIN_MAX = 2 * LARGE_M
 SLAB_PAD = 8  # the TPU kernel's largest size // hop
 BT = 256  # the TPU kernel's bin tile
 
@@ -71,9 +72,10 @@ def four_step_plan(size: int) -> tuple[int, int] | None:
     two (2..:data:`MAX_N1`).  Where N2 = 2^b * m (m odd, b >= 2) can stay
     within :data:`MAX_SIZE`, the column transforms are FFTs, and N1 is the
     one nearest sqrt(size), the larger on a tie.  Otherwise (an odd factor
-    above 12,288, or a size above MAX_N1 * MAX_SIZE) they are direct sums
-    over N2 = size / N1 points, N1 as large as fits.  None for an odd
-    ``size``, one below 8, or one that int32 indices cannot reach."""
+    above 12,288, or a size above MAX_N1 * MAX_SIZE) they are no FFT but
+    Bluestein convolutions or direct sums (:func:`route`) over N2 = size /
+    N1 points, N1 as large as fits.  None for an odd ``size``, one below 8,
+    or one that int32 indices cannot reach."""
     if size < 8 or size >= 1 << 31 or size % 2:
         return None
     a = (size & -size).bit_length() - 1  # size = 2^a * m
@@ -92,10 +94,10 @@ def four_step_plan(size: int) -> tuple[int, int] | None:
 
 
 def four_step_direct(n2: int) -> bool:
-    """Whether the four-step route's N2-point columns are direct sums (an
-    N2 above :data:`MAX_SIZE` or without a factor 4, which the one-block
-    real FFT needs) rather than FFTs; ``csrc/fft_fourstep.cuh`` tests the
-    same."""
+    """Whether the four-step route's N2-point columns are no FFT (an N2
+    above :data:`MAX_SIZE` or without a factor 4, which the one-block real
+    FFT needs) but Bluestein convolutions up to :data:`BLUESTEIN_MAX` points
+    and direct sums above; ``csrc/fft_fourstep.cuh`` tests the same."""
     return n2 > MAX_SIZE or n2 % 4 != 0
 
 
@@ -138,30 +140,51 @@ def large_twiddles(size: int, device: torch.device) -> torch.Tensor:
     return torch.cat(parts).to(device)
 
 
-@functools.cache
-def bluestein_table(n2: int, device: torch.device) -> torch.Tensor:
-    """(n2 + 3 * BLUESTEIN_L / 2 + 8448, 2) float32 table of the Bluestein
-    columns (``csrc/fft_fourstep.cuh``), computed in float64: the chirp b_n =
-    e^(i pi n^2 / n2), n < n2, its angle from n^2 mod 2 n2 in int64 (exact);
-    the spectrum of the convolution kernel c (c[m] = c[L - m] = b_m, m <
-    n2; zeros between) over L = :data:`BLUESTEIN_L` points, scaled by 1 / L;
-    then :func:`large_pass_table` (L / 2 points) and :func:`twiddles` of L
-    (the cluster transform's tables)."""
+def bluestein_cluster(n2: int) -> int:
+    """The CTAs of the cluster that runs an ``n2``-point Bluestein column
+    pair (``csrc/fft_fourstep.cuh:bluestein_cluster``): 2 (L = 32,768) up to
+    :data:`LARGE_M` points, 4 (L = 65,536) up to :data:`BLUESTEIN_MAX`."""
     if not 1 <= n2 <= BLUESTEIN_MAX:
         raise ValueError(f"Bluestein takes columns of 1..{BLUESTEIN_MAX} "
                          f"points, not {n2}")
+    return 2 if n2 <= LARGE_M else 4
+
+
+@functools.cache
+def _bluestein_np(n2: int, length: int) -> np.ndarray:
+    """:func:`bluestein_table`'s rows for a convolution of ``length`` = C *
+    LARGE_M points, as a float32 (rows, 2) array."""
+    c_ctas = length // LARGE_M
     n = np.arange(n2, dtype=np.int64)
     b = np.exp(1j * np.pi * ((n * n) % (2 * n2)).astype(np.float64) / n2)
-    c = np.zeros(BLUESTEIN_L, np.complex128)
+    c = np.zeros(length, np.complex128)
     c[:n2] = b
-    c[BLUESTEIN_L - n2 + 1:] = b[1:][::-1]
-    spec = np.fft.fft(c) / BLUESTEIN_L
-    parts = [np.stack([z.real, z.imag], axis=1).astype(np.float32)
-             for z in (b, spec)]
-    cpu = torch.device("cpu")
-    return torch.cat([torch.from_numpy(p) for p in parts]
-                     + [large_pass_table(cpu),
-                        twiddles(BLUESTEIN_L, cpu)]).to(device)
+    c[length - n2 + 1:] = b[1:][::-1]
+    spec = np.fft.fft(c) / length
+    k = np.arange(LARGE_M, dtype=np.int64)
+    rows = (np.arange(1, c_ctas, dtype=np.int64)[:, None] * k).ravel()
+    ang = 2.0 * np.pi * rows.astype(np.float64) / length
+    return np.concatenate(
+        [np.stack([z.real, z.imag], axis=1).astype(np.float32)
+         for z in (b, spec)]
+        + [large_pass_table(torch.device("cpu")).numpy(),
+           np.stack([np.cos(ang), np.sin(ang)], axis=1).astype(np.float32)])
+
+
+@functools.cache
+def bluestein_table(n2: int, device: torch.device) -> torch.Tensor:
+    """(n2 + L + 8448 + (C - 1) * 16,384, 2) float32 table of the Bluestein
+    columns (``csrc/fft_fourstep.cuh``, ``BluesteinPlan<C>``), C =
+    :func:`bluestein_cluster` (n2) and L = C * :data:`LARGE_M`, computed in
+    float64 and rounded once: the chirp b_n = e^(i pi n^2 / n2), n < n2, its
+    angle from n^2 mod 2 n2 in int64 (exact); the spectrum of the
+    convolution kernel c (c[m] = c[L - m] = b_m, m < n2; zeros between) over
+    L points, scaled by 1 / L; :func:`large_pass_table` (the CTA's
+    transform); then the cluster step's rows r = 1 .. C - 1 of (cos,
+    sin)(2 pi r k / L), k < 16,384 (at C = 2 exactly :func:`twiddles` of
+    32,768)."""
+    length = bluestein_cluster(n2) * LARGE_M
+    return torch.from_numpy(_bluestein_np(n2, length)).to(device)
 
 
 def four_step_plain(frames: torch.Tensor, n1: int) -> torch.Tensor:
@@ -203,9 +226,11 @@ def route(size: int) -> str:
     ``"one_block"`` (any other size up to :data:`MAX_SIZE`:
     ``fft_real.cuh``, a block per frame), ``"four_step"`` above it,
     ``"bluestein"`` where the four-step columns are Bluestein convolutions
-    (an odd factor above 12,288, N2 <= :data:`BLUESTEIN_MAX`) and
-    ``"direct"`` where they are direct sums (a larger N2).  Raises
-    NotImplementedError for a size no route takes (2^31 points and more)."""
+    (an odd factor above 12,288, N2 <= :data:`BLUESTEIN_MAX`: on 2-CTA
+    clusters up to N2 = 16,384, on 4-CTA clusters above,
+    :func:`bluestein_cluster`) and ``"direct"`` where they are direct sums
+    (a larger N2).  Raises NotImplementedError for a size no route takes
+    (2^31 points and more)."""
     if size in PAIR_SIZES:
         return "pair"
     if size in LARGE_SIZES:

@@ -1,24 +1,25 @@
 """The on-chip large transform of B7 and B12, modelled on the CPU.
 
 ``csrc/fft_large.cuh`` (a 16,384-point complex FFT in one CTA, a 32,768-point
-one on a cluster of two CTAs, the real transforms of 16,384, 32,768 and
-65,536 points on them) and the Bluestein columns of ``csrc/fft_fourstep.cuh``
-run only on the card (chip_smoke.py phases 9, 10 and 19 hold their kernels
+one on a cluster of two CTAs and a 65,536-point one on four, the real
+transforms of 16,384, 32,768 and 65,536 points on them) and the Bluestein
+columns of ``csrc/fft_fourstep.cuh`` run only on the card (chip_smoke.py phases 9, 10 and 19 hold their kernels
 against their twins there).  These tests hold what the design rests on:
 
 * a NumPy transcription of ``Large<16384>``'s four Stockham passes (radix
   16, 16, 16, 4) in the kernel's index order, with its host table and the
   float32 constants of ``dft_regs``, against ``np.fft.fft`` both ways, pass
   by pass against the partial DFTs the passes compute;
-* the cluster's even/odd split and cross-CTA radix-2 step at 32,768 points,
-  each CTA reading only its own buffer and the peer's reads the design
-  names, against ``np.fft.fft``;
+* the cluster's split of the points by rank and its cross-CTA radix-C step
+  at 32,768 (C = 2) and 65,536 points (C = 4), each CTA reading the
+  buffers at the one index the design names, against ``np.fft.fft``;
 * every half-warp's shared-memory accesses of the passes, the cluster step
   and the epilogues on 16 distinct banks, and each exchange a permutation
   within the buffer;
 * the real split of the three real sizes against float64 ``np.fft.rfft``;
 * Bluestein's identity with the chirp's int64 index at N2 = 12,289 and small
-  odd N2, in float64 and as the kernel's float32 transcription, against
+  odd N2, in float64 and as the kernel's float32 transcription on 2 CTAs
+  (L = 32,768) and on 4 (L = 65,536, N2 up to 32,768), against
   ``np.fft.fft``; the host tables within 1 ulp of float64;
 * the routes of ``kstft.route`` and ``kcols.route`` around every boundary,
   the table offsets the headers read, and the C entry each wrapper calls.
@@ -46,7 +47,7 @@ M = 16384  # Large<M>
 T = M // 32  # threads a CTA
 Q = M // 16  # 16-point DFTs of passes 1-3
 NS = (1, 16, 256)  # Ns of passes 1-3; pass 4 has Ns = 4096, radix 4
-L = kstft.BLUESTEIN_L
+L = 2 * M  # Bluestein's convolution on 2 CTAs; 4 CTAs take 2 L
 
 
 def _read(name):
@@ -112,20 +113,45 @@ def large_model(z, sign):
     return large_passes(z, sign)[-1][:M]
 
 
+def _rot4(a, e, sign):
+    """fft_large.cuh's rot4: a * e^(sign 2 pi i e / 4), exactly."""
+    e %= 4
+    if e == 0:
+        return a
+    if e == 2:
+        return -a
+    s = sign if e == 1 else -sign  # a * (s i)
+    out = np.empty_like(a)
+    out.real, out.imag = -s * a.imag, s * a.real
+    return out
+
+
+def _mid_rows(length):
+    """The cluster step's C - 1 rows (cos, sin)(2 pi r k / length), k < M,
+    as the host tables hold them: ``twiddles`` of 32,768 for 2 CTAs,
+    ``bluestein_table``'s last rows for 4."""
+    if length == 2 * M:
+        return kstft.twiddles(2 * M, CPU).numpy()[None]
+    return kstft._bluestein_np(7, length)[7 + length + 8448:].reshape(
+        length // M - 1, M, 2)
+
+
 def cluster_model(z, sign):
-    """``fft_cluster<16384>`` on (2M, B) complex64: CTA r transforms z[2q +
-    r] into its own buffer; then CTA r reads its own buf[k] and the peer's
-    buf[k] (the only remote reads) and keeps X[k + r M]."""
-    mid = _w(kstft.twiddles(2 * M, CPU).numpy(), sign)
-    bufs = [large_model(z[r::2], sign) for r in (0, 1)]
-    k = np.arange(M)
-    halves = []
-    for r in (0, 1):
-        own, peer = bufs[r][k], bufs[r ^ 1][k]
-        even, odd = (own, peer) if r == 0 else (peer, own)
-        wo = odd * mid[k].reshape((M,) + (1,) * (z.ndim - 1))
-        halves.append(even + wo if r == 0 else even - wo)
-    return np.concatenate(halves)
+    """``fft_cluster<16384, C>`` on (C M, B) complex64, C = len(z) / M: CTA
+    r transforms z[C m + r] into its own buffer, Y_r; then CTA q reads every
+    buffer at k (the only remote reads) and keeps X[k + q M] = sum_r W_C^(q
+    r) (W_(CM)^(r k) Y_r[k]), the terms added in order of r."""
+    c = z.shape[0] // M
+    mid = [_w(row, sign).reshape((M,) + (1,) * (z.ndim - 1))
+           for row in _mid_rows(c * M)]
+    ys = [large_model(z[r::c], sign) for r in range(c)]
+    parts = []
+    for q in range(c):
+        acc = ys[0]
+        for r in range(1, c):
+            acc = acc + _rot4(ys[r] * mid[r - 1], (4 // c) * q * r, sign)
+        parts.append(acc)
+    return np.concatenate(parts)
 
 
 def _split(zk, zm, w):
@@ -189,15 +215,16 @@ def test_large_passes_compute_their_partial_dfts(p):
     assert _snr(got, want) < -125.0
 
 
+@pytest.mark.parametrize("c", [2, 4])
 @pytest.mark.parametrize("sign", [-1.0, 1.0])
-def test_cluster_model_is_the_dft(sign):
-    """The 2-CTA transform of 2M points (Large<16384> on each CTA) against
-    np.fft.fft both ways."""
-    z = _noise((2 * M, 1), 3)
+def test_cluster_model_is_the_dft(sign, c):
+    """The C-CTA transform of C M points (Large<16384> on each CTA; C = 2
+    and 4) against np.fft.fft both ways."""
+    z = _noise((c * M, 1), 3)
     got = cluster_model(z, sign)
     z64 = z.astype(np.complex128)
     want = np.fft.fft(z64, axis=0) if sign < 0 else np.fft.ifft(
-        z64, axis=0) * 2 * M
+        z64, axis=0) * c * M
     assert _snr(got, want) < -120.0
 
 
@@ -354,25 +381,34 @@ def test_bluestein_identity_in_float64(n2):
     assert _snr(got, np.fft.fft(x)) < -250.0
 
 
-def bluestein_model(xa, xb, n2):
-    """``four_step_column_bluestein`` on two real columns in float32: z =
-    x_a + i x_b times conj(b_n), zero to L; the cluster's forward transform;
-    the product with the table's spectrum; the inverse by decimation in
-    frequency (CTA 0: P[n] + P[n + L/2] to the even outputs, CTA 1: the
-    twiddled difference to the odd ones); Z = conj(b_k) conv[k]; the two
-    columns' bins k <= N2 / 2 apart."""
-    tab = kstft.bluestein_table(n2, CPU).numpy()
+def bluestein_model(xa, xb, n2, length=None):
+    """``four_step_column_bluestein<C>`` on two real columns in float32, L =
+    ``length`` (by default C M, C = ``kstft.bluestein_cluster(n2)``): z =
+    x_a + i x_b times conj(b_n), zero to L; the cluster's forward transform,
+    its epilogue the product with the table's spectrum; the inverse by
+    decimation in frequency (CTA q: sum_j W_C^(-q j) P[n + j M], times
+    W_L^(-q n) for q > 0, to the outputs C m + q); Z = conj(b_k) conv[k];
+    the two columns' bins k <= N2 / 2 apart."""
+    length = length or kstft.bluestein_cluster(n2) * M
+    c = length // M
+    tab = kstft._bluestein_np(n2, length)
     chirp = _w(tab[:n2], 1.0)
-    spec = _w(tab[n2: n2 + L], 1.0)
-    mid = _w(kstft.twiddles(L, CPU).numpy(), 1.0)
+    spec = _w(tab[n2: n2 + length], 1.0)
+    mid = [_w(row, 1.0) for row in _mid_rows(length)]
+    np.testing.assert_array_equal(tab[n2 + length + 8448:].reshape(
+        c - 1, M, 2), _mid_rows(length))
     z = (xa + 1j * xb).astype(np.complex64)
-    a = np.zeros((L, 1), np.complex64)
+    a = np.zeros((length, 1), np.complex64)
     a[:n2, 0] = z * np.conj(chirp)
     p = cluster_model(a, -1.0)[:, 0] * spec
-    h = L // 2
-    conv = np.empty(L, np.complex64)
-    conv[0::2] = large_model((p[:h] + p[h:])[:, None], 1.0)[:, 0]
-    conv[1::2] = large_model(((p[:h] - p[h:]) * mid)[:, None], 1.0)[:, 0]
+    conv = np.empty(length, np.complex64)
+    for q in range(c):
+        acc = p[:M]
+        for j in range(1, c):
+            acc = acc + _rot4(p[j * M: (j + 1) * M], (4 // c) * q * j, 1.0)
+        if q:
+            acc = acc * mid[q - 1]
+        conv[q::c] = large_model(acc[:, None], 1.0)[:, 0]
     zz = np.conj(chirp) * conv[:n2]
     k = np.arange(n2 // 2 + 1)
     zk, zm = zz[k], zz[(n2 - k) % n2]
@@ -382,51 +418,79 @@ def bluestein_model(xa, xb, n2):
     return ca, cb
 
 
-@pytest.mark.parametrize("n2", [12289, 7, 4099])
-def test_bluestein_model_matches_rfft(n2):
+@pytest.mark.parametrize("n2,length", [
+    (12289, None), (7, None), (4099, None),
+    (16411, None), (16385, None), (32749, None), (7, 4 * M)])
+def test_bluestein_model_matches_rfft(n2, length):
     """The kernel's float32 transcription against float64 rfft of each real
-    column (< -110 dB): Bluestein's float32 error stays far under the
-    kernel's bars (-80 dB against the twin, -60 against float64)."""
+    column (< -110 dB), on 2 CTAs (L = 32,768, N2 <= 16,384) and on 4 (L =
+    65,536: N2 above 16,384, and N2 = 7 forced there): Bluestein's float32
+    error stays far under the kernel's bars (-80 dB against the twin, -60
+    against float64)."""
     rng = np.random.default_rng(n2)
     xa, xb = rng.standard_normal((2, n2)).astype(np.float32)
-    ca, cb = bluestein_model(xa, xb, n2)
+    ca, cb = bluestein_model(xa, xb, n2, length)
     for got, x in ((ca, xa), (cb, xb)):
         want = np.fft.rfft(x.astype(np.float64))
         assert got.shape == want.shape and _snr(got, want) < -110.0
 
 
-@pytest.mark.parametrize("n2", [12289, 5])
+@pytest.mark.parametrize("n2", [12289, 5, 16411, 32768])
 def test_bluestein_table_within_one_ulp_of_float64(n2):
-    """kstft.bluestein_table(n2): the chirp from int64 n^2 mod 2 n2, the
-    kernel's spectrum (float64 FFT / L) and the cluster transform's tables,
-    each entry within 1 ulp of its float64 value (the spectrum: within 1 ulp
-    of its largest entry)."""
+    """kstft.bluestein_table(n2), L = 32,768 up to N2 = 16,384 and 65,536
+    above: the chirp from int64 n^2 mod 2 n2, the kernel's spectrum (float64
+    FFT / L) and the cluster transform's tables (the pass table, then C - 1
+    rows W_L^(r k)), each entry within 1 ulp of its float64 value (the
+    spectrum: within 1 ulp of its largest entry); no N2 above 32,768."""
+    c = kstft.bluestein_cluster(n2)
+    length = c * M
     got = kstft.bluestein_table(n2, CPU).numpy()
-    assert got.shape == (n2 + L + 8448 + L // 2, 2)
+    assert c == (2 if n2 <= M else 4)
+    assert got.shape == (n2 + length + 8448 + (c - 1) * M, 2)
     assert got.dtype == np.float32
     b = _chirp64(n2)
     assert _ulps(got[:n2, 0], b.real).max() <= 1.0
     assert _ulps(got[:n2, 1], b.imag).max() <= 1.0
-    c = np.zeros(L, np.complex128)
-    c[:n2] = b
-    c[L - n2 + 1:] = b[1:][::-1]
-    spec = np.fft.fft(c) / L
+    cc = np.zeros(length, np.complex128)
+    cc[:n2] = b
+    cc[length - n2 + 1:] = b[1:][::-1]
+    spec = np.fft.fft(cc) / length
     top = np.spacing(np.float32(np.abs(spec).max()))
-    err = np.abs(got[n2: n2 + L, 0] + 1j * got[n2: n2 + L, 1] - spec)
+    err = np.abs(got[n2: n2 + length, 0] + 1j * got[n2: n2 + length, 1]
+                 - spec)
     assert err.max() <= top
-    assert np.array_equal(got[n2 + L: n2 + L + 8448],
+    head = n2 + length + 8448
+    assert np.array_equal(got[n2 + length: head],
                           kstft.large_pass_table(CPU).numpy())
-    assert np.array_equal(got[n2 + L + 8448:], kstft.twiddles(L, CPU).numpy())
-    with pytest.raises(ValueError, match="16384"):
-        kstft.bluestein_table(16385, CPU)
+    ang = 2 * np.pi * (np.arange(1, c)[:, None] * np.arange(M)).ravel(
+        ) / length
+    assert _ulps(got[head:, 0], np.cos(ang)).max() <= 1.0
+    assert _ulps(got[head:, 1], np.sin(ang)).max() <= 1.0
+    if c == 2:  # exactly twiddles(32,768)
+        assert np.array_equal(got[head:], kstft.twiddles(L, CPU).numpy())
+    for bad in (32769, 0):
+        with pytest.raises(ValueError, match="32768"):
+            kstft.bluestein_table(bad, CPU)
 
 
 def test_bluestein_header_constants():
-    """fft_fourstep.cuh's Bluestein length and cap are the wrapper's."""
+    """fft_fourstep.cuh's Bluestein lengths, cap, cluster choice and table
+    offsets are the wrapper's."""
     src = _read("fft_fourstep.cuh")
-    assert f"constexpr int kBluesteinL = {kstft.BLUESTEIN_L};" in src
-    assert "constexpr int kBluesteinMax = kBluesteinL / 2;" in src
-    assert kstft.BLUESTEIN_MAX == kstft.BLUESTEIN_L // 2
+    assert "constexpr int kBluesteinM = 16384;" in src
+    assert "constexpr int kBluesteinMax = 2 * kBluesteinM;" in src
+    assert "return n2 <= kBluesteinM ? 2 : 4;" in src
+    assert "static constexpr int kL = C * kBluesteinM;" in src
+    assert "static constexpr int kSpec = 0, kTw = kL;" in src
+    assert ("static constexpr int kMid = kTw + large::Large<kBluesteinM>"
+            "::kTwiddles;") in src
+    assert "static constexpr int kTable = kMid + (C - 1) * kBluesteinM;" \
+        in src
+    assert kstft.LARGE_M == M and kstft.BLUESTEIN_MAX == 2 * M
+    for n2 in (1, M, M + 1, 2 * M):
+        c = kstft.bluestein_cluster(n2)
+        assert kstft.bluestein_table(n2, CPU).shape[0] == n2 + c * M + 8448 \
+            + (c - 1) * M
 
 
 # ----------------------------------------------------------------------
@@ -440,16 +504,20 @@ def test_bluestein_header_constants():
     (16384, "large", "large"), (17408, "one_block", "one_block"),
     (31744, "one_block", "one_block"), (32768, "large", "large"),
     (33792, "one_block", "one_block"), (48128, "one_block", "one_block"),
-    (49152, "one_block", "one_block"), (50176, "four_step", "four_step"),
-    (64512, "four_step", "four_step"), (65536, "large", "large"),
+    (49152, "one_block", "one_block"), (50176, "four_step", "cluster"),
+    (64512, "four_step", "cluster"), (65536, "large", "large"),
     (98304, "four_step", None), (131072, "four_step", None),
     (512 * 12289, "bluestein", None), (1024 * 16381, "bluestein", None),
-    (512 * 16387, "direct", None), (512 * 99999, "direct", None),
+    (512 * 16387, "bluestein", None), (512 * 99999, "direct", None),
+    (512 * 16411, "bluestein", None), (512 * 32749, "bluestein", None),
+    (512 * 32771, "direct", None),
 ])
 def test_routes_by_size(size, b12, b7):
     """kstft.route and kcols.route at every supported size around 8192,
-    16,384, 32,768, 49,152 and 65,536, and the four-step columns' three
-    forms (FFT, Bluestein up to N2 = 16,384, direct sums above)."""
+    16,384, 32,768, 49,152 and 65,536 (B7's 1024 j, j = 49 .. 63, on the
+    cluster route; B12 keeps the four-step route there), and the four-step
+    columns' three forms (FFT, Bluestein up to N2 = 32,768 on 2 CTAs up to
+    16,384 and 4 above, direct sums above)."""
     assert kstft.route(size) == b12
     assert kcols.supported(size) == (b7 is not None)
     if b7 is not None:
@@ -458,6 +526,8 @@ def test_routes_by_size(size, b12, b7):
         n2 = kstft.four_step_plan(size)[1]
         assert kstft.four_step_direct(n2)
         assert (n2 <= kstft.BLUESTEIN_MAX) == (b12 == "bluestein")
+        if b12 == "bluestein":
+            assert kstft.bluestein_cluster(n2) == (2 if n2 <= M else 4)
 
 
 class _Recorder:
@@ -465,9 +535,12 @@ class _Recorder:
 
     def __init__(self):
         self.calls = []
+        self.code = 0  # what every entry returns
 
     def __getattr__(self, name):
-        return lambda *args: self.calls.append((name, args)) or 0
+        if name == "mlx_error_string":  # what _build.check reads, unrecorded
+            return lambda err: b"refused"
+        return lambda *args: self.calls.append((name, args)) or self.code
 
 
 @pytest.fixture
@@ -508,15 +581,35 @@ def test_large_sizes_launch_the_large_entries(fake_cuda, size):
 
 
 def test_bluestein_size_launches_the_bluestein_entry(fake_cuda):
-    """B12 at 512 * 12,289: one call of ``mlx_stft_mag_bluestein`` with the
-    four-step plan (n_frames, size, N1, hop), one launch; the N2 > 16,384
-    direct sums keep ``mlx_stft_mag_4step``."""
+    """B12 at 512 * 12,289 (2 CTAs), 512 * 16,411 and 512 * 32,749 (4
+    CTAs): one call each of ``mlx_stft_mag_bluestein`` with the four-step
+    plan (n_frames, size, N1, hop), one launch each; the N2 > 32,768 direct
+    sums (512 * 32,771) keep ``mlx_stft_mag_4step``."""
     meta = torch.device("meta")
     wav = torch.zeros(300000).to(meta)
     before = kstft.stft_mag.launches
     for size, entry in ((512 * 12289, "mlx_stft_mag_bluestein"),
-                        (512 * 16387, "mlx_stft_mag_4step")):
+                        (512 * 16411, "mlx_stft_mag_bluestein"),
+                        (512 * 32749, "mlx_stft_mag_bluestein"),
+                        (512 * 32771, "mlx_stft_mag_4step")):
         kstft.stft_mag(wav, torch.zeros(size).to(meta), size, size // 4, 3)
         name, args = fake_cuda.calls[-1]
         assert name == entry and args[7:11] == (3, size, 512, size // 4)
-    assert kstft.stft_mag.launches == before + 2
+    assert len(fake_cuda.calls) == 4
+    assert kstft.stft_mag.launches == before + 4
+
+
+def test_refused_bluestein_launch_raises(fake_cuda, monkeypatch):
+    """A code the C entry returns (here cudaErrorLaunchOutOfResources, 7:
+    no GPC holds a 4-CTA cluster) raises after its one call, and nothing
+    else is called: no direct sums, no four-step route, no CPU twin; the
+    launch is not counted."""
+    meta = torch.device("meta")
+    wav = torch.zeros(300000).to(meta)
+    size = 512 * 16411
+    monkeypatch.setattr(fake_cuda, "code", 7, raising=False)
+    before = kstft.stft_mag.launches
+    with pytest.raises(RuntimeError, match="CUDA error 7"):
+        kstft.stft_mag(wav, torch.zeros(size).to(meta), size, size // 4, 2)
+    assert [n for n, _ in fake_cuda.calls] == ["mlx_stft_mag_bluestein"]
+    assert kstft.stft_mag.launches == before

@@ -307,11 +307,12 @@ def _fake_cuda(monkeypatch):
 def test_b12_beyond_cap_raises_on_cuda_tensors(monkeypatch):
     """(Named for the behaviour it replaced.)  Above MAX_SIZE B12 and B7
     launch a route instead of raising (ROADMAP C1): at 65,536 points each
-    wrapper makes one call of its on-chip ``*_large`` entry, and at sizes
-    the four-step route still takes (B12 98,304, B7 50,176) one call of its
-    ``*_4step`` entry with the host plan's N1, and counts one launch; B12
-    at a size whose odd factor needs Bluestein columns calls
-    ``mlx_stft_mag_bluestein`` with the plan.  Below the cap B12 launches
+    wrapper makes one call of its on-chip ``*_large`` entry; B12 at a size
+    the four-step route still takes (98,304) one call of
+    ``mlx_stft_mag_4step`` with the host plan's N1, B7 at 50,176 one call
+    of its on-chip ``mlx_spectrogram_columns_cluster`` entry, and each
+    counts one launch; B12 at a size whose odd factor needs Bluestein
+    columns calls ``mlx_stft_mag_bluestein`` with the plan.  Below the cap B12 launches
     the pair transform at 4096, the one-block transform at 1536 and the
     on-chip one at 32,768, as B7 does.  Only a size int32 indices cannot
     reach raises NotImplementedError, naming why, before any launch."""
@@ -336,11 +337,10 @@ def test_b12_beyond_cap_raises_on_cuda_tensors(monkeypatch):
     kstft.stft_mag(wav, torch.zeros(four).to(meta), four, 12288, 5)
     name, args = rec.calls[-1]
     assert name == "mlx_stft_mag_4step" and args[7:11] == (5, four, n1, 12288)
-    n1, _n2 = kstft.four_step_plan(50176)
     kcols.spectrogram_columns_fused(wav, ends, ends, 1.0, size=50176)
     name, args = rec.calls[-1]
-    assert name == "mlx_spectrogram_columns_4step"
-    assert args[8:11] == (3, 50176, n1)
+    assert name == "mlx_spectrogram_columns_cluster"
+    assert args[6:8] == (3, 50176)
     # at and below the cap: B12's power-of-two sizes take the pair
     # transform, its other sizes the one-block entry; 32,768 points (B12
     # and B7) the on-chip transform
