@@ -1414,10 +1414,13 @@ def main() -> int:
     # two up to 8192, fft_large.cuh's one-CTA transforms at 16,384 and
     # 32,768, the one-block fft_real.cuh at 1536; each also through
     # stft_mags_device, the entry point, whose launches the rows carry
-    def b12_check(sz, hp, nfz, way, name, ph):
+    def b12_check(sz, hp, nfz, way, name, ph, track=None):
         """B12 at (sz, hp) over nfz frames by route ``way``: against its twin
         (< -80 dB) and float64 |rfft| of up to 8 frames (< -60 dB), through
-        stft_mags_device (one launch, equal output); a kernel row."""
+        stft_mags_device (one launch, equal output); a kernel row.
+        ``track``: (tensor on the card, NumPy array) in place of the song."""
+        wav, x = track if track is not None else (song_d, song_np)
+        n = len(x)
         w_d = put(hann_window(sz))
         got = kstft.stft_mag(wav, w_d, sz, hp, nfz)
         want = kstft.stft_mag_plain(wav, w_d, sz, hp, nfz)
@@ -1454,6 +1457,7 @@ def main() -> int:
                fft_flops(nfz, sz))
         rows[name]["launches"] = launches_z
 
+    song_d, song_np = wav, x
     for sz, hp, way, name in (
             (4096, 1024, "pair", "stft_mag_sizes"),
             (1024, 256, "pair", "stft_mag_sizes_1024"),
@@ -2251,10 +2255,12 @@ def main() -> int:
     # -- 19. B7 and B12 above 49,152 points ---------------------------
     # 65,536 points on fft_large.cuh's 2-CTA cluster; B7's other sizes, 1024
     # j for j = 49 .. 63, on fft_mixed.cuh's 2-CTA cluster, every one held
-    # (50,176, 57,344 and 64,512 timed); B12's four-step route where it stays
-    # (98,304 = 3 x 2^15); its Bluestein columns on 2-CTA clusters (512 x
-    # 12,289) and on 4-CTA clusters (512 x 16,411, 16,385 and 32,749); the
-    # direct column sums above N2 = 32,768 (512 x 32,771), one call a rep
+    # (50,176, 57,344 and 64,512 timed); B12's four-step route in coalesced
+    # tiles (98,304 = 3 x 2^15, 131,072 and 1,048,576 points); its Bluestein
+    # columns on 2-CTA clusters (512 x 12,289) and on 4-CTA clusters (512 x
+    # 16,411, 16,385 and 32,749); above N2 = 32,768 through device scratch
+    # (512 x 32,771 on the song, 512 x 65,537 on the song tiled four times,
+    # so both frames hold signal)
     timed_b7 = {65536: "spectrogram_columns_65536",
                 50176: "spectrogram_columns_cluster_50176",
                 57344: "spectrogram_columns_cluster_57344",
@@ -2269,20 +2275,30 @@ def main() -> int:
             b7_row(timed_b7[big], big, ends_b - span, ends_b, launches_b)
     for sz, hp, way, name in (
             (65536, 8192, "large", "stft_mag_sizes_large_65536"),
-            (98304, 12288, "four_step", "stft_mag_sizes_four_step_98304")):
+            (98304, 12288, "four_step", "stft_mag_sizes_four_step_98304"),
+            (131072, 16384, "four_step", "stft_mag_sizes_four_step_131072"),
+            (1 << 20, 131072, "four_step",
+             "stft_mag_sizes_four_step_1048576")):
         b12_check(sz, hp, num_frames(n, sz, hp), way, name, 19)
-    for n2, way, ctas, name in (
-            (12289, "bluestein", 2, "stft_mag_sizes_bluestein"),
-            (16411, "bluestein", 4, "stft_mag_sizes_bluestein_4cta"),
-            (16385, "bluestein", 4, "stft_mag_sizes_bluestein_4cta_16385"),
-            (32749, "bluestein", 4, "stft_mag_sizes_bluestein_4cta_32749"),
-            (32771, "direct", None, "stft_mag_sizes_direct")):
+    x4 = np.tile(x, 4)
+    tiled = (put(x4), x4)
+    for n2, way, ctas, name, track in (
+            (12289, "bluestein", 2, "stft_mag_sizes_bluestein", None),
+            (16411, "bluestein", 4, "stft_mag_sizes_bluestein_4cta", None),
+            (16385, "bluestein", 4, "stft_mag_sizes_bluestein_4cta_16385",
+             None),
+            (32749, "bluestein", 4, "stft_mag_sizes_bluestein_4cta_32749",
+             None),
+            (32771, "bluestein_scratch", None,
+             "stft_mag_sizes_bluestein_scratch", None),
+            (65537, "bluestein_scratch", None,
+             "stft_mag_sizes_bluestein_scratch_65537", tiled)):
         odd = 512 * n2  # N1 512, N2 prime
         check(kstft.four_step_plan(odd) == (512, n2), f"B12 512 x {n2} plan")
         check(ctas is None or kstft.bluestein_cluster(n2) == ctas,
               f"B12 512 x {n2} cluster")
-        b12_check(odd, odd // 4, 2, way, name, 19)
-    rows["stft_mag_sizes_direct"]["inner"] = 1  # seconds a call
+        b12_check(odd, odd // 4, 2, way, name, 19, track)
+    del tiled, x4
 
     # -- 20. two ranks on gloo, each on this card ----------------------
     with tempfile.TemporaryDirectory() as tmp:

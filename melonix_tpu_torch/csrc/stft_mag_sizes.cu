@@ -9,7 +9,7 @@
 // (n_frames, N/2) float32, bins in natural order,
 // out[f, k] = |sum_i win[i] x_f[i] e^{-2 pi i k i / N}| * scale.
 //
-// Five routes, picked by N alone (kernels/stft.py route):
+// Six routes, picked by N alone (kernels/stft.py route):
 //
 // * N = 512 ... 8192, a power of two: mlx_stft_mag_pair, B1's kernel
 //   (stft_mag_pair.cuh) at N: two frames per complex transform on the
@@ -32,20 +32,29 @@
 //   samples plus a direct m-point sum per output bin.  Shared memory is
 //   4*N bytes (the wrapper caps N, kernels/stft.py).
 //
-// * Other sizes above 49,152 points: the four-step route of
-//   fft_fourstep.cuh: stft_four_step_cols (one block per (frame, n1): the
-//   windowed strided samples' real N2-point transforms, into a scratch
-//   buffer) then stft_four_step_rows (a block per (frame, k2): twiddles, the
-//   complex N1-point transform, |X| * scale for the bins below N/2).
+// * Other sizes above 49,152 points: mlx_stft_mag_4step, the four-step
+//   route of fft_fourstep.cuh in coalesced tiles: stft_four_step_cols (a
+//   CTA a frame and T consecutive n1: the windowed columns' real N2-point
+//   transforms, into a scratch buffer), then stft_four_step_rows (a CTA a
+//   frame and K consecutive k2: twiddles, the complex N1-point transforms,
+//   |X| * scale for the bins below N/2).
 //
-// * Where N's odd factor is above 12,288 the four-step columns are no FFT:
-//   up to N2 = 32,768 mlx_stft_mag_bluestein runs them by Bluestein
-//   (stft_four_step_cols_bluestein: two columns a cluster, two 32,768-point
-//   transforms on 2 CTAs up to N2 = 16,384, two 65,536-point transforms on
-//   4 above), above it stft_four_step_cols_direct sums them directly; the
-//   rows stay.
+// * Where N's odd factor is above 12,288 the four-step columns are
+//   Bluestein convolutions: up to N2 = 32,768 mlx_stft_mag_bluestein on
+//   clusters (stft_four_step_cols_bluestein: two columns a cluster, two
+//   32,768-point transforms on 2 CTAs up to N2 = 16,384, two 65,536-point
+//   transforms on 4 above);
+//
+// * above N2 = 32,768 mlx_stft_mag_bluestein_scratch through device
+//   scratch (L = 131,072 ... 8,388,608 points a column pair: forward,
+//   middle, inverse and split kernels, the pairs in chunks through one
+//   work space of at most 512 MiB).  Both Bluestein routes end in
+//   stft_four_step_rows.
+#include <algorithm>
+
 #include "fft_fourstep.cuh"
 #include "fft_large.cuh"
+#include "fft_real.cuh"
 #include "stft_mag_pair.cuh"
 
 namespace {
@@ -93,39 +102,26 @@ stft_mag_large_kernel(const float* __restrict__ wav, long long n,
       s, tw);
 }
 
-// Four-step route, step 1: grid (frames, N1).
-__global__ void __launch_bounds__(kThreads)
+// Four-step route, step 1 in tiles: CTA blockIdx.x = frame * tiles + tile,
+// columns tile * T .. tile * T + T - 1 (mlx::four_step_columns); `tab` is
+// kstft.four_step_column_table(N2); (kT, kPts) = mlx::tiles::config(P).
+template <int kT, int kPts>
+__global__ void __launch_bounds__(kT, kT == 512 ? 1 : kPts == 16 ? 4 : 2)
 stft_four_step_cols(const float* __restrict__ wav, long long n,
                     const float* __restrict__ win,
-                    const float2* __restrict__ tw2, mlx::FourStep f, int hop,
+                    const float2* __restrict__ tab, mlx::FourStep f,
+                    mlx::ColTile ct, int tiles, int hop,
                     float2* __restrict__ scratch) {
   extern __shared__ float2 s[];
-  const long long start = static_cast<long long>(blockIdx.x) * hop;
-  mlx::four_step_column(
-      s, f, tw2, blockIdx.y,
+  const int frame = blockIdx.x / tiles, tile = blockIdx.x % tiles;
+  const long long start = static_cast<long long>(frame) * hop;
+  mlx::four_step_columns<kT, kPts>(
+      s, f, ct, tab, tile * ct.t,
       [&](int i) {
         const long long idx = start + i;
-        return (idx < n ? wav[idx] : 0.0f) * win[i];
+        return (idx < n ? __ldg(wav + idx) : 0.0f) * __ldg(win + i);
       },
-      scratch + blockIdx.x * mlx::four_step_scratch(f));
-}
-
-// Four-step route, step 1 by direct sums (mlx::four_step_direct): grid
-// (frames, N1); `circle` the whole N2-point table.
-__global__ void __launch_bounds__(kThreads)
-stft_four_step_cols_direct(const float* __restrict__ wav, long long n,
-                           const float* __restrict__ win,
-                           const float2* __restrict__ circle, mlx::FourStep f,
-                           int hop, float2* __restrict__ scratch) {
-  __shared__ float s[mlx::kDirectTile];
-  const long long start = static_cast<long long>(blockIdx.x) * hop;
-  mlx::four_step_column_direct(
-      s, f, circle, blockIdx.y,
-      [&](int i) {
-        const long long idx = start + i;
-        return (idx < n ? wav[idx] : 0.0f) * win[i];
-      },
-      scratch + blockIdx.x * mlx::four_step_scratch(f));
+      scratch + frame * mlx::four_step_scratch(f));
 }
 
 // Four-step route, step 1 by Bluestein (N2 <= mlx::kBluesteinMax): grid
@@ -155,22 +151,219 @@ stft_four_step_cols_bluestein(const float* __restrict__ wav, long long n,
       scratch + blockIdx.y * mlx::four_step_scratch(f));
 }
 
-// Four-step route, steps 2-3: grid (frames, min(N2, 65535)), rows k2 =
-// blockIdx.y + j * gridDim.y (the direct route's N2 can pass the grid's
-// y limit).
-__global__ void __launch_bounds__(kThreads)
+// Bluestein through scratch (N2 > mlx::kBluesteinMax), the pairs item0 +
+// blockIdx.y of a chunk: item = frame * N1 / 2 + pair, columns 2 pair and
+// 2 pair + 1; work space `work` + blockIdx.y * L.  `tab` is
+// kstft.bluestein_scratch_table(N2) (mlx::ScratchPlan).
+
+// CTA (r, item): w[r][k] = W_L^(r k) Y_r[k], Y_r the 16,384-point DFT of
+// the chirped pair a[C m + r].
+__global__ void __launch_bounds__(mlx::large::Large<16384>::kThreads, 1)
+stft_bluestein_forward(const float* __restrict__ wav, long long n,
+                       const float* __restrict__ win,
+                       const float2* __restrict__ tab, mlx::FourStep f,
+                       mlx::ScratchPlan sp, int hop, long long item0,
+                       float2* __restrict__ work) {
+  extern __shared__ float2 s[];
+  constexpr int M = mlx::kBluesteinM;
+  const int r = blockIdx.x;
+  const long long item = item0 + blockIdx.y;
+  const long long start = item / (f.n1 / 2) * hop;
+  const int n1a = static_cast<int>(item % (f.n1 / 2)) * 2;
+  auto x = [&](long long i) {
+    const long long idx = start + i;
+    return (idx < n ? __ldg(wav + idx) : 0.0f) * __ldg(win + i);
+  };
+  auto pair = [&](int q) {
+    const long long i = n1a + static_cast<long long>(f.n1) * q;
+    return make_float2(x(i), x(i + 1));
+  };
+  const float2* chirp = tab + static_cast<long long>(r) * M;  // [r][m]
+  mlx::large::fft<M>(
+      [&](int m) {
+        const int nn = sp.c * m + r;
+        return nn < f.n2 ? mlx::pairfft::ctw(pair(nn), __ldg(chirp + m), -1.0f)
+                         : make_float2(0.0f, 0.0f);
+      },
+      [] {}, s, tab + sp.pass, -1.0f);
+  float2* w = work + blockIdx.y * static_cast<long long>(sp.l) +
+              static_cast<long long>(r) * M;
+#pragma unroll 8
+  for (int k = threadIdx.x; k < M; k += mlx::large::Large<M>::kThreads) {
+    w[k] = mlx::pairfft::ctw(s[k], mlx::scratch_twiddle(tab, sp, r, k),
+                             -1.0f);
+  }
+}
+
+// Thread (k, item), C <= 16: across r in registers, both directions, in
+// place.
+template <int C>
+__global__ void __launch_bounds__(256)
+stft_bluestein_middle_regs(const float2* __restrict__ tab,
+                           mlx::ScratchPlan sp, float2* __restrict__ work) {
+  constexpr int M = mlx::kBluesteinM, lc = mlx::pairfft::ilog2(C);
+  const int k = blockIdx.x * blockDim.x + threadIdx.x;
+  float2* w = work + blockIdx.y * static_cast<long long>(sp.l) + k;
+  float2 v[C];
+#pragma unroll
+  for (int r = 0; r < C; ++r) v[r] = w[r * M];
+  mlx::pairfft::dft_regs<C>(v, -1.0f);  // X[k + q M] in v[brev(q)]
+#pragma unroll
+  for (int q = 0; q < C; ++q) {
+    const int b = mlx::pairfft::brev(q, lc);
+    v[b] = mlx::pairfft::ctw(v[b], __ldg(tab + sp.spec + k + q * M), 1.0f);
+  }
+  float2 u[C];
+#pragma unroll
+  for (int q = 0; q < C; ++q) u[q] = v[mlx::pairfft::brev(q, lc)];
+  mlx::pairfft::dft_regs<C>(u, 1.0f);
+#pragma unroll
+  for (int q = 0; q < C; ++q) {
+    w[q * M] = mlx::pairfft::ctw(u[mlx::pairfft::brev(q, lc)],
+                                 mlx::scratch_twiddle(tab, sp, q, k), 1.0f);
+  }
+}
+
+// CTA (tile of mid_tile(C) k's, item), C > 16: across r, both directions,
+// in place.
+__global__ void __launch_bounds__(mlx::kMidThreads, 2)
+stft_bluestein_middle(const float2* __restrict__ tab, mlx::ScratchPlan sp,
+                      float2* __restrict__ work) {
+  extern __shared__ float2 s[];
+  constexpr int M = mlx::kBluesteinM, kT = mlx::kMidThreads;
+  const int C = sp.c, KT = mlx::mid_tile(C), S = C + 1;
+  const int lg = mlx::ilog2_floor(KT), k0 = blockIdx.x * KT;
+  float2* w = work + blockIdx.y * static_cast<long long>(sp.l) + k0;
+  auto at = [&](int idx) {  // [r][k] in the work space, tile-relative
+    return static_cast<long long>(idx >> lg) * M + (idx & (KT - 1));
+  };
+  mlx::tiles::staged<kT, float2>(
+      C * KT, [&](int idx) { return w[at(idx)]; },
+      [&](int idx, float2 v) { s[(idx & (KT - 1)) * S + (idx >> lg)] = v; });
+  __syncthreads();
+  mlx::tiles::batch_fft<kT, 16>(s, KT, S, C, tab + sp.wc, -1.0f);
+  mlx::tiles::staged<kT, float2>(
+      C * KT, [&](int idx) { return __ldg(tab + sp.spec + k0 + at(idx)); },
+      [&](int idx, float2 v) {
+        float2* x = s + (idx & (KT - 1)) * S + (idx >> lg);
+        *x = mlx::pairfft::ctw(*x, v, 1.0f);
+      });
+  __syncthreads();
+  mlx::tiles::batch_fft<kT, 16>(s, KT, S, C, tab + sp.wc, 1.0f);
+#pragma unroll 4
+  for (int idx = threadIdx.x; idx < C * KT; idx += kT) {
+    const int q = idx >> lg, kk = idx & (KT - 1);
+    w[static_cast<long long>(q) * M + kk] = mlx::pairfft::ctw(
+        s[kk * S + q], mlx::scratch_twiddle(tab, sp, q, k0 + kk), 1.0f);
+  }
+}
+
+// CTA (q', item): w[q'][m] = Z[C m + q'] = conj(b) conv[C m + q'] where C m
+// + q' < N2, conv[C m + q'] the inverse 16,384-point DFT of w[q'][.].
+__global__ void __launch_bounds__(mlx::large::Large<16384>::kThreads, 1)
+stft_bluestein_inverse(const float2* __restrict__ tab, mlx::ScratchPlan sp,
+                       float2* __restrict__ work) {
+  extern __shared__ float2 s[];
+  constexpr int M = mlx::kBluesteinM;
+  const int q = blockIdx.x;
+  float2* w = work + blockIdx.y * static_cast<long long>(sp.l) +
+              static_cast<long long>(q) * M;
+  mlx::large::fft<M>([&](int m) { return w[m]; }, [] {}, s, tab + sp.pass,
+                     1.0f);
+#pragma unroll 8
+  for (int m = threadIdx.x; m < M; m += mlx::large::Large<M>::kThreads) {
+    if (sp.c * m + q < sp.n2) {
+      w[m] = mlx::pairfft::ctw(
+          s[m], __ldg(tab + static_cast<long long>(q) * M + m), -1.0f);
+    }
+  }
+}
+
+// CTA (bins k0 .. k0 + 63, items it0 .. it0 + 15 of the chunk): the two
+// columns of rows k <= N2 / 2, read along k, stored with the items fastest.
+__global__ void __launch_bounds__(256)
+stft_bluestein_split(mlx::FourStep f, mlx::ScratchPlan sp, long long item0,
+                     int nit, const float2* __restrict__ work,
+                     float2* __restrict__ scratch) {
+  constexpr int KB = mlx::kSplitBins, KI = mlx::kSplitItems;
+  __shared__ float4 tile[KB][KI + 1];
+  const int k0 = blockIdx.x * KB, it0 = blockIdx.y * KI, half = f.n2 / 2;
+  for (int idx = threadIdx.x; idx < KB * KI; idx += blockDim.x) {
+    const int kk = idx % KB, pp = idx / KB, k = k0 + kk;
+    if (k <= half && it0 + pp < nit) {
+      const float2* w = work + (it0 + pp) * static_cast<long long>(sp.l);
+      auto z = [&](int x) {
+        return __ldg(w + static_cast<long long>(x & (sp.c - 1)) *
+                             mlx::kBluesteinM + (x >> sp.log_c));
+      };
+      const float2 zk = z(k), zm = z(k == 0 ? 0 : f.n2 - k);
+      tile[kk][pp] = make_float4(0.5f * (zk.x + zm.x), 0.5f * (zk.y - zm.y),
+                                 0.5f * (zk.y + zm.y), -0.5f * (zk.x - zm.x));
+    }
+  }
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < KB * KI; idx += blockDim.x) {
+    const int pp = idx % KI, kk = idx / KI, k = k0 + kk;
+    if (k <= half && it0 + pp < nit) {
+      const long long item = item0 + it0 + pp;
+      const int frame = static_cast<int>(item / (f.n1 / 2));
+      const int n1a = static_cast<int>(item % (f.n1 / 2)) * 2;
+      *reinterpret_cast<float4*>(scratch + frame * mlx::four_step_scratch(f) +
+                                 static_cast<long long>(k) * f.n1 + n1a) =
+          tile[kk][pp];
+    }
+  }
+}
+
+// Four-step route, steps 2-3: CTA blockIdx.x = frame * tiles + tile, rows
+// tile * K .. tile * K + K - 1 (mlx::four_step_rows); `tw` is
+// kstft.four_step_twiddles(N, N1); (kT, kPts) = mlx::tiles::config(N1).
+template <int kT, int kPts>
+__global__ void __launch_bounds__(kT, kT == 512 ? 1 : kPts == 16 ? 4 : 2)
 stft_four_step_rows(const float2* __restrict__ tw, mlx::FourStep f,
+                    mlx::RowTile rt, int tiles,
                     const float2* __restrict__ scratch,
                     float* __restrict__ out, float scale) {
   extern __shared__ float2 s[];
-  float* row = out + static_cast<long long>(blockIdx.x) * (f.n / 2);
-  for (int k2 = blockIdx.y; k2 < f.n2; k2 += gridDim.y) {
-    if (k2 != static_cast<int>(blockIdx.y)) __syncthreads();  // row read
-    mlx::four_step_row(s, f, tw, k2,
-                       scratch + blockIdx.x * mlx::four_step_scratch(f),
-                       [&](int k, float2 v) {
-                         row[k] = sqrtf(v.x * v.x + v.y * v.y) * scale;
-                       });
+  const int frame = blockIdx.x / tiles, tile = blockIdx.x % tiles;
+  float* row = out + static_cast<long long>(frame) * (f.n / 2);
+  mlx::four_step_rows<kT, kPts>(s, f, rt, tw, tile * rt.k,
+                          scratch + frame * mlx::four_step_scratch(f),
+                          [&](int k, float2 v) {
+                            row[k] = sqrtf(v.x * v.x + v.y * v.y) * scale;
+                          });
+}
+
+// Launch a tile kernel of kT threads on `ctas` CTAs with `smem` bytes.
+template <int kT, class... Exp, class... Act>
+cudaError_t launch_tiles(void (*kernel)(Exp...), int ctas, size_t smem,
+                         cudaStream_t stream, Act&&... args) {
+  const cudaError_t err = mlx::allow_smem(kernel, smem, kT == 256);
+  if (err != cudaSuccess) return err;
+  kernel<<<ctas, kT, smem, stream>>>(static_cast<Act&&>(args)...);
+  return cudaGetLastError();
+}
+
+// The rows of every four-step form, over n_frames frames.
+cudaError_t launch_rows(const float2* tw, const mlx::FourStep& f,
+                        const float2* scratch, float* out, int n_frames,
+                        float scale, cudaStream_t stream) {
+  const mlx::RowTile rt = mlx::make_row_tile(f.n1);
+  const long long tiles = mlx::row_tiles(f, rt);
+  if (tiles * n_frames > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const int ctas = static_cast<int>(tiles * n_frames);
+  const size_t smem = mlx::row_tile_smem(rt);
+  const int tl = static_cast<int>(tiles);
+  switch (mlx::tiles::config(f.n1)) {
+    case 0:
+      return launch_tiles<256>(stft_four_step_rows<256, 16>, ctas, smem,
+                               stream, tw, f, rt, tl, scratch, out, scale);
+    case 1:
+      return launch_tiles<256>(stft_four_step_rows<256, 32>, ctas, smem,
+                               stream, tw, f, rt, tl, scratch, out, scale);
+    default:
+      return launch_tiles<512>(stft_four_step_rows<512, 32>, ctas, smem,
+                               stream, tw, f, rt, tl, scratch, out, scale);
   }
 }
 
@@ -263,12 +456,13 @@ extern "C" int mlx_stft_mag_large(const float* wav, long long n,
   }
 }
 
-// B12 where the four-step columns take Bluestein (an odd factor above
-// 12,288, N2 <= 32,768): the columns on clusters of 2 CTAs (N2 <= 16,384)
-// or 4, then the four-step rows.  `scratch` as mlx_stft_mag_4step's; tw the
-// size-point table, tab kstft.bluestein_table(size / n1).  Other plans are
-// refused (cudaErrorInvalidValue); a cluster the card cannot hold is refused
-// at launch (cudaErrorLaunchOutOfResources), never run another way.
+// B12 where the four-step columns take Bluestein on a cluster (an odd
+// factor above 12,288, N2 <= 32,768): the columns on clusters of 2 CTAs
+// (N2 <= 16,384) or 4, then the four-step rows.  `scratch` as
+// mlx_stft_mag_4step's; tw kstft.four_step_twiddles(size, n1), tab
+// kstft.bluestein_table(size / n1).  Other plans are refused
+// (cudaErrorInvalidValue); a cluster the card cannot hold is refused at
+// launch (cudaErrorLaunchOutOfResources), never run another way.
 extern "C" int mlx_stft_mag_bluestein(const float* wav, long long n,
                                       const float* win, const float2* tw,
                                       const float2* tab, float2* scratch,
@@ -277,7 +471,7 @@ extern "C" int mlx_stft_mag_bluestein(const float* wav, long long n,
                                       cudaStream_t stream) {
   if (n_frames <= 0) return static_cast<int>(cudaGetLastError());
   const mlx::FourStep f = mlx::make_four_step(size, n1);
-  if (!mlx::four_step_direct(f) || f.n2 > mlx::kBluesteinMax || n1 % 2 ||
+  if (!mlx::four_step_bluestein(f) || f.n2 > mlx::kBluesteinMax || n1 % 2 ||
       n_frames > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -292,46 +486,113 @@ extern "C" int mlx_stft_mag_bluestein(const float* wav, long long n,
           : mlx::launch_clustered(stft_four_step_cols_bluestein<4>, grid,
                                   L::kThreads, L::kSmem, 4, stream, wav, n,
                                   win, tab, f, hop, scratch);
-  const size_t smem_rows = static_cast<size_t>(n1) * sizeof(float2);
-  if (err == cudaSuccess) err = mlx::allow_smem(stft_four_step_rows, smem_rows);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  stft_four_step_rows<<<dim3(n_frames, min(f.n2, 65535)), kThreads, smem_rows,
-                        stream>>>(tw, f, scratch, out, scale);
-  return static_cast<int>(cudaGetLastError());
+  if (err == cudaSuccess) {
+    err = launch_rows(tw, f, scratch, out, n_frames, scale, stream);
+  }
+  return static_cast<int>(err);
 }
 
-// B12 above 49,152 points at the other sizes: the four-step route.
-// `scratch` holds n_frames * (size / n1 / 2 + 1) * n1 float2 values; tw the
-// size-point table, tw2 the (size / n1)-point one: half the circle, or the
-// whole circle where the columns take the direct sums (mlx::four_step_direct
-// with N2 above mlx::kBluesteinMax).
+// B12 where the four-step columns take Bluestein above N2 = 32,768: the
+// column pairs through the work space `work` (min(pairs, 512 MiB / (8 L))
+// pairs of L float2, kstft.bluestein_work), a chunk of pairs at a time
+// (forward, middle, inverse, split), then the four-step rows.  `scratch`
+// as mlx_stft_mag_4step's; tw kstft.four_step_twiddles(size, n1), tab
+// kstft.bluestein_scratch_table(size / n1).  Other plans are refused
+// (cudaErrorInvalidValue), never run another way.
+extern "C" int mlx_stft_mag_bluestein_scratch(
+    const float* wav, long long n, const float* win, const float2* tw,
+    const float2* tab, float2* scratch, float2* work, float* out,
+    int n_frames, int size, int n1, int hop, float scale,
+    cudaStream_t stream) {
+  if (n_frames <= 0) return static_cast<int>(cudaGetLastError());
+  const mlx::FourStep f = mlx::make_four_step(size, n1);
+  if (!mlx::four_step_bluestein(f) || f.n2 <= mlx::kBluesteinMax ||
+      n1 % 2) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  using L = mlx::large::Large<16384>;
+  const mlx::ScratchPlan sp = mlx::make_scratch_plan(f.n2);
+  const long long items = static_cast<long long>(n_frames) * (n1 / 2);
+  const long long chunk =
+      std::min(items, mlx::kWorkBytes / (8LL * sp.l));
+  const size_t smem_mid =
+      static_cast<size_t>(mlx::mid_tile(sp.c)) * (sp.c + 1) * sizeof(float2);
+  cudaError_t err = mlx::allow_smem(stft_bluestein_forward, L::kSmem);
+  if (err == cudaSuccess) err = mlx::allow_smem(stft_bluestein_inverse, L::kSmem);
+  if (err == cudaSuccess) err = mlx::allow_smem(stft_bluestein_middle, smem_mid);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  for (long long i0 = 0; i0 < items; i0 += chunk) {
+    const int nit = static_cast<int>(std::min(chunk, items - i0));
+    stft_bluestein_forward<<<dim3(sp.c, nit), L::kThreads, L::kSmem,
+                             stream>>>(wav, n, win, tab, f, sp, hop, i0,
+                                       work);
+    const dim3 regs(mlx::kBluesteinM / 256, nit);
+    switch (sp.c) {
+      case 8:
+        stft_bluestein_middle_regs<8><<<regs, 256, 0, stream>>>(tab, sp,
+                                                                work);
+        break;
+      case 16:
+        stft_bluestein_middle_regs<16><<<regs, 256, 0, stream>>>(tab, sp,
+                                                                 work);
+        break;
+      default:
+        stft_bluestein_middle<<<dim3(mlx::kBluesteinM / mlx::mid_tile(sp.c),
+                                     nit),
+                                mlx::kMidThreads, smem_mid, stream>>>(
+            tab, sp, work);
+    }
+    stft_bluestein_inverse<<<dim3(sp.c, nit), L::kThreads, L::kSmem,
+                             stream>>>(tab, sp, work);
+    stft_bluestein_split<<<dim3(f.n2 / 2 / mlx::kSplitBins + 1,
+                                (nit + mlx::kSplitItems - 1) /
+                                    mlx::kSplitItems),
+                           256, 0, stream>>>(f, sp, i0, nit, work, scratch);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return static_cast<int>(
+      launch_rows(tw, f, scratch, out, n_frames, scale, stream));
+}
+
+// B12 above 49,152 points at the other sizes: the four-step route in tiles.
+// `scratch` holds n_frames * (size / n1 / 2 + 1) * n1 float2 values; tw is
+// kstft.four_step_twiddles(size, n1), tw2 kstft.four_step_column_table(size
+// / n1).  A plan whose columns take Bluestein is refused
+// (cudaErrorInvalidValue).
 extern "C" int mlx_stft_mag_4step(const float* wav, long long n,
                                   const float* win, const float2* tw,
                                   const float2* tw2, float2* scratch,
                                   float* out, int n_frames, int size, int n1,
                                   int hop, float scale, cudaStream_t stream) {
-  if (n_frames > 0) {
-    const mlx::FourStep f = mlx::make_four_step(size, n1);
-    const bool direct = mlx::four_step_direct(f);
-    const size_t smem_cols = direct ? 0 : mlx::real_dft_smem(f.col);
-    const size_t smem_rows = static_cast<size_t>(n1) * sizeof(float2);
-    cudaError_t err = mlx::allow_smem(stft_four_step_cols, smem_cols);
-    if (err == cudaSuccess) {
-      err = mlx::allow_smem(stft_four_step_rows, smem_rows);
-    }
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (direct) {
-      stft_four_step_cols_direct<<<dim3(n_frames, f.n1), kThreads, 0,
-                                   stream>>>(wav, n, win, tw2, f, hop,
-                                             scratch);
-    } else {
-      stft_four_step_cols<<<dim3(n_frames, f.n1), kThreads, smem_cols,
-                            stream>>>(wav, n, win, tw2, f, hop, scratch);
-    }
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    stft_four_step_rows<<<dim3(n_frames, min(f.n2, 65535)), kThreads,
-                          smem_rows, stream>>>(tw, f, scratch, out, scale);
+  if (n_frames <= 0) return static_cast<int>(cudaGetLastError());
+  const mlx::FourStep f = mlx::make_four_step(size, n1);
+  const mlx::ColTile ct = mlx::make_col_tile(f.n2);
+  if (mlx::four_step_bluestein(f) || n1 % ct.t) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
+  const int tiles = n1 / ct.t;
+  const size_t smem = mlx::col_tile_smem(ct);
+  const int ctas = tiles * n_frames;
+  cudaError_t err;
+  switch (mlx::tiles::config(ct.p)) {
+    case 0:
+      err = launch_tiles<256>(stft_four_step_cols<256, 16>, ctas, smem,
+                              stream, wav, n, win, tw2, f, ct, tiles, hop,
+                              scratch);
+      break;
+    case 1:
+      err = launch_tiles<256>(stft_four_step_cols<256, 32>, ctas, smem,
+                              stream, wav, n, win, tw2, f, ct, tiles, hop,
+                              scratch);
+      break;
+    default:
+      err = launch_tiles<512>(stft_four_step_cols<512, 32>, ctas, smem,
+                              stream, wav, n, win, tw2, f, ct, tiles, hop,
+                              scratch);
+  }
+  if (err == cudaSuccess) {
+    err = launch_rows(tw, f, scratch, out, n_frames, scale, stream);
+  }
+  return static_cast<int>(err);
 }

@@ -96,6 +96,10 @@ SIGNATURES = {
     # stream
     "mlx_stft_mag_bluestein": (_P, _L) + (_P,) * 5 + (_I, _I, _I, _I, _F,
                                                       _P),
+    # wav, n, win, tw, tab, scratch, work, out, n_frames, size, n1, hop,
+    # scale, stream
+    "mlx_stft_mag_bluestein_scratch": (_P, _L) + (_P,) * 6 + (_I, _I, _I, _I,
+                                                              _F, _P),
 }
 
 

@@ -30,8 +30,8 @@ import torch
 import functools
 
 from . import _build
-from .stft import (LARGE_SIZES, MAX_SIZE, circle, large_twiddles,
-                   twiddles)  # the FFT routes and tables shared with B12
+from .stft import (LARGE_SIZES, MAX_SIZE, large_twiddles, twiddles,
+                   unit_roots)  # the FFT routes and tables shared with B12
 
 N1 = 128  # the TPU kernel's lane factor, kept for its size predicate
 _PI_REF = 3.141592  # the reference's pi literal (spec-cache.cpp:86)
@@ -71,8 +71,8 @@ def cluster_plan(size: int) -> tuple[int, int]:
 def cluster_table(size: int, device: torch.device) -> torch.Tensor:
     """The one float32 table of the cluster route at ``size`` points
     (``MixedPlan``'s offsets), computed in float64 and rounded once:
-    :func:`~melonix_tpu_torch.kernels.stft.circle` of 256 (pass 2) and of P
-    (pass 3); (cos, sin)(2 pi x / size) for x < 128 and for x = 128 y, y <
+    :func:`~melonix_tpu_torch.kernels.stft.unit_roots` of 256 (pass 2) and
+    of P (pass 3); (cos, sin)(2 pi x / size) for x < 128 and for x = 128 y, y <
     size / 256 (any W_N^x, x < size / 2, as one product); the m-point
     DFT's (cos, sin)(2 pi s p / m), s < m, 1 <= p <= (m - 1) / 2, at s h + p
     - 1."""
@@ -83,9 +83,8 @@ def cluster_table(size: int, device: torch.device) -> torch.Tensor:
     ang = np.concatenate([2.0 * np.pi * x.astype(np.float64) / size,
                           2.0 * np.pi * sp.ravel().astype(np.float64) / m])
     tail = np.stack([np.cos(ang), np.sin(ang)], axis=1).astype(np.float32)
-    cpu = torch.device("cpu")
-    return torch.cat([circle(256, cpu), circle(p, cpu),
-                      torch.from_numpy(tail)]).to(device)
+    return torch.from_numpy(np.concatenate([
+        unit_roots(256, 256), unit_roots(p, p), tail])).to(device)
 
 
 def _pack_rgb(mags, kgain):

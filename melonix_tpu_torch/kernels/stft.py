@@ -13,17 +13,19 @@ cluster); the other sizes up to :data:`MAX_SIZE` the real-input FFT of
 ``csrc/fft_real.cuh`` in shared memory, one block per frame; above it, the
 four-step route of ``csrc/fft_fourstep.cuh`` through a scratch buffer
 (:func:`four_step_plan` picks its factors, :func:`four_step_plain` spells
-its arithmetic in torch), whose column transforms, where the odd factor
-does not fit one block, are Bluestein convolutions on the cluster
-transform up to :data:`BLUESTEIN_MAX` points (two columns a cluster of
-:func:`bluestein_cluster` CTAs: 2 up to :data:`LARGE_M` points, 4 above)
-and direct sums above that.
+its arithmetic in torch) in coalesced tiles (:func:`column_tile`,
+:func:`row_tile`), whose column transforms, where the odd factor does not
+fit a tile, are Bluestein convolutions: on the cluster transform up to
+:data:`BLUESTEIN_MAX` points (two columns a cluster of
+:func:`bluestein_cluster` CTAs: 2 up to :data:`LARGE_M` points, 4 above),
+through device scratch above (:func:`bluestein_scratch_plan`, at most
+:data:`BLUESTEIN_WORK` bytes of work space).
 
 ``stft_mag`` launches the kernel for a CUDA tensor, runs
 :func:`stft_mag_plain` for a CPU tensor, and raises for anything else;
 ``stft_mag.launches`` counts its launches, one a call whatever the route.
 ``twiddles`` is the float32 table of the real-input FFT, shared with B7
-(``kernels/columns.py``), as are the four-step plan and
+(``kernels/columns.py``), as are :func:`unit_roots` and
 :func:`large_twiddles`.
 """
 
@@ -38,16 +40,20 @@ from . import _build
 from .pv import PAIR_SIZES, pair_twiddles
 from .pv import stft_mag_plain  # size-generic: the twin of B1 and B12
 
-__all__ = ["MAX_SIZE", "LARGE_SIZES", "BLUESTEIN_MAX", "supported", "route",
-           "stft_mag", "stft_mag_plain", "twiddles", "circle",
-           "large_pass_table", "large_twiddles", "bluestein_cluster",
-           "bluestein_table", "four_step_plan", "four_step_plain"]
+__all__ = ["MAX_SIZE", "LARGE_SIZES", "BLUESTEIN_MAX", "BLUESTEIN_WORK",
+           "supported", "route", "stft_mag", "stft_mag_plain", "twiddles",
+           "unit_roots", "large_pass_table", "large_twiddles",
+           "bluestein_cluster", "bluestein_table", "bluestein_scratch_plan",
+           "bluestein_scratch_table", "four_step_plan", "four_step_plain",
+           "four_step_bluestein", "four_step_twiddles",
+           "four_step_column_table", "column_tile", "row_tile",
+           "tile_config"]
 
 # The one-block transform keeps 4 * size bytes in dynamic shared memory
 # (fft_real.cuh); 49152 points take 192 KB of the block's 227 KB.  Larger
 # sizes take the four-step route.
 MAX_SIZE = 49152
-MAX_N1 = 16384  # the four-step rows keep 8 * N1 bytes: 128 KB
+MAX_N1 = 16384  # a four-step row tile of one row keeps 8 * N1 bytes
 # Sizes whose frame is one transform held on chip (csrc/fft_large.cuh):
 # 8192, 16,384 and 32,768 packed complex points.
 LARGE_SIZES = (16384, 32768, 65536)
@@ -55,16 +61,32 @@ LARGE_M = 16384  # points of Large<M>, the one-CTA transform
 # The largest four-step column Bluestein takes: its convolution runs on a
 # cluster of up to 4 CTAs of LARGE_M points, L = 65,536 >= 2 * N2 - 1.
 BLUESTEIN_MAX = 2 * LARGE_M
+# Above it the column pairs go through device scratch in chunks, L float2 of
+# work space a pair, at most this many bytes in all (csrc/fft_fourstep.cuh
+# kWorkBytes).
+BLUESTEIN_WORK = 1 << 29
+SMEM_MAX = 232448  # the H100's shared memory a CTA (fft_fourstep.cuh)
+ROW_LANES = 16  # a row tile's source rows, at most (kRowLanes)
 SLAB_PAD = 8  # the TPU kernel's largest size // hop
 BT = 256  # the TPU kernel's bin tile
+
+
+def _roots_at(x: np.ndarray, n: int) -> np.ndarray:
+    """(len(x), 2) float32 cos/sin(2 pi x / n), x int64, in float64."""
+    ang = 2.0 * np.pi * (x % n).astype(np.float64) / n
+    return np.stack([np.cos(ang), np.sin(ang)], axis=1).astype(np.float32)
+
+
+def unit_roots(size: int, count: int) -> np.ndarray:
+    """(count, 2) float32 cos/sin(2 pi j / size), j < count, the angle from
+    j mod size in int64 and float64, rounded once."""
+    return _roots_at(np.arange(count, dtype=np.int64), size)
 
 
 @functools.cache
 def twiddles(size: int, device: torch.device) -> torch.Tensor:
     """(size // 2, 2) float32 cos/sin(2 pi j / size), computed in float64."""
-    ang = 2.0 * np.pi * np.arange(size // 2, dtype=np.float64) / size
-    tw = np.stack([np.cos(ang), np.sin(ang)], axis=1).astype(np.float32)
-    return torch.from_numpy(tw).to(device)
+    return torch.from_numpy(unit_roots(size, size // 2)).to(device)
 
 
 def four_step_plan(size: int) -> tuple[int, int] | None:
@@ -72,9 +94,9 @@ def four_step_plan(size: int) -> tuple[int, int] | None:
     two (2..:data:`MAX_N1`).  Where N2 = 2^b * m (m odd, b >= 2) can stay
     within :data:`MAX_SIZE`, the column transforms are FFTs, and N1 is the
     one nearest sqrt(size), the larger on a tie.  Otherwise (an odd factor
-    above 12,288, or a size above MAX_N1 * MAX_SIZE) they are no FFT but
-    Bluestein convolutions or direct sums (:func:`route`) over N2 = size /
-    N1 points, N1 as large as fits.  None for an odd ``size``, one below 8,
+    above 12,288, or a size above MAX_N1 * MAX_SIZE) they are Bluestein
+    convolutions (:func:`route`) over N2 = size / N1 points, N1 as large as
+    fits.  None for an odd ``size``, one below 8,
     or one that int32 indices cannot reach."""
     if size < 8 or size >= 1 << 31 or size % 2:
         return None
@@ -93,31 +115,107 @@ def four_step_plan(size: int) -> tuple[int, int] | None:
     return n1, size // n1
 
 
-def four_step_direct(n2: int) -> bool:
-    """Whether the four-step route's N2-point columns are no FFT (an N2
-    above :data:`MAX_SIZE` or without a factor 4, which the one-block real
-    FFT needs) but Bluestein convolutions up to :data:`BLUESTEIN_MAX` points
-    and direct sums above; ``csrc/fft_fourstep.cuh`` tests the same."""
+def four_step_bluestein(n2: int) -> bool:
+    """Whether the four-step route's N2-point columns are no FFT tile (an N2
+    above :data:`MAX_SIZE` or without a factor 4, which the tiles' real
+    packing needs) but Bluestein convolutions: on a cluster up to
+    :data:`BLUESTEIN_MAX` points, through device scratch above;
+    ``csrc/fft_fourstep.cuh`` tests the same."""
     return n2 > MAX_SIZE or n2 % 4 != 0
 
 
+def _log_fine(n: int) -> int:
+    """log2 of the fine table of a coarse/fine pair over n points: the
+    least power of two at least sqrt(n) (``fft_fourstep.cuh``)."""
+    return ((n - 1).bit_length() - 1 + 2) // 2
+
+
+def _coarse_fine(n: int, log_f: int) -> np.ndarray:
+    """W_n^x for x < n as two float32 tables: fine (x < 2^log_f), then
+    coarse W_n^(y 2^log_f) (y < ceil(n / 2^log_f))."""
+    f = 1 << log_f
+    coarse = np.arange(-(-n // f), dtype=np.int64) * f
+    return np.concatenate([unit_roots(n, f), _roots_at(coarse, n)])
+
+
 @functools.cache
-def circle(size: int, device: torch.device) -> torch.Tensor:
-    """(size, 2) float32 cos/sin(2 pi j / size) for every j < size, computed
-    in float64: the direct column sums' table (any ``size``, odd included)."""
-    ang = 2.0 * np.pi * np.arange(size, dtype=np.float64) / size
-    tw = np.stack([np.cos(ang), np.sin(ang)], axis=1).astype(np.float32)
-    return torch.from_numpy(tw).to(device)
+def four_step_twiddles(size: int, n1: int,
+                       device: torch.device) -> torch.Tensor:
+    """The four-step rows' float32 table (``FourStep``), computed in float64
+    and rounded once: W_N^x for x < N as a fine table (x < 2^f, 2^f the
+    least power of two >= sqrt(N)) and a coarse one (W_N^(2^f y), y <
+    ceil(N / 2^f)); W_N1^y (y < N1) for the rows' passes; the lane table
+    W_N^(n1 q) at n1 * :data:`ROW_LANES` + q (q < 16).  A row tile forms
+    W_N^(n1 k2) = W_N^(n1 k2_0) (coarse * fine) * W_N^(n1 (k2 - k2_0))
+    (lane table): two float32 complex products more."""
+    lanes = np.arange(n1, dtype=np.int64)[:, None] * np.arange(ROW_LANES)
+    tab = np.concatenate([_coarse_fine(size, _log_fine(size)),
+                          unit_roots(n1, n1), _roots_at(lanes.ravel(), size)])
+    return torch.from_numpy(tab).to(device)
+
+
+def tile_config(p: int) -> tuple[int, int]:
+    """(threads, points a thread holds through a pass) of a tile CTA for
+    P-point transforms (``tiles::config``): (256, 16) up to P = 256, (256,
+    32) at 512, (512, 32) above."""
+    return (256, 16) if p <= 256 else (256, 32) if p <= 512 else (512, 32)
+
+
+def column_tile(n2: int) -> dict:
+    """One column tile CTA's layout (``csrc/fft_fourstep.cuh`` ColTile) at
+    an N2 = B m (m odd, B >= 4) the tiles take: ``m``, ``b`` (B), ``p`` (P =
+    B / 2 complex points a packed sub-transform), ``t`` (T columns a CTA:
+    32, or as many as keep T N2 / 2 within one batch of its
+    :func:`tile_config`, 4096, 8192 or 16,384 points; at least 1), ``s`` (a
+    sub-sequence's float2 stride, P + 1, or P where T m (P + 1) float2
+    would pass the CTA's shared memory), ``smem`` (bytes) and ``config``
+    (:func:`tile_config` of P)."""
+    m = n2 // (n2 & -n2)
+    b = n2 // m
+    p = b // 2
+    budget = 4096 if p <= 256 else 8192 if p <= 512 else 16384
+    t = 32
+    while t > 1 and t * (n2 // 2) > budget:
+        t //= 2
+    s = p + 1 if t * m * (p + 1) * 8 <= SMEM_MAX else p
+    return dict(m=m, b=b, p=p, t=t, s=s, smem=t * m * s * 8,
+                config=tile_config(p))
+
+
+def row_tile(n1: int) -> dict:
+    """One row tile CTA's layout (``RowTile``): ``k`` source rows (8 up to
+    N1 = 1024, then 8192 / N1, 1 at 16,384), ``pair`` (each source row k2
+    <= N2 / 2 gives its mirror N2 - k2 too: up to N1 = 8192), ``seqs`` (2 k
+    with pair, else k), ``s`` = N1 + 1 (float2), ``smem`` (bytes) and
+    ``config`` (:func:`tile_config` of N1)."""
+    pair = n1 <= 8192
+    k = 8 if n1 <= 1024 else 8192 // n1 if pair else 1
+    seqs = 2 * k if pair else k
+    return dict(k=k, pair=pair, seqs=seqs, s=n1 + 1,
+                smem=seqs * (n1 + 1) * 8, config=tile_config(n1))
+
+
+@functools.cache
+def four_step_column_table(n2: int, device: torch.device) -> torch.Tensor:
+    """The column tiles' float32 table (``ColTile``), computed in float64:
+    W_P^y (y < P, the sub-transforms' passes), W_N2^x (x < N2 / 2: the
+    split's W_B^k = W_N2^(k m) and the twiddles W_N2^(s k)), W_m^x (x < m,
+    the m-point sums)."""
+    c = column_tile(n2)
+    tab = np.concatenate([unit_roots(c["p"], c["p"]), unit_roots(n2, n2 // 2),
+                          unit_roots(c["m"], c["m"])])
+    return torch.from_numpy(tab).to(device)
 
 
 @functools.cache
 def large_pass_table(device: torch.device) -> torch.Tensor:
     """(8448, 2) float32 pass table of ``csrc/fft_large.cuh``'s
-    ``Large<16384>``, computed in float64: :func:`circle` of 256 (pass 2),
-    of 4096 (pass 3), and the first 4096 entries of :func:`circle` of
-    :data:`LARGE_M` (pass 4, whose other twiddles are their powers)."""
-    return torch.cat([circle(256, device), circle(4096, device),
-                      circle(LARGE_M, device)[:4096]])
+    ``Large<16384>``, computed in float64: :func:`unit_roots` of 256 (pass
+    2), of 4096 (pass 3), and the first 4096 of :data:`LARGE_M` (pass 4,
+    whose other twiddles are their powers)."""
+    return torch.from_numpy(np.concatenate([
+        unit_roots(256, 256), unit_roots(4096, 4096),
+        unit_roots(LARGE_M, 4096)])).to(device)
 
 
 @functools.cache
@@ -187,6 +285,72 @@ def bluestein_table(n2: int, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(_bluestein_np(n2, length)).to(device)
 
 
+def bluestein_scratch_plan(n2: int) -> dict:
+    """The Bluestein-through-scratch layout of an ``n2``-point column pair
+    above :data:`BLUESTEIN_MAX` (``csrc/fft_fourstep.cuh`` ScratchPlan):
+    ``l`` (L, the least power of two >= 2 n2 - 1), ``c`` (C = L /
+    :data:`LARGE_M`, the parts of the level-one transforms), ``log_f`` (the
+    fine table's log2: the least power of two >= sqrt(L)), and the table
+    offsets ``spec``, ``pass_``, ``wc``, ``fine``, ``coarse``, ``lane``
+    (float2)."""
+    if n2 <= BLUESTEIN_MAX:
+        raise ValueError(f"Bluestein through scratch takes columns above "
+                         f"{BLUESTEIN_MAX} points, not {n2}")
+    length = 1 << (2 * n2 - 2).bit_length()
+    log_f = (length.bit_length() - 1 + 1) // 2
+    spec = length
+    pas = spec + length
+    wc = pas + 8448
+    fine = wc + length // LARGE_M
+    coarse = fine + (1 << log_f)
+    return dict(l=length, c=length // LARGE_M, log_f=log_f, spec=spec,
+                pass_=pas, wc=wc, fine=fine, coarse=coarse,
+                lane=coarse + (length >> log_f))
+
+
+@functools.cache
+def bluestein_scratch_table(n2: int, device: torch.device) -> torch.Tensor:
+    """The float32 table of the Bluestein columns through scratch
+    (:func:`bluestein_scratch_plan`), computed in float64 and rounded once:
+    the chirp b_n = e^(i pi n^2 / n2), its angle from n^2 mod 2 n2 in
+    int64, in the level-one transforms' [r][m] order (b_(C m + r) at r M +
+    m, 0 from n2 on; L entries); the spectrum of the convolution kernel over
+    L points, scaled by 1 / L; :func:`large_pass_table`; W_C^y (y < C, the middle step's
+    passes); W_L^x for x < L as a fine table (x < 2^log_f) and a coarse one
+    (W_L^(2^log_f y)); the lane table W_L^(r kl) at 32 r + kl (r < C, kl <
+    32).  Each W_L^(r k) is W_L^(32 r (k / 32)) (coarse * fine) * W_L^(r (k
+    mod 32)) (lane): two float32 complex products more."""
+    sp = bluestein_scratch_plan(n2)
+    length = sp["l"]
+    lanes = np.arange(sp["c"], dtype=np.int64)[:, None] * np.arange(32)
+    n = np.arange(n2, dtype=np.int64)
+    b = np.exp(1j * np.pi * ((n * n) % (2 * n2)).astype(np.float64) / n2)
+    c = np.zeros(length, np.complex128)
+    c[:n2] = b
+    c[length - n2 + 1:] = b[1:][::-1]
+    spec = np.fft.fft(c) / length
+    del c
+    b_rm = np.zeros(length, np.complex128)
+    b_rm[:n2] = b
+    b_rm = b_rm.reshape(LARGE_M, sp["c"]).T.ravel()  # [m][r] to [r][m]
+    tab = np.concatenate(
+        [np.stack([z.real, z.imag], axis=1).astype(np.float32)
+         for z in (b_rm, spec)]
+        + [large_pass_table(torch.device("cpu")).numpy(),
+           unit_roots(sp["c"], sp["c"]),
+           _coarse_fine(length, sp["log_f"]),
+           _roots_at(lanes.ravel(), length)])
+    return torch.from_numpy(tab).to(device)
+
+
+def bluestein_work(n_frames: int, n1: int, n2: int, device) -> torch.Tensor:
+    """The work space of the Bluestein columns through scratch: L float2 a
+    column pair, for min(pairs, :data:`BLUESTEIN_WORK` / (8 L)) pairs."""
+    length = bluestein_scratch_plan(n2)["l"]
+    pairs = min(max(n_frames, 1) * (n1 // 2), BLUESTEIN_WORK // (8 * length))
+    return torch.empty((pairs, length, 2), dtype=torch.float32, device=device)
+
+
 def four_step_plain(frames: torch.Tensor, n1: int) -> torch.Tensor:
     """(B, size // 2) complex: the first size // 2 bins of the DFT of each
     real frame by the four-step decomposition the kernels run (plain torch,
@@ -224,13 +388,14 @@ def route(size: int) -> str:
     register-resident complex transform), ``"large"`` (:data:`LARGE_SIZES`:
     one frame per transform held on chip, 65,536 on a 2-CTA cluster),
     ``"one_block"`` (any other size up to :data:`MAX_SIZE`:
-    ``fft_real.cuh``, a block per frame), ``"four_step"`` above it,
-    ``"bluestein"`` where the four-step columns are Bluestein convolutions
-    (an odd factor above 12,288, N2 <= :data:`BLUESTEIN_MAX`: on 2-CTA
-    clusters up to N2 = 16,384, on 4-CTA clusters above,
-    :func:`bluestein_cluster`) and ``"direct"`` where they are direct sums
-    (a larger N2).  Raises NotImplementedError for a size no route takes
-    (2^31 points and more)."""
+    ``fft_real.cuh``, a block per frame), ``"four_step"`` above it (the
+    columns in tiles), ``"bluestein"`` where the four-step columns are
+    Bluestein convolutions on a cluster (an odd factor above 12,288, N2 <=
+    :data:`BLUESTEIN_MAX`: on 2-CTA clusters up to N2 = 16,384, on 4-CTA
+    clusters above, :func:`bluestein_cluster`) and ``"bluestein_scratch"``
+    where they are Bluestein convolutions through device scratch (a larger
+    N2).  Raises NotImplementedError for a size no route takes (2^31 points
+    and more)."""
     if size in PAIR_SIZES:
         return "pair"
     if size in LARGE_SIZES:
@@ -242,9 +407,9 @@ def route(size: int) -> str:
         raise NotImplementedError(
             f"B12 size {size}: the four-step route indexes a frame with "
             "int32, so it takes sizes below 2^31")
-    if not four_step_direct(plan[1]):
+    if not four_step_bluestein(plan[1]):
         return "four_step"
-    return "bluestein" if plan[1] <= BLUESTEIN_MAX else "direct"
+    return "bluestein" if plan[1] <= BLUESTEIN_MAX else "bluestein_scratch"
 
 
 def stft_mag(wav, window, size: int, hop: int, n_frames: int,
@@ -279,17 +444,24 @@ def stft_mag(wav, window, size: int, hop: int, n_frames: int,
         else:
             n1, n2 = four_step_plan(size)
             scratch = four_step_scratch(n_frames, n1, n2, dev)
-            entry, tw2 = {
-                "four_step": (lib.mlx_stft_mag_4step, twiddles),
-                "direct": (lib.mlx_stft_mag_4step, circle),
-                "bluestein": (lib.mlx_stft_mag_bluestein, bluestein_table),
-            }[way]
-            err = entry(
-                wav.data_ptr(), wav.shape[0], window.data_ptr(),
-                twiddles(size, dev).data_ptr(), tw2(n2, dev).data_ptr(),
-                scratch.data_ptr(), out.data_ptr(), n_frames, size, n1, hop,
-                float(scale), _build.stream(dev),
-            )
+            head = (wav.data_ptr(), wav.shape[0], window.data_ptr(),
+                    four_step_twiddles(size, n1, dev).data_ptr())
+            tail = (out.data_ptr(), n_frames, size, n1, hop, float(scale),
+                    _build.stream(dev))
+            if way == "bluestein_scratch":
+                work = bluestein_work(n_frames, n1, n2, dev)
+                err = lib.mlx_stft_mag_bluestein_scratch(
+                    *head, bluestein_scratch_table(n2, dev).data_ptr(),
+                    scratch.data_ptr(), work.data_ptr(), *tail)
+            else:
+                entry, tw2 = {
+                    "four_step": (lib.mlx_stft_mag_4step,
+                                  four_step_column_table),
+                    "bluestein": (lib.mlx_stft_mag_bluestein,
+                                  bluestein_table),
+                }[way]
+                err = entry(*head, tw2(n2, dev).data_ptr(),
+                            scratch.data_ptr(), *tail)
     _build.check("stft_mag_sizes", err)
     stft_mag.launches += 1
     return out

@@ -508,26 +508,33 @@ def test_bluestein_header_constants():
     (64512, "four_step", "cluster"), (65536, "large", "large"),
     (98304, "four_step", None), (131072, "four_step", None),
     (512 * 12289, "bluestein", None), (1024 * 16381, "bluestein", None),
-    (512 * 16387, "bluestein", None), (512 * 99999, "direct", None),
+    (512 * 16387, "bluestein", None),
+    (512 * 99999, "bluestein_scratch", None),
     (512 * 16411, "bluestein", None), (512 * 32749, "bluestein", None),
-    (512 * 32771, "direct", None),
+    (512 * 32771, "bluestein_scratch", None),
+    (512 * 65537, "bluestein_scratch", None),
+    (1 << 30, "bluestein_scratch", None),
 ])
 def test_routes_by_size(size, b12, b7):
     """kstft.route and kcols.route at every supported size around 8192,
     16,384, 32,768, 49,152 and 65,536 (B7's 1024 j, j = 49 .. 63, on the
     cluster route; B12 keeps the four-step route there), and the four-step
-    columns' three forms (FFT, Bluestein up to N2 = 32,768 on 2 CTAs up to
-    16,384 and 4 above, direct sums above)."""
+    columns' three forms (FFT tiles, Bluestein up to N2 = 32,768 on 2 CTAs
+    up to 16,384 and 4 above, Bluestein through scratch above); no route is
+    ``"direct"``."""
     assert kstft.route(size) == b12
     assert kcols.supported(size) == (b7 is not None)
     if b7 is not None:
         assert kcols.route(size) == b7
-    if b12 in ("bluestein", "direct"):
+    if b12 in ("bluestein", "bluestein_scratch"):
         n2 = kstft.four_step_plan(size)[1]
-        assert kstft.four_step_direct(n2)
+        assert kstft.four_step_bluestein(n2)
         assert (n2 <= kstft.BLUESTEIN_MAX) == (b12 == "bluestein")
         if b12 == "bluestein":
             assert kstft.bluestein_cluster(n2) == (2 if n2 <= M else 4)
+        else:
+            sp = kstft.bluestein_scratch_plan(n2)
+            assert sp["l"] >= 2 * n2 - 1 and 8 <= sp["c"] <= 512
 
 
 class _Recorder:
@@ -583,26 +590,31 @@ def test_large_sizes_launch_the_large_entries(fake_cuda, size):
 def test_bluestein_size_launches_the_bluestein_entry(fake_cuda):
     """B12 at 512 * 12,289 (2 CTAs), 512 * 16,411 and 512 * 32,749 (4
     CTAs): one call each of ``mlx_stft_mag_bluestein`` with the four-step
-    plan (n_frames, size, N1, hop), one launch each; the N2 > 32,768 direct
-    sums (512 * 32,771) keep ``mlx_stft_mag_4step``."""
+    plan (n_frames, size, N1, hop), one launch each; above N2 = 32,768 (512
+    * 32,771, 512 * 65,537) one call each of
+    ``mlx_stft_mag_bluestein_scratch`` with the same plan after its work
+    space, and ``mlx_stft_mag_4step`` is not called for them."""
     meta = torch.device("meta")
     wav = torch.zeros(300000).to(meta)
     before = kstft.stft_mag.launches
     for size, entry in ((512 * 12289, "mlx_stft_mag_bluestein"),
                         (512 * 16411, "mlx_stft_mag_bluestein"),
                         (512 * 32749, "mlx_stft_mag_bluestein"),
-                        (512 * 32771, "mlx_stft_mag_4step")):
+                        (512 * 32771, "mlx_stft_mag_bluestein_scratch"),
+                        (512 * 65537, "mlx_stft_mag_bluestein_scratch")):
         kstft.stft_mag(wav, torch.zeros(size).to(meta), size, size // 4, 3)
         name, args = fake_cuda.calls[-1]
-        assert name == entry and args[7:11] == (3, size, 512, size // 4)
-    assert len(fake_cuda.calls) == 4
-    assert kstft.stft_mag.launches == before + 4
+        plan = args[8:12] if entry.endswith("scratch") else args[7:11]
+        assert name == entry and plan == (3, size, 512, size // 4)
+    assert len(fake_cuda.calls) == 5
+    assert "mlx_stft_mag_4step" not in [n for n, _ in fake_cuda.calls]
+    assert kstft.stft_mag.launches == before + 5
 
 
 def test_refused_bluestein_launch_raises(fake_cuda, monkeypatch):
     """A code the C entry returns (here cudaErrorLaunchOutOfResources, 7:
     no GPC holds a 4-CTA cluster) raises after its one call, and nothing
-    else is called: no direct sums, no four-step route, no CPU twin; the
+    else is called: no scratch route, no four-step route, no CPU twin; the
     launch is not counted."""
     meta = torch.device("meta")
     wav = torch.zeros(300000).to(meta)
@@ -613,3 +625,37 @@ def test_refused_bluestein_launch_raises(fake_cuda, monkeypatch):
         kstft.stft_mag(wav, torch.zeros(size).to(meta), size, size // 4, 2)
     assert [n for n, _ in fake_cuda.calls] == ["mlx_stft_mag_bluestein"]
     assert kstft.stft_mag.launches == before
+
+
+def test_refused_scratch_launch_raises(fake_cuda, monkeypatch):
+    """A code the scratch entry returns (cudaErrorInvalidValue, 1: an unfit
+    plan, or a refused launch) raises after its one call; no other entry
+    and no twin is called, and the launch is not counted."""
+    meta = torch.device("meta")
+    wav = torch.zeros(300000).to(meta)
+    size = 512 * 32771
+    monkeypatch.setattr(fake_cuda, "code", 1, raising=False)
+    before = kstft.stft_mag.launches
+    with pytest.raises(RuntimeError, match="CUDA error 1"):
+        kstft.stft_mag(wav, torch.zeros(size).to(meta), size, size // 4, 2)
+    assert [n for n, _ in fake_cuda.calls] == [
+        "mlx_stft_mag_bluestein_scratch"]
+    assert kstft.stft_mag.launches == before
+
+
+def test_scratch_entry_takes_the_work_space(fake_cuda):
+    """The scratch entry's binding: (wav, n, win, tw, tab, scratch, work,
+    out, n_frames, size, n1, hop, scale, stream), the work space holding
+    min(pairs, 512 MiB / (8 L)) pairs of L float2: 512 pairs of 1 MiB at 512
+    * 32,771 (one chunk), 256 of 2 MiB at 512 * 65,537 (two chunks of the
+    512 pairs of 2 frames)."""
+    assert len(_build.SIGNATURES["mlx_stft_mag_bluestein_scratch"]) == 14
+    src = _read("stft_mag_sizes.cu")
+    head = src[src.index('extern "C" int mlx_stft_mag_bluestein_scratch('):]
+    assert head[: head.index(")")].count(",") + 1 == 14
+    meta = torch.device("meta")
+    for n2, pairs in ((32771, 512), (65537, 256)):
+        work = kstft.bluestein_work(2, 512, n2, meta)
+        length = kstft.bluestein_scratch_plan(n2)["l"]
+        assert work.shape == (pairs, length, 2)
+        assert work.numel() * 4 <= kstft.BLUESTEIN_WORK

@@ -364,7 +364,10 @@ def test_b12_beyond_cap_raises_on_cuda_tensors(monkeypatch):
     assert args[7:11] == (3, odd, 512, odd // 4)
     assert kstft.bluestein_table(12289, meta).shape == (
         12289 + 32768 + 8448 + 16384, 2)
-    assert kstft.circle(12289, meta).shape == (12289, 2)
+    # the rows' twiddles: fine W_N (2^12 >= sqrt N), coarse W_N, W_512,
+    # the lane table W_N^(n1 q), q < 16
+    assert kstft.four_step_twiddles(odd, 512, meta).shape == (
+        4096 + -(-odd // 4096) + 512 + 512 * 16, 2)
     assert kstft.stft_mag.launches == b12 + 1
     # beyond int32 indices: no plan, raised before any launch
     big = 1 << 31
@@ -427,19 +430,19 @@ def test_four_step_reference_matches_rfft(size):
     (1 << 31, None), (2 * 12289 + 1, None),
 ])
 def test_four_step_plan_direct_columns(size, plan):
-    """Where no N2 within MAX_SIZE holds the odd factor (and a power-of-two
-    part of 4), the plan takes N1 as large as fits and the kernel sums the
-    N2-point columns directly; sizes int32 cannot index, and odd sizes, have
-    no plan."""
+    """(Named for the route it replaced.)  Where no N2 within MAX_SIZE holds
+    the odd factor (and a power-of-two part of 4), the plan takes N1 as
+    large as fits and the kernel's N2-point columns are Bluestein
+    convolutions; sizes int32 cannot index, and odd sizes, have no plan."""
     assert kstft.four_step_plan(size) == plan
     if plan is not None:
-        assert kstft.four_step_direct(plan[1])
-    assert not kstft.four_step_direct(256) and not kstft.four_step_direct(
+        assert kstft.four_step_bluestein(plan[1])
+    assert not kstft.four_step_bluestein(256) and not kstft.four_step_bluestein(
         kstft.MAX_SIZE)
 
 
 def test_four_step_reference_odd_columns_matches_rfft():
-    """The decomposition at the direct route's split, N2 = 12,289 (prime):
+    """The decomposition at the Bluestein columns' split, N2 = 12,289 (prime):
     ``four_step_plain`` against ``torch.fft.rfft`` in float64."""
     size = 512 * 12289
     x = np.random.default_rng(7).standard_normal((1, size)).astype(np.float32)
