@@ -1321,9 +1321,10 @@ def main() -> int:
     # -- 9. B7 against its twin and the float64 oracle ----------------
     # by route (kcols.route): 32,768 points (the default) and 16,384 on
     # fft_large.cuh's one-CTA transforms (Large<16384>, fft_pair.cuh's 8192
-    # instance), 8192 and 24,576 on the one-block fft_real.cuh; each size
-    # also through spectrogram_columns, the entry point, whose launches its
-    # row carries
+    # instance), 1024 and 8192 packed on Pair<512> and Pair<4096>, 3072 (m =
+    # 3, P = 512), 24,576, 48,128 (m = 47) and 49,152 (m = 3, P = 8192, T =
+    # 1) on the frame tile (fft_fourstep.cuh); each size also through
+    # spectrogram_columns, the entry point, whose launches its row carries
     cfg = mt.DEFAULT_CONFIG
     csize, kgain = cfg.spectr_size, cfg.brightness_to_k()
     span = int(0.02 * SR)  # 20 ms columns: a zoomed-in view
@@ -1374,8 +1375,9 @@ def main() -> int:
               and launches == 1, f"B7 {size} vs float64 oracle")
         return launches
 
-    def b7_row(name, size, s_np, e_np, ph_launches):
-        """A kernel row for B7 at ``size`` on columns [s, e)."""
+    def b7_row(name, size, s_np, e_np, ph_launches, graph=False):
+        """A kernel row for B7 at ``size`` on columns [s, e); with ``graph``
+        also its device time (one CUDA graph of the calls)."""
         cs_t, ce_t = put(s_np.astype(np.int32)), put(e_np.astype(np.int32))
         b7 = lambda: kcols.spectrogram_columns_fused(  # noqa: E731
             wav, cs_t, ce_t, kgain, size=size, colormap=False)
@@ -1387,7 +1389,8 @@ def main() -> int:
                "melonix_tpu/kernels/pallas_columns.py:168",
                max_err(b7(), b7p()), b7, b7p, lambda: torch.fft.rfft(frames),
                4 * covered_len(ends_c - size, ends_c, n) + nbytes(cs_t, ce_t)
-               + 4 * len(s_np) * (size // 2), fft_flops(len(s_np), size))
+               + 4 * len(s_np) * (size // 2), fft_flops(len(s_np), size),
+               fn_graph=b7 if graph else None)
         rows[name]["launches"] = ph_launches
 
     for label, (cs_np, ce_np) in col_sets.items():
@@ -1400,25 +1403,37 @@ def main() -> int:
     launches16 = b7_oracle(16384, np.linspace(16384, n - 1, 12).astype(
         np.int64), 9)
     b7_row("spectrogram_columns_16384", 16384, wide_s, wide_e, launches16)
-    for small in (8192, 24576):
-        b7_check(small, "one_block",
-                 "spread (256 columns over the edited track)", wide_s, wide_e,
-                 9)
+    for small, way, row in ((1024, "large", None),
+                            (8192, "large", "spectrogram_columns_8192"),
+                            (3072, "tile", None),
+                            (24576, "tile", "spectrogram_columns_tile_24576"),
+                            (48128, "tile", None), (49152, "tile", None)):
+        b7_check(small, way, "spread (256 columns over the edited track)",
+                 wide_s, wide_e, 9)
         launches_s = b7_oracle(small, np.linspace(small, n - 1, 12).astype(
             np.int64), 9)
-        b7_row(f"spectrogram_columns_one_block_{small}", small, wide_s,
-               wide_e, launches_s)
+        if row is not None:
+            b7_row(row, small, wide_s, wide_e, launches_s, graph=True)
+    # the frame tile at a column count that is no multiple of its T (T = 4
+    # at 3072 for 1280 columns: the last CTA takes 3 of its 4)
+    vs9, ve9 = view_column_ranges(knots, 1279, 0.0, knots.duration())
+    check(kstft.frame_tile(3072, 1279)["t"] == 4,
+          "B7 3072 T at 1279 columns")
+    b7_check(3072, "tile", "1279 columns (T = 4, the last tile short)", vs9,
+             ve9, 9)
 
     # -- 10. B12 against its twin; the |STFT| pyramid's two routes -----
     # each size by its route (kstft.route): the pair transform at powers of
     # two up to 8192, fft_large.cuh's one-CTA transforms at 16,384 and
-    # 32,768, the one-block fft_real.cuh at 1536; each also through
+    # 32,768, the frame tile (fft_fourstep.cuh) at 1536, 2560 (m = 5),
+    # 24,576, 48,640 (m = 95) and 49,152; each also through
     # stft_mags_device, the entry point, whose launches the rows carry
     def b12_check(sz, hp, nfz, way, name, ph, track=None):
         """B12 at (sz, hp) over nfz frames by route ``way``: against its twin
         (< -80 dB) and float64 |rfft| of up to 8 frames (< -60 dB), through
-        stft_mags_device (one launch, equal output); a kernel row.
-        ``track``: (tensor on the card, NumPy array) in place of the song."""
+        stft_mags_device (one launch, equal output); a kernel row unless
+        ``name`` is None.  ``track``: (tensor on the card, NumPy array) in
+        place of the song."""
         wav, x = track if track is not None else (song_d, song_np)
         n = len(x)
         w_d = put(hann_window(sz))
@@ -1447,6 +1462,8 @@ def main() -> int:
               f"B12 {sz}/{hp} vs twin and float64")
         check(launches_z == 1 and bool(torch.equal(via, got)),
               f"B12 {sz}/{hp} through stft_mags_device")
+        if name is None:
+            return
         frames_z = kpv.hop_frames(wav, sz, hp, nfz) * w_d[None, :]
         record(name, "melonix_tpu_torch/csrc/stft_mag_sizes.cu",
                "melonix_tpu/kernels/pallas_stft.py:106", e,
@@ -1454,7 +1471,9 @@ def main() -> int:
                lambda: kstft.stft_mag_plain(wav, w_d, sz, hp, nfz),
                lambda: torch.fft.rfft(frames_z),
                4 * (min(n, (nfz - 1) * hp + sz) + sz + nfz * sz // 2),
-               fft_flops(nfz, sz))
+               fft_flops(nfz, sz),
+               fn_graph=(lambda: kstft.stft_mag(wav, w_d, sz, hp, nfz))
+               if way == "tile" else None)
         rows[name]["launches"] = launches_z
 
     song_d, song_np = wav, x
@@ -1463,18 +1482,27 @@ def main() -> int:
             (1024, 256, "pair", "stft_mag_sizes_1024"),
             (8192, 1024, "pair", "stft_mag_sizes_8192"),
             (512, 128, "pair", "stft_mag_sizes_512"),
-            (1536, 384, "one_block", "stft_mag_sizes_one_block_1536"),
+            (1536, 384, "tile", "stft_mag_sizes_tile_1536"),
+            (2560, 640, "tile", None), (24576, 3072, "tile", None),
+            (48640, 9728, "tile", None), (49152, 6144, "tile", None),
             (16384, 2048, "large", "stft_mag_sizes_large_16384"),
             (32768, 4096, "large", "stft_mag_sizes_large_32768")):
         b12_check(sz, hp, num_frames(n, sz, hp), way, name, 10)
-    # fft_large.cuh's frame load at its edges: frames past the end of a
-    # 1500-sample track, a view whose data is not 16-byte aligned (B12's
-    # hops are multiples of 128); B7 columns before 0 and past n, on the
-    # track and on a misaligned view
+    # the frame tile at a frame count that is no multiple of its T (4 at
+    # 1536): the last CTA takes fewer frames
+    nf1536 = num_frames(n, 1536, 384) - 1
+    nf1536 -= nf1536 % 4 == 0
+    check(kstft.frame_tile(1536)["t"] == 4 and nf1536 % 4 != 0,
+          "B12 1536 frame count against T")
+    b12_check(1536, 384, nf1536, "tile", None, 10)
+    # fft_large.cuh's and the frame tile's loads at their edges: frames
+    # past the end of a 1500-sample track, a view whose data is not 16-byte
+    # aligned (B12's hops are multiples of 128); B7 columns before 0 and
+    # past n, on the track and on a misaligned view
     edge_ends = lambda sz: put(np.array(  # noqa: E731
         [5, sz // 3, sz + 7, n - 3, n + sz // 2, n + sz + 100, 0, 1],
         np.int32))
-    for sz in kstft.LARGE_SIZES:
+    for sz in (3072,) + kstft.LARGE_SIZES:  # the frame tile's load too
         w_e, e_e = put(hann_window(sz)), edge_ends(sz)
         for label, got, want in [
                 (f"B12 {label_}", kstft.stft_mag(src, w_e, sz, hp, nf),

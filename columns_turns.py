@@ -1,15 +1,16 @@
 #!/usr/bin/env python3
-"""B7 above 49,152 points in two checkouts, timed in turns on one NVIDIA GPU.
+"""B7 in two checkouts, timed in turns on one NVIDIA GPU.
 
     python3 columns_turns.py OTHER_ROOT
 
 Runs one process a turn, in the order other, this, this, other; each
 imports the ``melonix_tpu_torch`` of its checkout (building its kernels
 there at first use) and times ``spectrogram_columns_fused`` (magnitudes) on
-64 columns of ``chip_smoke.py``'s 180 s song, as its phase 19 lays them out,
-at 50,176, 57,344 and 64,512 points: CUDA events around 10 back-to-back
-calls, the median of 5 after a warm-up.  Each turn names the route its
-checkout takes (``kcols.route``).  It prints each turn's times and the
+columns of ``chip_smoke.py``'s 180 s song: 256 columns (a tile drain) at
+8192, 24,576 and 48,128 points, and 64 columns at 50,176, 57,344 and
+64,512 points as its phase 19 lays them out: CUDA events around 10
+back-to-back calls, the median of 5 after a warm-up.  Each turn names the
+route its checkout takes (``kcols.route``).  It prints each turn's times and the
 means of both turns of each checkout, beside the card's ``nvidia-smi`` name
 and power limit.  It needs one GPU and ``nvcc``, and imports no JAX.
 """
@@ -23,7 +24,9 @@ import sys
 from granular_turns import run_turns
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-SIZES = (50176, 57344, 64512)
+# (size, columns)
+CASES = ((8192, 256), (24576, 256), (48128, 256), (50176, 64), (57344, 64),
+         (64512, 64))
 SPAN = 882  # chip_smoke.py's 20 ms columns at 44.1 kHz
 
 
@@ -44,8 +47,8 @@ def worker(root: str) -> dict:
     x = cs.make_song(cs.SR, cs.SECONDS)
     wav = torch.from_numpy(x).to(dev)
     got = {}
-    for size in SIZES:
-        ends_np = np.linspace(size // 2, len(x) - 1, 64).astype(np.int32)
+    for size, cols in CASES:
+        ends_np = np.linspace(size // 2, len(x) - 1, cols).astype(np.int32)
         ends = torch.from_numpy(ends_np).to(dev)
         starts = ends - SPAN
         got[f"{size} {kcols.route(size)}"] = cs.cuda_ms(

@@ -3,7 +3,10 @@
 // (stft_mag_sizes.cu) above 49,152 points at the sizes fft_large.cuh does
 // not take (a power of two above 65,536, or any other size: 98,304 = 3 *
 // 2^15, 512 * 16,411).  B7 takes none of it: its sizes above 49,152 run on
-// chip (fft_large.cuh at 65,536, fft_mixed.cuh at the others).
+// chip (fft_large.cuh at 65,536, fft_mixed.cuh at the others).  The column
+// tiles' body also runs whole frames held on chip: the frame tiles
+// (frame_tile) of B7 and B12 at the sizes up to kMaxColumn that are no
+// power of two, a CTA T frames (N1 = 1, N2 = N), each read contiguously.
 //
 // N = N1 * N2, N1 a power of two; sample x[n1 + N1*n2] (n1 < N1, n2 < N2).
 //   1. Columns: the real N2-point DFT C[n1, k2] of the strided column
@@ -263,47 +266,24 @@ __host__ __device__ inline size_t col_tile_smem(const ColTile& c) {
   return static_cast<size_t>(c.t) * c.m * c.s * sizeof(float2);
 }
 
-// Step 1 for columns n1_0 .. n1_0 + T - 1 of one frame: `sample(i)` is the
-// windowed sample i < N of the frame, `c` the frame's scratch rows, `tab`
-// the column table, `s` col_tile_smem bytes.  Sequence q = sub * T + j
-// holds column n1_0 + j's sub-sequence sub.  Every thread of the CTA (kT =
-// tiles::config(P)) calls it once.
-template <int kT, int kPts, class Sample>
-__device__ __forceinline__ void four_step_columns(
-    float2* s, const FourStep& f, const ColTile& ct,
-    const float2* __restrict__ tab, int n1_0, Sample sample,
-    float2* __restrict__ c) {
+// The body of a column or frame tile after its load: `s` holds the tile's T
+// m packed sub-sequences, sequence q = sub * T + j sub-sequence sub of
+// column j, at stride ct.s; `tab` is the column table.  The batched
+// Stockham, the split times W_N2^(sub k), the paired m-point sums; each bin
+// k of column j goes to put(k, j, v), bins k <= N2 / 2 once each (above, the
+// mirror of one below, or nothing: put filters).  Every thread of the CTA
+// (kT of them) calls it once its stores to `s` are issued; it begins with
+// a barrier.
+template <int kT, int kPts, class Put>
+__device__ __forceinline__ void col_tile_body(float2* s, const ColTile& ct,
+                                              const float2* __restrict__ tab,
+                                              Put put) {
   const int t = threadIdx.x, T = ct.t, m = ct.m, P = ct.p, S = ct.s;
-  const int n2 = f.n2, half = n2 / 2, seqs = T * m;
+  const int half = ct.b * m / 2, seqs = T * m;
   const float2* wp = tab;                 // W_P^y
   const float2* wn2 = tab + P;            // W_N2^x, x < N2 / 2
   const float2* wm = tab + P + half;      // W_m^x
-  float* sf = reinterpret_cast<float*>(s);
-  // -- load: a warp reads T adjacent samples of a row n2; thread t keeps
-  // column j and steps its row r = sub + m nn by kT / T (no division)
-  constexpr int U = tiles::kUnroll;
-  const int lt = ilog2_floor(T), j = t & (T - 1), dr = kT >> lt;
-  const int dsub = dr % m, dnn = dr / m;
-  int sub = (t >> lt) % m, nn = (t >> lt) / m;
-  for (int r0 = t >> lt; r0 < n2; r0 += U * dr) {
-    float x[U];
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      if (r0 + u * dr < n2) x[u] = sample(n1_0 + j + f.n1 * (r0 + u * dr));
-    }
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      if (r0 + u * dr < n2) {
-        sf[2 * ((sub * T + j) * S + (nn >> 1)) + (nn & 1)] = x[u];
-      }
-      sub += dsub;
-      nn += dnn;
-      if (sub >= m) {
-        sub -= m;
-        ++nn;
-      }
-    }
-  }
+  const int lt = ilog2_floor(T), dr = kT >> lt;
   __syncthreads();
   tiles::batch_fft<kT, kPts>(s, seqs, S, P, wp, -1.0f);
   // -- split Z_s into X_s[k], k <= P, times W_N2^(sub k), in place; X_s[0]
@@ -338,10 +318,7 @@ __device__ __forceinline__ void four_step_columns(
   // Y[p] = sum v_sub W_m^(sub p), Y[m - p] with W_m^(-sub p); bin k1 + B k2
   // is Y_k1[k2] for k1 <= P and conj Y_(B-k1)[m - 1 - k2] above
   const int B = ct.b, groups = max(1, (ct.h + kColGroup - 1) / kColGroup);
-  float2* col = c + n1_0;
-  auto put = [&](int k, int j, float2 v) {
-    if (k <= half) col[static_cast<long long>(k) * f.n1 + j] = v;
-  };
+  const int j = t & (T - 1);
   const int dk1 = dr % (P + 1), dgrp = dr / (P + 1);
   for (int g = t, k1 = (t >> lt) % (P + 1), grp = (t >> lt) / (P + 1);
        g < T * (P + 1) * groups; g += kT, k1 += dk1, grp += dgrp) {
@@ -399,6 +376,124 @@ __device__ __forceinline__ void four_step_columns(
       }
     }
   }
+}
+
+// Step 1 for columns n1_0 .. n1_0 + T - 1 of one frame: `sample(i)` is the
+// windowed sample i < N of the frame, `c` the frame's scratch rows, `tab`
+// the column table, `s` col_tile_smem bytes.  Sequence q = sub * T + j
+// holds column n1_0 + j's sub-sequence sub.  Every thread of the CTA (kT =
+// tiles::config(P)) calls it once.
+template <int kT, int kPts, class Sample>
+__device__ __forceinline__ void four_step_columns(
+    float2* s, const FourStep& f, const ColTile& ct,
+    const float2* __restrict__ tab, int n1_0, Sample sample,
+    float2* __restrict__ c) {
+  const int t = threadIdx.x, T = ct.t, m = ct.m, S = ct.s;
+  const int n2 = f.n2, half = n2 / 2;
+  float* sf = reinterpret_cast<float*>(s);
+  // -- load: a warp reads T adjacent samples of a row n2; thread t keeps
+  // column j and steps its row r = sub + m nn by kT / T (no division)
+  constexpr int U = tiles::kUnroll;
+  const int lt = ilog2_floor(T), j = t & (T - 1), dr = kT >> lt;
+  const int dsub = dr % m, dnn = dr / m;
+  int sub = (t >> lt) % m, nn = (t >> lt) / m;
+  for (int r0 = t >> lt; r0 < n2; r0 += U * dr) {
+    float x[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (r0 + u * dr < n2) x[u] = sample(n1_0 + j + f.n1 * (r0 + u * dr));
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (r0 + u * dr < n2) {
+        sf[2 * ((sub * T + j) * S + (nn >> 1)) + (nn & 1)] = x[u];
+      }
+      sub += dsub;
+      nn += dnn;
+      if (sub >= m) {
+        sub -= m;
+        ++nn;
+      }
+    }
+  }
+  float2* col = c + n1_0;
+  col_tile_body<kT, kPts>(s, ct, tab, [&](int k, int jj, float2 v) {
+    if (k <= half) col[static_cast<long long>(k) * f.n1 + jj] = v;
+  });
+}
+
+// ------------------------------------------------------------ frame tiles
+
+// A frame tile (B7 and B12 at the sizes up to kMaxColumn that are no power
+// of two): the column tile's body on T whole frames of N = B m points (m
+// odd, m >= 3), T as ColTile's budget gives it with N2 = N and, for B7,
+// capped by the host so that `count` frames still fill kFrameSms CTAs where
+// they can.  The sub-sequence stride is P + 3 for m < 9, P + 1 above: the
+// load's lanes run along a frame's samples, sample i = m nn + sub going to
+// float 2 (sub T + j) S + nn, and these strides put every half-warp's 16
+// stores on 16 banks (tests/test_torch_frame_tile.py enumerates them).
+constexpr int kFrameSms = 132;  // the H100's SMs
+
+__host__ __device__ inline bool frame_tile_takes(int n) {
+  return n > 0 && n <= kMaxColumn && n % 4 == 0 && (n & (n - 1)) != 0;
+}
+
+// kernels/stft.py:frame_tile; count <= 0: no cap.
+__host__ __device__ inline ColTile make_frame_tile(int n, int count) {
+  ColTile c = make_col_tile(n);
+  const int fill = count < kFrameSms ? count : kFrameSms;
+  while (count > 0 && c.t > 1 && (count + c.t - 1) / c.t < fill) c.t /= 2;
+  c.s = c.p + (c.m < 9 ? 3 : 1);
+  return c;
+}
+
+// The tile configuration of a frame tile: where one CTA fills a SM's shared
+// memory, 512 x 32 (2) whatever P, so that the m-point sums of a large m
+// have 16 warps; else tiles::config(P), but 512 x 16 (3: two CTAs a SM at
+// 64 registers) for P > 512.
+__host__ __device__ inline int frame_config(const ColTile& c) {
+  if (2 * col_tile_smem(c) > kSmemMax) return 2;
+  const int k = tiles::config(c.p);
+  return k == 2 ? 3 : k;
+}
+
+// The T frames of a frame tile: `frame(j)` (j < frames <= T) gives the
+// sampler of the tile's frame j, x(i) its windowed sample i < N; frames
+// from `frames` on are silence.  store(j, k, X[k]) takes bin k < N / 2 of
+// frame j < frames, each once.  `s` col_tile_smem(ct) bytes; every thread
+// of the CTA ((kT, kPts) of frame_config) calls it once.
+template <int kT, int kPts, class Frame, class Store>
+__device__ __forceinline__ void frame_tile(float2* s, const ColTile& ct,
+                                           const float2* __restrict__ tab,
+                                           int frames, Frame frame,
+                                           Store store) {
+  const int t = threadIdx.x, T = ct.t, m = ct.m, S = ct.s;
+  const int n = ct.b * m, half = n / 2;
+  const int dsub = kT % m, dnn = kT / m;
+  float* sf = reinterpret_cast<float*>(s);
+  // -- load: lanes along a frame's samples, the frames one after another;
+  // thread t steps its sample i = m nn + sub by kT (no division a sample)
+  for (int j = 0; j < T; ++j) {
+    int sub = t % m, nn = t / m;
+    auto put = [&](int, float v) {
+      sf[2 * ((sub * T + j) * S + (nn >> 1)) + (nn & 1)] = v;
+      sub += dsub;
+      nn += dnn;
+      if (sub >= m) {
+        sub -= m;
+        ++nn;
+      }
+    };
+    if (j < frames) {
+      auto x = frame(j);
+      tiles::staged<kT, float>(n, x, put);
+    } else {
+      tiles::staged<kT, float>(n, [](int) { return 0.0f; }, put);
+    }
+  }
+  col_tile_body<kT, kPts>(s, ct, tab, [&](int k, int j, float2 v) {
+    if (k < half && j < frames) store(j, k, v);
+  });
 }
 
 // ------------------------------------------------------------------- rows
@@ -695,6 +790,16 @@ cudaError_t allow_smem(Kernel kernel, size_t smem, bool carveout = false) {
   }
   if (err != cudaSuccess) cudaGetLastError();  // the call reports it once
   return err;
+}
+
+// Launch a tile kernel of kT threads on `ctas` CTAs with `smem` bytes.
+template <int kT, class... Exp, class... Act>
+cudaError_t launch_tiles(void (*kernel)(Exp...), int ctas, size_t smem,
+                         cudaStream_t stream, Act&&... args) {
+  const cudaError_t err = allow_smem(kernel, smem, kT == 256);
+  if (err != cudaSuccess) return err;
+  kernel<<<ctas, kT, smem, stream>>>(static_cast<Act&&>(args)...);
+  return cudaGetLastError();
 }
 
 }  // namespace mlx

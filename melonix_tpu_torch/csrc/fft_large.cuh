@@ -1,7 +1,8 @@
 // A complex FFT of M = 16,384 points in one CTA and of C M points on a
 // cluster of C = 2 or 4 CTAs, held in shared memory, and the real-input
 // transforms built on them: the transform under B7 (spectrogram_columns.cu)
-// and B12 (stft_mag_sizes.cu) at 16,384, 32,768 and 65,536 points, and under
+// at the powers of two 1024 ... 65,536 (up to 16,384 on fft_pair.cuh) and
+// B12 (stft_mag_sizes.cu) at 16,384, 32,768 and 65,536 points, and under
 // B12's Bluestein columns (fft_fourstep.cuh: 32,768 points on two CTAs,
 // 65,536 on four).  It replaces, for these sizes, the four-step MXU
 // factorisation of melonix_tpu/kernels/pallas_columns.py and the dense
@@ -26,7 +27,7 @@
 //     and so are the writes of passes 2-4; pass 1 writes 16 j + k, so its
 //     exchange is padded, a -> a + a / 16 (17 j + k), and pass 2 reads it
 //     padded.  tests/test_torch_fft_large.py enumerates every access.
-//   * Six barriers a transform, against fft_real.cuh's fourteen stages at
+//   * Six barriers a transform, against fourteen for radix-2 stages at
 //     32,768 real points.
 // fft_cluster<M, C> (C M points): CTA r of the cluster transforms the points
 // C m + r with Large<M> in its own buffer, Y_r, then one radix-C step reads
@@ -38,8 +39,9 @@
 // cluster.
 //
 // Real input: an N-point real frame packs as z[q] = x[2q] + i x[2q+1], N / 2
-// complex points (RealPlan<N>: 16,384 real on fft_pair.cuh's 8192 instance,
-// 32,768 on Large<16384>, 65,536 on the cluster of two), and the split X[k]
+// complex points (RealPlan<N>: 1024 ... 16,384 real on fft_pair.cuh's
+// Pair<N / 2>, 32,768 on Large<16384>, 65,536 on the cluster of two; B7
+// takes all seven, B12 the three from 16,384), and the split X[k]
 // = (Z[k] + conj Z[N/2-k]) / 2 - i W_N^k (Z[k] - conj Z[N/2-k]) / 2 gives
 // bins k < N / 2 in the caller's `store`.  On the cluster CTA r stores bins
 // [r N / 4, (r + 1) N / 4); Z[N/2 - k] is then mostly the peer's.  Sample i
@@ -280,7 +282,7 @@ __device__ __forceinline__ void fft_cluster(Load load, float2* buf,
 }
 
 // Bin k of the N-point real frame from the packed transform's Z[k], Z[M-k]
-// and w = (cos, sin)(2 pi k / N) (fft_real.cuh's real_dft_post).
+// and w = (cos, sin)(2 pi k / N).
 __device__ __forceinline__ float2 split_bin(float2 zk, float2 zm, float2 w) {
   const float ex = 0.5f * (zk.x + zm.x), ey = 0.5f * (zk.y - zm.y);
   const float ox = 0.5f * (zk.y + zm.y), oy = -0.5f * (zk.x - zm.x);
@@ -288,26 +290,28 @@ __device__ __forceinline__ float2 split_bin(float2 zk, float2 zm, float2 w) {
   return make_float2(ex + wox, ey + woy);
 }
 
-// Launch shape and table offsets of the real N-point transform (N = 16,384,
-// 32,768 or 65,536): 65,536 points do not fit one CTA's shared memory and
-// take a 2-CTA cluster.  A CTA holds kM = N / 2 / kCluster packed points:
-// 8192 is fft_pair.cuh's 8192 instance, 16,384 Large<16384>.  The table
-// (kstft.large_twiddles): the CTA transform's (kpv.pair_twiddles(8192), or
-// Large<16384>'s pass table), on the cluster the radix-2 step's W_2kM^k (k
-// < kM) at kMid, then the split's W_N^k (k < N / 2) at kSplit.
+// Launch shape and table offsets of the real N-point transform (N = 1024
+// ... 65,536, a power of two): 65,536 points do not fit one CTA's shared
+// memory and take a 2-CTA cluster.  A CTA holds kM = N / 2 / kCluster
+// packed points: up to 8192 fft_pair.cuh's Pair<kM> (N / 32 threads),
+// 16,384 Large<16384>.  The table (kstft.large_twiddles): the CTA
+// transform's (kpv.pair_twiddles(kM), or Large<16384>'s pass table), on the
+// cluster the radix-2 step's W_2kM^k (k < kM) at kMid, then the split's
+// W_N^k (k < N / 2) at kSplit.
 template <int N>
 struct RealPlan {
-  using P = pairfft::Pair<8192>;
-  using L = Large<16384>;
   static constexpr int kCluster = N == 65536 ? 2 : 1;
   static constexpr int kM = N / 2 / kCluster;
-  static constexpr bool kPair = kM == 8192;
+  static constexpr bool kPair = kM <= 8192;
+  using P = pairfft::Pair<kPair ? kM : 8192>;
+  using L = Large<16384>;
   static constexpr int kThreads = kPair ? P::kThreads : L::kThreads;
+  static constexpr int kMinBlocks = kPair ? P::kMinBlocks : 1;
   static constexpr size_t kSmem = kPair ? P::kSmem : L::kSmem;
   static constexpr int kMid = kPair ? P::kTwiddles : L::kTwiddles;
   static constexpr int kSplit = kMid + (kCluster == 2 ? kM : 0);
-  static_assert(N == 16384 || N == 32768 || N == 65536,
-                "N = 16,384, 32,768 or 65,536");
+  static_assert(N >= 1024 && N <= 65536 && (N & (N - 1)) == 0,
+                "N = 1024 ... 65,536, a power of two");
 };
 
 // The real N-point DFT of the frame x[i] = wav[first + i] * scale(i) (i < N;
@@ -335,12 +339,12 @@ __device__ __forceinline__ void real_fft(const float* __restrict__ wav,
   };
   if constexpr (RP::kPair) {
     using P = typename RP::P;
-    pairfft::Twiddles<8192> twr;
-    pairfft::load_twiddles<8192>(twr, tw);
+    pairfft::Twiddles<M> twr;
+    pairfft::load_twiddles<M>(twr, tw);
     float2 v[16];
 #pragma unroll
     for (int a = 0; a < 16; ++a) v[a] = packed(t + T * a);
-    pairfft::fft<8192>(v, twr, smem, smem + P::kBuf, -1.0f);
+    pairfft::fft<M>(v, twr, smem, smem + P::kBuf, -1.0f);
     for (int k = t; k < M; k += T) {
       store(k, split_bin(smem[k], smem[(M - k) & (M - 1)], __ldg(split + k)));
     }

@@ -13,20 +13,26 @@
 // 3.141592) and packed as int32 0x00RRGGBB, as pallas_columns.py:152-162.
 //
 // Design, by size (kernels/columns.py:route):
-// * 16,384, 32,768 and 65,536 points (fft_large.cuh): a column is one real
-//   transform packed as N / 2 complex points, on fft_pair.cuh's 8192
-//   instance, on Large<16384> in one CTA, or on a 2-CTA cluster (65,536),
-//   held in shared memory.  The window's zero fill and decay apply as pass
-//   1 reads the samples, and the real split's epilogue stores |X| or the
-//   texel.  One launch, one CTA (or cluster) per column.  At 32,768 points
-//   a column is 128 KB in and 64 KB out: a 256-column drain moves ~48 MB,
-//   so device memory bounds it (~14 us at 3.35 TB/s); each CTA keeps 139 KB
-//   of shared memory and fills an SM, so the drain is 1.94 waves of 132
-//   CTAs (PERF.md: two CTAs a SM, half a column each on a cluster, measured
-//   slower).
-// * Other sizes up to 49,152 points: one block of 512 threads per column
-//   runs the real-input FFT of fft_real.cuh in shared memory (samples stored
-//   packed and bit-reversed, one barrier a radix-2 stage).
+// * The powers of two 1024 ... 65,536 (fft_large.cuh): a column is one
+//   real transform packed as N / 2 complex points, on fft_pair.cuh's
+//   register transform of N / 2 points up to 16,384 (one CTA of N / 32
+//   threads), on Large<16384> in one CTA at 32,768, or on a 2-CTA cluster
+//   (65,536), held in shared memory.  The window's zero fill and decay apply
+//   as pass 1 reads the samples, and the real split's epilogue stores |X|
+//   or the texel.  One launch, one CTA (or cluster) per column.  At 32,768
+//   points a column is 128 KB in and 64 KB out: a 256-column drain moves
+//   ~48 MB, so device memory bounds it (~14 us at 3.35 TB/s); each CTA
+//   keeps 139 KB of shared memory and fills an SM, so the drain is 1.94
+//   waves of 132 CTAs (PERF.md: two CTAs a SM, half a column each on a
+//   cluster, measured slower).
+// * Other sizes up to 49,152 points, N = B m with m odd (3 ... 47): the
+//   frame tile of fft_fourstep.cuh (columns_tile), T whole columns a CTA,
+//   T capped so that a drain of up to 256 columns still has a CTA for each
+//   of the card's 132 SMs (T = 1 there); lanes read a column's samples
+//   consecutively (zero fill and decay as they land) into its m packed
+//   sub-sequences, then the four-step column tiles' body (batched radix-16
+//   Stockham, split, paired m-point sums) and store_bin for the bins below
+//   N / 2.
 // * The other sizes above 49,152 points, 1024 j for j = 49 ... 63 (4 * N
 //   bytes no longer fit a block): fft_mixed.cuh on a 2-CTA cluster a
 //   column, the frame split between the pair by the parity of its m
@@ -36,13 +42,12 @@
 //   columns are 128 CTAs, one wave.
 #include <cstdint>
 
+#include "fft_fourstep.cuh"
 #include "fft_large.cuh"
 #include "fft_mixed.cuh"
-#include "fft_real.cuh"
 
 namespace {
 
-constexpr int kThreads = 512;
 constexpr float kInv85 = static_cast<float>(1.0 / 85.0);
 constexpr float kHalfPiRef = static_cast<float>(3.141592 / 2.0);
 
@@ -111,34 +116,41 @@ __device__ __forceinline__ void column_span(const int* __restrict__ starts,
   *dist0 = static_cast<long long>(starts[c]) - *first;
 }
 
-__global__ void __launch_bounds__(kThreads)
-columns_kernel(const float* __restrict__ wav, long long n,
-               const int* __restrict__ starts, const int* __restrict__ ends,
-               const float2* __restrict__ tw, mlx::RealDft d, float neg_decay,
-               float inv_size, float kgain, int colormap, void* out) {
+// The frame tile (mlx::frame_tile) at the sizes up to mlx::kMaxColumn that
+// are no power of two: CTA blockIdx.x takes columns T blockIdx.x ... T
+// blockIdx.x + T - 1 below n_cols; tab is kstft.four_step_column_table(N);
+// (kT, kPts) as mlx::frame_config gives them.
+template <int kT, int kPts>
+__global__ void __launch_bounds__(kT, kT == 512 ? (kPts == 16 ? 2 : 1)
+                                            : kPts == 16 ? 4 : 2)
+columns_tile(const float* __restrict__ wav, long long n,
+             const int* __restrict__ starts, const int* __restrict__ ends,
+             const float2* __restrict__ tab, mlx::ColTile ft, int n_cols,
+             float neg_decay, float inv_size, float kgain, int colormap,
+             void* out) {
   extern __shared__ float2 s[];
-  const int c = blockIdx.x;
-  long long first, dist0;
-  column_span(starts, ends, c, n, d.n, &first, &dist0);
-  for (int p = threadIdx.x; p < d.n; p += blockDim.x) {
-    mlx::real_dft_put(s, d, p,
-                      column_sample(wav, n, first, dist0, p, neg_decay));
-  }
-  mlx::real_dft_fft(s, d, tw);
-  mlx::real_dft_post(s, d, tw);
-  const int n_bins = d.n / 2;
-  const long long row = static_cast<long long>(c) * n_bins;
-  for (int k = threadIdx.x; k < n_bins; k += blockDim.x) {
-    store_bin(out, row, k, mlx::real_dft_bin(s, d, tw, k), inv_size, kgain,
-              colormap);
-  }
+  const int c0 = blockIdx.x * ft.t, half = ft.b * ft.m / 2;
+  mlx::frame_tile<kT, kPts>(
+      s, ft, tab, min(ft.t, n_cols - c0),
+      [&](int j) {
+        long long first, dist0;
+        column_span(starts, ends, c0 + j, n, 2LL * half, &first, &dist0);
+        return [=](int p) {
+          return column_sample(wav, n, first, dist0, p, neg_decay);
+        };
+      },
+      [&](int j, int k, float2 v) {
+        store_bin(out, static_cast<long long>(c0 + j) * half, k, v, inv_size,
+                  kgain, colormap);
+      });
 }
 
-// The on-chip route (fft_large.cuh) at N = 16,384, 32,768 or 65,536: one
-// CTA, or one 2-CTA cluster at 65,536, per column; tw is
+// The on-chip route (fft_large.cuh) at N = 1024 ... 65,536, a power of two:
+// one CTA, or one 2-CTA cluster at 65,536, per column; tw is
 // kstft.large_twiddles(N).
 template <int N>
-__global__ void __launch_bounds__(mlx::large::RealPlan<N>::kThreads, 1)
+__global__ void __launch_bounds__(mlx::large::RealPlan<N>::kThreads,
+                                  mlx::large::RealPlan<N>::kMinBlocks)
 columns_large(const float* __restrict__ wav, long long n,
               const int* __restrict__ starts, const int* __restrict__ ends,
               const float2* __restrict__ tw, float neg_decay, float inv_size,
@@ -181,27 +193,53 @@ columns_cluster(const float* __restrict__ wav, long long n,
 
 }  // namespace
 
+template <int kT, int kPts>
+cudaError_t launch_columns_tile(const float* wav, long long n,
+                                const int* starts, const int* ends,
+                                const float2* tw, void* out, int n_cols,
+                                const mlx::ColTile& ft, float neg_decay,
+                                float inv_size, float kgain, int colormap,
+                                cudaStream_t stream) {
+  return mlx::launch_tiles<kT>(columns_tile<kT, kPts>,
+                               (n_cols + ft.t - 1) / ft.t,
+                               mlx::col_tile_smem(ft), stream, wav, n, starts,
+                               ends, tw, ft, n_cols, neg_decay, inv_size,
+                               kgain, colormap, out);
+}
+
+// B7 at the sizes up to 49,152 that are no power of two: the frame tile, T
+// capped so that n_cols columns fill the card's SMs where they can; tw is
+// kstft.four_step_column_table(size).  Any other size is refused
+// (cudaErrorInvalidValue).
 extern "C" int mlx_spectrogram_columns(const float* wav, long long n,
                                        const int* starts, const int* ends,
                                        const float2* tw, void* out,
                                        int n_cols, int size, float neg_decay,
                                        float inv_size, float kgain,
                                        int colormap, cudaStream_t stream) {
-  if (n_cols > 0) {
-    const mlx::RealDft d = mlx::make_real_dft(size);
-    const size_t smem = mlx::real_dft_smem(d);
-    const cudaError_t err = cudaFuncSetAttribute(
-        columns_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) {
-      cudaGetLastError();  // clear it: the call reports it once
-      return static_cast<int>(err);
-    }
-    columns_kernel<<<n_cols, kThreads, smem, stream>>>(
-        wav, n, starts, ends, tw, d, neg_decay, inv_size, kgain, colormap,
-        out);
+  if (!mlx::frame_tile_takes(size)) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
+  if (n_cols <= 0) return static_cast<int>(cudaGetLastError());
+  const mlx::ColTile ft = mlx::make_frame_tile(size, n_cols);
+  switch (mlx::frame_config(ft)) {
+    case 0:
+      return static_cast<int>(launch_columns_tile<256, 16>(
+          wav, n, starts, ends, tw, out, n_cols, ft, neg_decay, inv_size,
+          kgain, colormap, stream));
+    case 1:
+      return static_cast<int>(launch_columns_tile<256, 32>(
+          wav, n, starts, ends, tw, out, n_cols, ft, neg_decay, inv_size,
+          kgain, colormap, stream));
+    case 2:
+      return static_cast<int>(launch_columns_tile<512, 32>(
+          wav, n, starts, ends, tw, out, n_cols, ft, neg_decay, inv_size,
+          kgain, colormap, stream));
+    default:
+      return static_cast<int>(launch_columns_tile<512, 16>(
+          wav, n, starts, ends, tw, out, n_cols, ft, neg_decay, inv_size,
+          kgain, colormap, stream));
+  }
 }
 
 template <int N>
@@ -214,14 +252,30 @@ int launch_columns_large(const float* wav, long long n, const int* starts,
       inv_size, kgain, colormap, out));
 }
 
-// B7 at 16,384, 32,768 and 65,536 points: the on-chip route; tw is
-// kstft.large_twiddles(size).  Any other size is refused
-// (cudaErrorInvalidValue).
+// B7 at 1024, 2048, 4096, 8192, 16,384, 32,768 and 65,536 points: the
+// on-chip route; tw is kstft.large_twiddles(size).  Any other size is
+// refused (cudaErrorInvalidValue).
 extern "C" int mlx_spectrogram_columns_large(
     const float* wav, long long n, const int* starts, const int* ends,
     const float2* tw, void* out, int n_cols, int size, float neg_decay,
     float inv_size, float kgain, int colormap, cudaStream_t stream) {
   switch (size) {
+    case 1024:
+      return launch_columns_large<1024>(wav, n, starts, ends, tw, out, n_cols,
+                                        neg_decay, inv_size, kgain, colormap,
+                                        stream);
+    case 2048:
+      return launch_columns_large<2048>(wav, n, starts, ends, tw, out, n_cols,
+                                        neg_decay, inv_size, kgain, colormap,
+                                        stream);
+    case 4096:
+      return launch_columns_large<4096>(wav, n, starts, ends, tw, out, n_cols,
+                                        neg_decay, inv_size, kgain, colormap,
+                                        stream);
+    case 8192:
+      return launch_columns_large<8192>(wav, n, starts, ends, tw, out, n_cols,
+                                        neg_decay, inv_size, kgain, colormap,
+                                        stream);
     case 16384:
       return launch_columns_large<16384>(wav, n, starts, ends, tw, out, n_cols,
                                          neg_decay, inv_size, kgain, colormap,

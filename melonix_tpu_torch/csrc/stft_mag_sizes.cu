@@ -24,13 +24,15 @@
 //   window and zero fill as pass 1 reads the frame (frames overlap, so L2
 //   serves most reads), |X| * scale in the real split.
 //
-// * Any other N up to 49,152 points: stft_mag_sizes_kernel, one block of
-//   256 threads per frame.  Threads read the frame coalesced, window it and
-//   store it packed into dynamic shared memory; the real-input DFT of
-//   fft_real.cuh runs there: a power-of-two N is one packed FFT, N = 2^a * m
-//   with m odd (1536 = 512 * 3) is m packed radix-2 FFTs of the decimated
-//   samples plus a direct m-point sum per output bin.  Shared memory is
-//   4*N bytes (the wrapper caps N, kernels/stft.py).
+// * Any other N up to 49,152 points (N = B m, m odd, 3 <= m <= 95):
+//   mlx_stft_mag_sizes, the frame tile of fft_fourstep.cuh
+//   (stft_mag_tile_kernel): a CTA takes T whole frames (T = 4 at 1536, 1
+//   at 24,576: kstft.frame_tile), its lanes reading each frame's samples
+//   consecutively and windowing them into the frame's m packed
+//   sub-sequences in shared memory; then the four-step column tiles' body
+//   (the batched radix-16 Stockham, the split with W_N^(s k), the paired
+//   m-point sums) and |X| * scale stored for the bins below N/2.  Shared
+//   memory is about 4 T N bytes (196,680 at 49,152).
 //
 // * Other sizes above 49,152 points: mlx_stft_mag_4step, the four-step
 //   route of fft_fourstep.cuh in coalesced tiles: stft_four_step_cols (a
@@ -54,33 +56,38 @@
 
 #include "fft_fourstep.cuh"
 #include "fft_large.cuh"
-#include "fft_real.cuh"
 #include "stft_mag_pair.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-
-__global__ void __launch_bounds__(kThreads)
-stft_mag_sizes_kernel(const float* __restrict__ wav, long long n,
-                      const float* __restrict__ win,
-                      const float2* __restrict__ tw, float* __restrict__ out,
-                      mlx::RealDft d, int hop, float scale) {
+// The frame tile (mlx::frame_tile) at the sizes up to mlx::kMaxColumn that
+// are no power of two: CTA blockIdx.x takes frames T blockIdx.x ... T
+// blockIdx.x + T - 1 below n_frames; `tab` is
+// kstft.four_step_column_table(N); (kT, kPts) as mlx::frame_config gives
+// them.
+template <int kT, int kPts>
+__global__ void __launch_bounds__(kT, kT == 512 ? (kPts == 16 ? 2 : 1)
+                                            : kPts == 16 ? 4 : 2)
+stft_mag_tile_kernel(const float* __restrict__ wav, long long n,
+                     const float* __restrict__ win,
+                     const float2* __restrict__ tab, mlx::ColTile ft,
+                     int n_frames, int hop, float* __restrict__ out,
+                     float scale) {
   extern __shared__ float2 s[];
-  const long long start = static_cast<long long>(blockIdx.x) * hop;
-  for (int i = threadIdx.x; i < d.n; i += blockDim.x) {
-    const long long idx = start + i;
-    const float x = idx < n ? wav[idx] : 0.0f;
-    mlx::real_dft_put(s, d, i, x * win[i]);
-  }
-  mlx::real_dft_fft(s, d, tw);
-  mlx::real_dft_post(s, d, tw);
-  const int n_bins = d.n / 2;
-  float* row = out + static_cast<long long>(blockIdx.x) * n_bins;
-  for (int k = threadIdx.x; k < n_bins; k += blockDim.x) {
-    const float2 v = mlx::real_dft_bin(s, d, tw, k);
-    row[k] = sqrtf(v.x * v.x + v.y * v.y) * scale;
-  }
+  const int f0 = blockIdx.x * ft.t, half = ft.b * ft.m / 2;
+  mlx::frame_tile<kT, kPts>(
+      s, ft, tab, min(ft.t, n_frames - f0),
+      [&](int j) {
+        const long long start = static_cast<long long>(f0 + j) * hop;
+        return [=](int i) {
+          const long long idx = start + i;
+          return (idx < n ? __ldg(wav + idx) : 0.0f) * __ldg(win + i);
+        };
+      },
+      [&](int j, int k, float2 v) {
+        out[static_cast<long long>(f0 + j) * half + k] =
+            sqrtf(v.x * v.x + v.y * v.y) * scale;
+      });
 }
 
 // The on-chip route (fft_large.cuh) at N = 16,384, 32,768 or 65,536: one
@@ -334,16 +341,6 @@ stft_four_step_rows(const float2* __restrict__ tw, mlx::FourStep f,
                           });
 }
 
-// Launch a tile kernel of kT threads on `ctas` CTAs with `smem` bytes.
-template <int kT, class... Exp, class... Act>
-cudaError_t launch_tiles(void (*kernel)(Exp...), int ctas, size_t smem,
-                         cudaStream_t stream, Act&&... args) {
-  const cudaError_t err = mlx::allow_smem(kernel, smem, kT == 256);
-  if (err != cudaSuccess) return err;
-  kernel<<<ctas, kT, smem, stream>>>(static_cast<Act&&>(args)...);
-  return cudaGetLastError();
-}
-
 // The rows of every four-step form, over n_frames frames.
 cudaError_t launch_rows(const float2* tw, const mlx::FourStep& f,
                         const float2* scratch, float* out, int n_frames,
@@ -356,39 +353,51 @@ cudaError_t launch_rows(const float2* tw, const mlx::FourStep& f,
   const int tl = static_cast<int>(tiles);
   switch (mlx::tiles::config(f.n1)) {
     case 0:
-      return launch_tiles<256>(stft_four_step_rows<256, 16>, ctas, smem,
+      return mlx::launch_tiles<256>(stft_four_step_rows<256, 16>, ctas, smem,
                                stream, tw, f, rt, tl, scratch, out, scale);
     case 1:
-      return launch_tiles<256>(stft_four_step_rows<256, 32>, ctas, smem,
+      return mlx::launch_tiles<256>(stft_four_step_rows<256, 32>, ctas, smem,
                                stream, tw, f, rt, tl, scratch, out, scale);
     default:
-      return launch_tiles<512>(stft_four_step_rows<512, 32>, ctas, smem,
+      return mlx::launch_tiles<512>(stft_four_step_rows<512, 32>, ctas, smem,
                                stream, tw, f, rt, tl, scratch, out, scale);
   }
 }
 
 }  // namespace
 
+// B12 at the sizes up to 49,152 that are no power of two: the frame tile;
+// tw is kstft.four_step_column_table(size).  Any other size is refused
+// (cudaErrorInvalidValue).
 extern "C" int mlx_stft_mag_sizes(const float* wav, long long n,
                                   const float* win, const float2* tw,
                                   float* out, int n_frames, int size, int hop,
                                   float scale, cudaStream_t stream) {
-  if (n_frames > 0) {
-    const mlx::RealDft d = mlx::make_real_dft(size);
-    const size_t smem = mlx::real_dft_smem(d);
-    if (smem > 48 * 1024) {
-      const cudaError_t err = cudaFuncSetAttribute(
-          stft_mag_sizes_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          static_cast<int>(smem));
-      if (err != cudaSuccess) {
-        cudaGetLastError();  // clear it: the call reports it once
-        return static_cast<int>(err);
-      }
-    }
-    stft_mag_sizes_kernel<<<n_frames, kThreads, smem, stream>>>(
-        wav, n, win, tw, out, d, hop, scale);
+  if (!mlx::frame_tile_takes(size)) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
+  if (n_frames <= 0) return static_cast<int>(cudaGetLastError());
+  const mlx::ColTile ft = mlx::make_frame_tile(size, 0);
+  const int ctas = (n_frames + ft.t - 1) / ft.t;
+  const size_t smem = mlx::col_tile_smem(ft);
+  switch (mlx::frame_config(ft)) {
+    case 0:
+      return static_cast<int>(mlx::launch_tiles<256>(
+          stft_mag_tile_kernel<256, 16>, ctas, smem, stream, wav, n, win, tw,
+          ft, n_frames, hop, out, scale));
+    case 1:
+      return static_cast<int>(mlx::launch_tiles<256>(
+          stft_mag_tile_kernel<256, 32>, ctas, smem, stream, wav, n, win, tw,
+          ft, n_frames, hop, out, scale));
+    case 2:
+      return static_cast<int>(mlx::launch_tiles<512>(
+          stft_mag_tile_kernel<512, 32>, ctas, smem, stream, wav, n, win, tw,
+          ft, n_frames, hop, out, scale));
+    default:
+      return static_cast<int>(mlx::launch_tiles<512>(
+          stft_mag_tile_kernel<512, 16>, ctas, smem, stream, wav, n, win, tw,
+          ft, n_frames, hop, out, scale));
+  }
 }
 
 // B12 at the power-of-two sizes of fft_pair.cuh; tw is kpv.pair_twiddles
@@ -577,17 +586,17 @@ extern "C" int mlx_stft_mag_4step(const float* wav, long long n,
   cudaError_t err;
   switch (mlx::tiles::config(ct.p)) {
     case 0:
-      err = launch_tiles<256>(stft_four_step_cols<256, 16>, ctas, smem,
+      err = mlx::launch_tiles<256>(stft_four_step_cols<256, 16>, ctas, smem,
                               stream, wav, n, win, tw2, f, ct, tiles, hop,
                               scratch);
       break;
     case 1:
-      err = launch_tiles<256>(stft_four_step_cols<256, 32>, ctas, smem,
+      err = mlx::launch_tiles<256>(stft_four_step_cols<256, 32>, ctas, smem,
                               stream, wav, n, win, tw2, f, ct, tiles, hop,
                               scratch);
       break;
     default:
-      err = launch_tiles<512>(stft_four_step_cols<512, 32>, ctas, smem,
+      err = mlx::launch_tiles<512>(stft_four_step_cols<512, 32>, ctas, smem,
                               stream, wav, n, win, tw2, f, ct, tiles, hop,
                               scratch);
   }

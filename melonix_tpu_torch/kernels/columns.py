@@ -10,14 +10,16 @@ the first ``size // 2`` bins divided by ``size`` (spec.cpp:44-66); with
 
 The TPU kernel DMA'd a slab per column, realigned it with lane rolls and ran
 a four-step MXU DFT; the port's kernel (``csrc/spectrogram_columns.cu``)
-takes a route by size (:func:`route`): at ``kernels.stft.LARGE_SIZES``
-(16,384, 32,768 and 65,536 points) one transform per column held on chip
-(``csrc/fft_large.cuh``: 65,536 on a 2-CTA cluster); at the other sizes up
-to ``kernels.stft.MAX_SIZE`` one block per column running the real-input
-FFT of ``csrc/fft_real.cuh`` in shared memory; above it (1024 * j, j = 49
-.. 63) one 2-CTA cluster per column holding the frame in both CTAs' shared
-memory (``csrc/fft_mixed.cuh``, table :func:`cluster_table`).  Every route
-is one launch.  ``spectrogram_columns_fused`` launches it for a CUDA tensor,
+takes a route by size (:func:`route`): at :data:`LARGE_SIZES` (the powers
+of two 1024 ... 65,536) one transform per column held on chip
+(``csrc/fft_large.cuh``: up to 16,384 points packed on the register
+transform of ``csrc/fft_pair.cuh``, 65,536 on a 2-CTA cluster); at the
+other sizes up to ``kernels.stft.MAX_SIZE`` the frame tile of
+``csrc/fft_fourstep.cuh`` (``kernels.stft.frame_tile`` columns a CTA, at
+most as many as leave a CTA for each SM); above it (1024 * j, j = 49 .. 63)
+one 2-CTA cluster per column holding the frame in both CTAs' shared memory
+(``csrc/fft_mixed.cuh``, table :func:`cluster_table`).  Every route is one
+launch.  ``spectrogram_columns_fused`` launches it for a CUDA tensor,
 runs :func:`spectrogram_columns_plain` for a CPU tensor, and raises for
 anything else; ``spectrogram_columns_fused.launches`` counts its launches.
 """
@@ -30,10 +32,14 @@ import torch
 import functools
 
 from . import _build
-from .stft import (LARGE_SIZES, MAX_SIZE, large_twiddles, twiddles,
-                   unit_roots)  # the FFT routes and tables shared with B12
+from . import stft  # the FFT routes and tables shared with B12
+from .stft import (MAX_SIZE, four_step_column_table, large_twiddles,
+                   unit_roots)
 
 N1 = 128  # the TPU kernel's lane factor, kept for its size predicate
+# B7's on-chip sizes (csrc/fft_large.cuh): 1024 ... 8192 packed on
+# fft_pair.cuh's Pair<N / 2>, then B12's stft.LARGE_SIZES.
+LARGE_SIZES = (1024, 2048, 4096, 8192) + stft.LARGE_SIZES
 _PI_REF = 3.141592  # the reference's pi literal (spec-cache.cpp:86)
 
 
@@ -47,13 +53,14 @@ def supported(size: int) -> bool:
 
 def route(size: int) -> str:
     """The kernel route B7 takes at ``size`` points, by the size alone:
-    ``"large"`` (``kernels.stft.LARGE_SIZES``: one column per transform held
-    on chip, 65,536 on a 2-CTA cluster), ``"one_block"`` (any other size up
-    to :data:`MAX_SIZE`: ``fft_real.cuh``), ``"cluster"`` above it (1024 *
-    j, j = 49 .. 63: ``fft_mixed.cuh``, one 2-CTA cluster a column)."""
+    ``"large"`` (:data:`LARGE_SIZES`: one column per transform held on chip,
+    65,536 on a 2-CTA cluster), ``"tile"`` (any other size up to
+    :data:`MAX_SIZE`: the frame tile, ``kernels.stft.frame_tile``),
+    ``"cluster"`` above it (1024 * j, j = 49 .. 63: ``fft_mixed.cuh``, one
+    2-CTA cluster a column)."""
     if size in LARGE_SIZES:
         return "large"
-    return "one_block" if size <= MAX_SIZE else "cluster"
+    return "tile" if size <= MAX_SIZE else "cluster"
 
 
 def cluster_plan(size: int) -> tuple[int, int]:
@@ -152,7 +159,7 @@ def spectrogram_columns_fused(wav, starts, ends, kgain, size: int = 32768,
     lib = _build.library()
     entry, tw = {
         "large": (lib.mlx_spectrogram_columns_large, large_twiddles),
-        "one_block": (lib.mlx_spectrogram_columns, twiddles),
+        "tile": (lib.mlx_spectrogram_columns, four_step_column_table),
         "cluster": (lib.mlx_spectrogram_columns_cluster, cluster_table),
     }[way]
     with torch.cuda.device(dev):

@@ -9,8 +9,9 @@ names from the size alone: the power-of-two sizes of
 (``csrc/stft_mag_pair.cuh``: two frames per complex transform on the
 register-resident ``csrc/fft_pair.cuh``); :data:`LARGE_SIZES` one frame per
 transform held on chip (``csrc/fft_large.cuh``: 65,536 points on a 2-CTA
-cluster); the other sizes up to :data:`MAX_SIZE` the real-input FFT of
-``csrc/fft_real.cuh`` in shared memory, one block per frame; above it, the
+cluster); the other sizes up to :data:`MAX_SIZE` the frame tile of
+``csrc/fft_fourstep.cuh`` (:func:`frame_tile`: the four-step column tiles'
+body on T whole frames a CTA, held in shared memory); above it, the
 four-step route of ``csrc/fft_fourstep.cuh`` through a scratch buffer
 (:func:`four_step_plan` picks its factors, :func:`four_step_plain` spells
 its arithmetic in torch) in coalesced tiles (:func:`column_tile`,
@@ -24,9 +25,8 @@ through device scratch above (:func:`bluestein_scratch_plan`, at most
 ``stft_mag`` launches the kernel for a CUDA tensor, runs
 :func:`stft_mag_plain` for a CPU tensor, and raises for anything else;
 ``stft_mag.launches`` counts its launches, one a call whatever the route.
-``twiddles`` is the float32 table of the real-input FFT, shared with B7
-(``kernels/columns.py``), as are :func:`unit_roots` and
-:func:`large_twiddles`.
+The tables are shared with B7 (``kernels/columns.py``): :func:`unit_roots`,
+:func:`twiddles`, :func:`large_twiddles`, :func:`four_step_column_table`.
 """
 
 from __future__ import annotations
@@ -46,12 +46,12 @@ __all__ = ["MAX_SIZE", "LARGE_SIZES", "BLUESTEIN_MAX", "BLUESTEIN_WORK",
            "bluestein_cluster", "bluestein_table", "bluestein_scratch_plan",
            "bluestein_scratch_table", "four_step_plan", "four_step_plain",
            "four_step_bluestein", "four_step_twiddles",
-           "four_step_column_table", "column_tile", "row_tile",
+           "four_step_column_table", "column_tile", "frame_tile", "row_tile",
            "tile_config"]
 
-# The one-block transform keeps 4 * size bytes in dynamic shared memory
-# (fft_real.cuh); 49152 points take 192 KB of the block's 227 KB.  Larger
-# sizes take the four-step route.
+# A frame tile of one frame keeps about 4 * size bytes in shared memory
+# (csrc/fft_fourstep.cuh kMaxColumn); 49,152 points take 192 KB of the
+# CTA's 227 KB.  Larger sizes take the four-step route.
 MAX_SIZE = 49152
 MAX_N1 = 16384  # a four-step row tile of one row keeps 8 * N1 bytes
 # Sizes whose frame is one transform held on chip (csrc/fft_large.cuh):
@@ -66,6 +66,7 @@ BLUESTEIN_MAX = 2 * LARGE_M
 # kWorkBytes).
 BLUESTEIN_WORK = 1 << 29
 SMEM_MAX = 232448  # the H100's shared memory a CTA (fft_fourstep.cuh)
+FRAME_SMS = 132  # the H100's SMs: B7's cap on a frame tile (kFrameSms)
 ROW_LANES = 16  # a row tile's source rows, at most (kRowLanes)
 SLAB_PAD = 8  # the TPU kernel's largest size // hop
 BT = 256  # the TPU kernel's bin tile
@@ -182,6 +183,36 @@ def column_tile(n2: int) -> dict:
                 config=tile_config(p))
 
 
+def frame_tile(size: int, count: int | None = None) -> dict:
+    """One frame tile CTA's layout (``csrc/fft_fourstep.cuh``
+    ``make_frame_tile``) at a ``size`` = B m up to :data:`MAX_SIZE` that is
+    no power of two: :func:`column_tile` of N2 = ``size`` (``m``, ``b``,
+    ``p``, ``config``), its ``t`` frames a CTA, with ``count`` (B7's
+    columns) halved until ceil(count / t) >= min(count,
+    :data:`FRAME_SMS`); ``s`` = P + 3 for m < 9, P + 1 above (the load's
+    4-byte stores on 16 banks a half-warp); ``smem`` = t m s * 8 bytes;
+    ``config`` (``frame_config``): (512, 32) where two CTAs' ``smem`` do
+    not fit a SM, else :func:`tile_config` of P but (512, 16) for P > 512.
+    Raises ValueError for a size the tile does not take."""
+    if not (0 < size <= MAX_SIZE and size % 4 == 0 and size & (size - 1)):
+        raise ValueError(f"no frame tile takes {size} points")
+    c = column_tile(size)
+    t = c["t"]
+    if count is not None and count > 0:
+        fill = min(count, FRAME_SMS)
+        while t > 1 and -(-count // t) < fill:
+            t //= 2
+    s = c["p"] + (3 if c["m"] < 9 else 1)
+    smem = t * c["m"] * s * 8
+    config = c["config"]
+    if 2 * smem > SMEM_MAX:
+        config = (512, 32)
+    elif config == (512, 32):
+        config = (512, 16)
+    return dict(m=c["m"], b=c["b"], p=c["p"], t=t, s=s, smem=smem,
+                config=config)
+
+
 def row_tile(n1: int) -> dict:
     """One row tile CTA's layout (``RowTile``): ``k`` source rows (8 up to
     N1 = 1024, then 8192 / N1, 1 at 16,384), ``pair`` (each source row k2
@@ -221,16 +252,16 @@ def large_pass_table(device: torch.device) -> torch.Tensor:
 @functools.cache
 def large_twiddles(size: int, device: torch.device) -> torch.Tensor:
     """The one float32 table of ``csrc/fft_large.cuh``'s real ``size``-point
-    transform (``RealPlan<N>`` reads its offsets), computed in float64: the
-    CTA transform's table (:func:`~melonix_tpu_torch.kernels.pv.pair_twiddles`
-    of 8192 at 16,384 points, :func:`large_pass_table` above), at 65,536
-    points (a 2-CTA cluster) then :func:`twiddles` of 32,768 (the radix-2
-    step across the cluster), last :func:`twiddles` of ``size`` (the real
-    split)."""
-    if size not in LARGE_SIZES:
+    transform (``RealPlan<N>`` reads its offsets; ``size`` a power of two
+    1024 ... 65,536), computed in float64: the CTA transform's table
+    (:func:`~melonix_tpu_torch.kernels.pv.pair_twiddles` of size / 2 up to
+    16,384 points, :func:`large_pass_table` above), at 65,536 points (a
+    2-CTA cluster) then :func:`twiddles` of 32,768 (the radix-2 step across
+    the cluster), last :func:`twiddles` of ``size`` (the real split)."""
+    if size not in LARGE_SIZES + tuple(2 * p for p in PAIR_SIZES):
         raise ValueError(f"no on-chip transform of {size} points")
     cpu = torch.device("cpu")
-    parts = ([pair_twiddles(8192, cpu)] if size == 16384
+    parts = ([pair_twiddles(size // 2, cpu)] if size <= 16384
              else [large_pass_table(cpu)])
     if size == 65536:
         parts.append(twiddles(2 * LARGE_M, cpu))
@@ -387,8 +418,8 @@ def route(size: int) -> str:
     ``"pair"`` (a power of two in :data:`PAIR_SIZES`: two frames per
     register-resident complex transform), ``"large"`` (:data:`LARGE_SIZES`:
     one frame per transform held on chip, 65,536 on a 2-CTA cluster),
-    ``"one_block"`` (any other size up to :data:`MAX_SIZE`:
-    ``fft_real.cuh``, a block per frame), ``"four_step"`` above it (the
+    ``"tile"`` (any other size up to :data:`MAX_SIZE`: the frame tile,
+    :func:`frame_tile` frames a CTA), ``"four_step"`` above it (the
     columns in tiles), ``"bluestein"`` where the four-step columns are
     Bluestein convolutions on a cluster (an odd factor above 12,288, N2 <=
     :data:`BLUESTEIN_MAX`: on 2-CTA clusters up to N2 = 16,384, on 4-CTA
@@ -401,7 +432,7 @@ def route(size: int) -> str:
     if size in LARGE_SIZES:
         return "large"
     if size <= MAX_SIZE:
-        return "one_block"
+        return "tile"
     plan = four_step_plan(size)
     if plan is None:
         raise NotImplementedError(
@@ -430,11 +461,11 @@ def stft_mag(wav, window, size: int, hop: int, n_frames: int,
     out = torch.empty((n_frames, size // 2), dtype=torch.float32, device=dev)
     lib = _build.library()
     with torch.cuda.device(dev):
-        if way in ("pair", "large", "one_block"):
+        if way in ("pair", "large", "tile"):
             entry, tw = {
                 "pair": (lib.mlx_stft_mag_pair, pair_twiddles),
                 "large": (lib.mlx_stft_mag_large, large_twiddles),
-                "one_block": (lib.mlx_stft_mag_sizes, twiddles),
+                "tile": (lib.mlx_stft_mag_sizes, four_step_column_table),
             }[way]
             err = entry(
                 wav.data_ptr(), wav.shape[0], window.data_ptr(),

@@ -7,8 +7,9 @@ turns on one NVIDIA GPU.
 Runs one process a turn, in the order other, this, this, other; each
 imports the ``melonix_tpu_torch`` of its checkout (building its kernels
 there at first use) and times ``kstft.stft_mag`` on ``chip_smoke.py``'s
-180 s song: the four-step route at 98,304/12,288, 131,072/16,384 and
-1,048,576/131,072 over every frame of the song, at 512 x 12,287 (N2 =
+180 s song: over every frame of the song 1536/384, 24,576/3,072 and
+48,640/9,728 (the frame tile) and the four-step route at 98,304/12,288,
+131,072/16,384 and 1,048,576/131,072; at 512 x 12,287 (N2 =
 49,148, m = 12,287) over 2 frames at a quarter-size hop, as phase 19 lays
 them out: CUDA events around 10 back-to-back calls, the median of 5 after a
 warm-up; and the columns above N2 = 32,768 at 512 x 32,771 (2 frames) at
@@ -28,7 +29,9 @@ from granular_turns import run_turns
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 # (size, hop or None for a quarter-size hop over 2 frames, inner calls)
-CASES = ((98304, 12288, 10), (131072, 16384, 10), (1 << 20, 131072, 10),
+CASES = ((1536, 384, 10), (24576, 3072, 10), (48640, 9728, 10),
+         (98304, 12288, 10), (131072, 16384, 10),
+         (1 << 20, 131072, 10),
          (512 * 12287, None, 10), (512 * 32771, None, 1))
 
 

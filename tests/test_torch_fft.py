@@ -263,8 +263,8 @@ def test_stft_mag_pair_model_matches_rfft(n, case):
 
 @pytest.mark.parametrize("size,way", [
     (512, "pair"), (1024, "pair"), (2048, "pair"), (4096, "pair"),
-    (8192, "pair"), (1536, "one_block"), (16384, "large"),
-    (49152, "one_block"), (65536, "large"), (512 * 12289, "bluestein"),
+    (8192, "pair"), (1536, "tile"), (16384, "large"),
+    (49152, "tile"), (65536, "large"), (512 * 12289, "bluestein"),
 ])
 def test_route_is_decided_by_the_size(size, way):
     assert kstft.route(size) == way

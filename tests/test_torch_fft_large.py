@@ -298,11 +298,14 @@ def test_large_header_constants():
     assert "static_assert(M == 16384 " in src
     assert kstft.LARGE_M == M
     assert kstft.large_pass_table(CPU).shape == (8448, 2)
-    pair = 8192 + 8192 // 16  # kpv.pair_twiddles(8192): Pair<8192>::kTwiddles
-    for n in kstft.LARGE_SIZES:
+    assert "static constexpr bool kPair = kM <= 8192;" in src
+    assert "using P = pairfft::Pair<kPair ? kM : 8192>;" in src
+    for n in kcols.LARGE_SIZES:
         c = 2 if n == 65536 else 1  # RealPlan::kCluster
         m = n // 2 // c
-        mid = pair if m == 8192 else 8448  # RealPlan::kMid
+        # RealPlan::kMid: kpv.pair_twiddles(m) (Pair<m>::kTwiddles) up to
+        # 8192 packed points, else Large<16384>'s pass table
+        mid = m + m // 16 if m <= 8192 else 8448
         split = mid + (m if c == 2 else 0)  # RealPlan::kSplit
         tab = kstft.large_twiddles(n, CPU)
         assert tab.shape[0] == split + n // 2
@@ -327,17 +330,18 @@ def test_large_entries_take_their_siblings_arguments(large, sibling):
     assert n_args(large) == n_args(sibling) == len(_build.SIGNATURES[large])
 
 
-@pytest.mark.parametrize("n", kstft.LARGE_SIZES)
+@pytest.mark.parametrize("n", kcols.LARGE_SIZES)
 def test_large_twiddles_within_one_ulp_of_float64(n):
-    """kstft.large_twiddles(n): the transform's table (the pair table at
-    16,384; the pass table of Large<16384>: W_256^x, W_4096^x, W_16384^j, j <
-    4096), the cluster step's W_32768^k (65,536 only) and the split's W_n^k,
-    k < n / 2; <= 1 ulp of float64."""
+    """kstft.large_twiddles(n): the transform's table (the pair table of n /
+    2 up to 16,384; the pass table of Large<16384>: W_256^x, W_4096^x,
+    W_16384^j, j < 4096), the cluster step's W_32768^k (65,536 only) and the
+    split's W_n^k, k < n / 2; <= 1 ulp of float64."""
     got = kstft.large_twiddles(n, CPU).numpy()
-    if n == 16384:
-        head = [np.nan] * (8192 + 512)  # fft_pair.cuh's table, tested there
-        assert np.array_equal(got[:8704], kstft.__dict__["pair_twiddles"](
-            8192, CPU).numpy())
+    if n <= 16384:
+        pair = n // 2 + n // 32  # fft_pair.cuh's table, tested there
+        head = [np.nan] * pair
+        assert np.array_equal(got[:pair], kstft.__dict__["pair_twiddles"](
+            n // 2, CPU).numpy())
     else:
         head = list(2 * np.pi * np.concatenate([
             np.arange(256) / 256, np.arange(4096) / 4096,
@@ -350,8 +354,8 @@ def test_large_twiddles_within_one_ulp_of_float64(n):
     assert _ulps(got[keep, 0], np.cos(ang[keep])).max() <= 1.0
     assert _ulps(got[keep, 1], np.sin(ang[keep])).max() <= 1.0
     assert kstft.large_twiddles(n, CPU) is kstft.large_twiddles(n, CPU)
-    with pytest.raises(ValueError, match="8192"):
-        kstft.large_twiddles(8192, CPU)
+    with pytest.raises(ValueError, match="12288"):
+        kstft.large_twiddles(12288, CPU)
 
 
 # ----------------------------------------------------------------------
@@ -499,12 +503,14 @@ def test_bluestein_header_constants():
 
 
 @pytest.mark.parametrize("size,b12,b7", [
-    (7168, "one_block", "one_block"), (8192, "pair", "one_block"),
-    (9216, "one_block", "one_block"), (15360, "one_block", "one_block"),
-    (16384, "large", "large"), (17408, "one_block", "one_block"),
-    (31744, "one_block", "one_block"), (32768, "large", "large"),
-    (33792, "one_block", "one_block"), (48128, "one_block", "one_block"),
-    (49152, "one_block", "one_block"), (50176, "four_step", "cluster"),
+    (1024, "pair", "large"), (1536, "tile", None), (2048, "pair", "large"),
+    (3072, "tile", "tile"), (4096, "pair", "large"),
+    (7168, "tile", "tile"), (8192, "pair", "large"),
+    (9216, "tile", "tile"), (15360, "tile", "tile"),
+    (16384, "large", "large"), (17408, "tile", "tile"),
+    (31744, "tile", "tile"), (32768, "large", "large"),
+    (33792, "tile", "tile"), (48128, "tile", "tile"),
+    (49152, "tile", "tile"), (50176, "four_step", "cluster"),
     (64512, "four_step", "cluster"), (65536, "large", "large"),
     (98304, "four_step", None), (131072, "four_step", None),
     (512 * 12289, "bluestein", None), (1024 * 16381, "bluestein", None),
@@ -516,12 +522,14 @@ def test_bluestein_header_constants():
     (1 << 30, "bluestein_scratch", None),
 ])
 def test_routes_by_size(size, b12, b7):
-    """kstft.route and kcols.route at every supported size around 8192,
-    16,384, 32,768, 49,152 and 65,536 (B7's 1024 j, j = 49 .. 63, on the
-    cluster route; B12 keeps the four-step route there), and the four-step
-    columns' three forms (FFT tiles, Bluestein up to N2 = 32,768 on 2 CTAs
-    up to 16,384 and 4 above, Bluestein through scratch above); no route is
-    ``"direct"``."""
+    """kstft.route and kcols.route at every supported size around 1024 ...
+    8192, 16,384, 32,768, 49,152 and 65,536 (B7's powers of two on chip,
+    the other sizes up to 49,152 on the frame tile, 1024 j, j = 49 .. 63, on
+    the cluster route; B12 keeps the pair route up to 8192 and the
+    four-step route above 49,152), and the four-step columns' three forms
+    (FFT tiles, Bluestein up to N2 = 32,768 on 2 CTAs up to 16,384 and 4
+    above, Bluestein through scratch above); no route is ``"direct"`` or
+    ``"one_block"``."""
     assert kstft.route(size) == b12
     assert kcols.supported(size) == (b7 is not None)
     if b7 is not None:

@@ -313,8 +313,8 @@ def test_b12_beyond_cap_raises_on_cuda_tensors(monkeypatch):
     of its on-chip ``mlx_spectrogram_columns_cluster`` entry, and each
     counts one launch; B12 at a size whose odd factor needs Bluestein
     columns calls ``mlx_stft_mag_bluestein`` with the plan.  Below the cap B12 launches
-    the pair transform at 4096, the one-block transform at 1536 and the
-    on-chip one at 32,768, as B7 does.  Only a size int32 indices cannot
+    the pair transform at 4096, the frame tile at 1536 and the on-chip
+    transform at 32,768, as B7 does.  Only a size int32 indices cannot
     reach raises NotImplementedError, naming why, before any launch."""
     rec = _fake_cuda(monkeypatch)
     size, meta = 65536, torch.device("meta")
@@ -342,7 +342,7 @@ def test_b12_beyond_cap_raises_on_cuda_tensors(monkeypatch):
     assert name == "mlx_spectrogram_columns_cluster"
     assert args[6:8] == (3, 50176)
     # at and below the cap: B12's power-of-two sizes take the pair
-    # transform, its other sizes the one-block entry; 32,768 points (B12
+    # transform, its other sizes the frame tile's entry; 32,768 points (B12
     # and B7) the on-chip transform
     kstft.stft_mag(wav, torch.zeros(4096).to(meta), 4096, 1024, 5)
     kstft.stft_mag(wav, torch.zeros(1536).to(meta), 1536, 384, 5)
@@ -389,7 +389,7 @@ def test_four_step_plan_covers_every_size_above_the_cap(kernel):
     """The host factor plan for every B7 size (1024 * j, j <= 64) and every
     B12 size up to 2^20 above MAX_SIZE: N1 * N2 = size, N1 a power of two
     within MAX_N1, N2 within MAX_SIZE with a power-of-two part of at least
-    4 (fft_real.cuh's real route), N1 the power of two nearest sqrt(size)
+    4 (the column tiles' real packing), N1 the power of two nearest sqrt(size)
     that fits."""
     sizes = ([1024 * j for j in range(1, 65) if kcols.supported(1024 * j)]
              if kernel == "b7" else _b12_sizes())
@@ -666,5 +666,5 @@ def test_build_runs_one_compiler_per_source(monkeypatch, tmp_path):
 
 def test_new_kernel_sources_are_built():
     names = {p.name for p in _build.sources()}
-    assert {"fft_real.cuh", "spectrogram_columns.cu",
-            "stft_mag_sizes.cu"} <= names
+    assert {"fft_fourstep.cuh", "spectrogram_columns.cu",
+            "stft_mag_sizes.cu"} <= names and "fft_real.cuh" not in names
