@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``melonix_tpu_torch/csrc`` and the
-native host runtime from ``native/melonix_native.cpp``, holds each kernel
+native host runtime from ``native/`` (``melonix_native.cpp`` and the FLAC,
+MP3 and Vorbis decoders), holds each kernel
 against its plain PyTorch twin on the card at the main paths' shapes, drives
 the main paths once each on a 180 s, 44.1 kHz song with 12 markers (the
 2048/512 |STFT| plus the phase-vocoder render; the granular export,
@@ -15,7 +16,11 @@ copy that puts 100 dB between adjacent frames (B8 also held per frame
 against its twin on both); ``autotune`` with its
 defaults, the formant-preserving phase vocoder, on a 180 s detuned melody;
 the identity-locked render; renders at 4096/1024 (through B9) and 1000/250;
-a locked stereo PV session; the streaming phase vocoder and the Player),
+a locked stereo PV session; the streaming phase vocoder and the Player;
+the file slice: the song through FLAC, the MP3 and Ogg fixtures, ``.mlx``
+and ``.melonix`` projects into the CLI's ``render --rate 48000 --trace``,
+granular ``render`` and ``batch --format flac``, ``resample`` alone under a
+TF32 default, ``info`` and ``project``),
 checks their output (the granular export bit for bit against its plain
 references and ``tests/oracle.py``, the columns against a float64 oracle,
 the tiles against an all-plain server, the pitch curve against the song's
@@ -783,6 +788,221 @@ def synth_ptxas(log: str) -> list[tuple[str, int, int, int]]:
     return out
 
 
+def polyphase_f64(x: np.ndarray, sr_in: int, sr_out: int) -> np.ndarray:
+    """The port's resampler evaluated in float64 NumPy on the same float32
+    banks: the reference its float32 device products are held to."""
+    from melonix_tpu_torch.io import resample as rs
+
+    up, down, n_out, m_out, rows, banks, front = rs.plan(len(x), sr_in,
+                                                         sr_out)
+    xp = np.zeros(rows * down)
+    xp[front * down : front * down + len(x)] = x
+    x2 = xp.reshape(rows, down)
+    acc = sum(x2[r : r + m_out] @ banks[r].astype(np.float64)
+              for r in range(banks.shape[0]))
+    return acc.reshape(-1)[:n_out]
+
+
+def file_slice(mt, x: np.ndarray, card: str, root: str) -> None:
+    """Phase 23: the song through FLAC, MP3 and Ogg import, ``.mlx`` and
+    ``.melonix`` projects, the CLI's ``render --rate --trace``, granular
+    render and ``batch --format flac`` from files, ``resample`` alone under
+    a TF32 default, ``info`` and ``project``.  Every check raises."""
+    import glob
+    import io as _io
+    import torch
+
+    from melonix_tpu_torch.cli import main as cli_main
+    from melonix_tpu_torch.io import libav
+    from melonix_tpu_torch.io import resample as rs
+    from melonix_tpu_torch.io.melonix import load_melonix, save_melonix
+    from melonix_tpu_torch.kernels import pv as kpv
+    from melonix_tpu_torch.kernels import render as krender
+    from melonix_tpu_torch.kernels import resample as kres
+    from melonix_tpu_torch.runtime import native
+
+    n = len(x)
+    markers = bench_markers(mt, n)
+    with tempfile.TemporaryDirectory() as tmp:
+        # -- encode, decode, save ------------------------------------
+        song = os.path.join(tmp, "song.flac")
+        t0 = time.perf_counter()
+        mt.write_flac(song, x, SR)
+        enc_ms = 1e3 * (time.perf_counter() - t0)
+        calls = native.decode_flac.calls
+        t0 = time.perf_counter()
+        y, rate = mt.load_audio(song)
+        dec_ms = 1e3 * (time.perf_counter() - t0)
+        q = (np.clip(np.rint(x * 32768.0), -32768, 32767) / 32768.0).astype(
+            np.float32)
+        same = rate == SR and np.array_equal(y, q)
+        print(f"[23] FLAC of the {SECONDS:.0f} s song ({os.path.getsize(song)} "
+              f"bytes): write_flac {enc_ms:.1f} ms, load_audio {dec_ms:.1f} ms "
+              f"host; equal to the int16-quantised song {same} (bar: equal)",
+              flush=True)
+        check(same and native.decode_flac.calls == calls + 1, "FLAC decode")
+        for path in sorted(glob.glob(os.path.join(root, "tests", "fixtures",
+                                                  "*"))):
+            t0 = time.perf_counter()
+            a, r = mt.load_audio(path, mono=False)
+            ms = 1e3 * (time.perf_counter() - t0)
+            ok = r > 0 and a.shape[0] > 0 and bool(np.isfinite(a).all())
+            print(f"     {os.path.basename(path)}: {a.shape} at {r} Hz in "
+                  f"{ms:.2f} ms host, finite {ok}", flush=True)
+            check(ok, f"decode of {path}")
+        shim = libav.try_load()
+        print("     libav shim: " + ("built, not used by this phase"
+                                      if shim is not None else
+                                      f"absent ({libav.build_error.splitlines()[0]})"),
+              flush=True)
+        proj = mt.Project(wav=x, sample_rate=SR, markers=markers)
+        mlx = mt.save_project(os.path.join(tmp, "song.mlx"), proj)
+        mel = save_melonix(os.path.join(tmp, "song.melonix"), proj)
+
+        # -- render song.mlx --engine pv --rate 48000 --trace ----------
+        pv_fns = (kpv.analysis, kpv.synth_ola_phase, kres.resample_pv)
+        for fn in pv_fns:
+            fn.launches = 0
+        out48, tr = os.path.join(tmp, "out.wav"), os.path.join(tmp, "tr")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        check(cli_main(["render", mlx, "--engine", "pv", "--rate", "48000",
+                        "--trace", tr, "-o", out48, "--dtype", "float32"]) == 0,
+              "CLI render --rate --trace")
+        wall = 1e3 * (time.perf_counter() - t0)
+        launched = {fn.__name__: fn.launches for fn in pv_fns}
+        got, got_rate = mt.read_wav(out48)
+        ref = mt.render_session(x, markers, SR, engine="pv")
+        want = polyphase_f64(ref.astype(np.float64), SR, 48000)
+        rms, env = rms_env(torch.from_numpy(got.astype(np.float64)),
+                           torch.from_numpy(want))
+        print(f"[23] CLI render song.mlx --engine pv --rate 48000 --trace: "
+              f"{wall:.1f} ms wall (load, render, resample, trace export, "
+              f"write); launches {launched}; {got.shape[0]} samples at "
+              f"{got_rate} Hz; vs render_session + float64 polyphase: rms "
+              f"{rms:.2e} (bar 5e-3 of peak), envelope {env:.2e} (bar 2e-2)"
+              f" | {card}", flush=True)
+        check(all(v > 0 for v in launched.values()), "PV kernels not launched")
+        check(got_rate == 48000 and got.shape == want.shape, "48 kHz output")
+        check(rms < 5e-3 and env < 2e-2, "render --rate vs reference")
+        (trace_file,) = os.listdir(tr)
+        with open(os.path.join(tr, trace_file)) as f:
+            events = json.load(f)["traceEvents"]
+        kernels: dict = {}
+        for e in events:
+            if e.get("ph") == "X" and e.get("cat") == "kernel":
+                kernels[e["name"]] = kernels.get(e["name"], 0) + 1
+        top = sorted(kernels.items(), key=lambda kv: -kv[1])
+        print(f"     trace {trace_file}: {len(events)} events, "
+              f"{sum(kernels.values())} CUDA kernel events: "
+              + (", ".join(f"{k[:48]} x{v}" for k, v in top) or "none"),
+              flush=True)
+
+        # -- granular render of song.melonix; batch --format flac ------
+        krender.render_granular.launches = 0
+        gout = os.path.join(tmp, "g.wav")
+        check(cli_main(["render", mel, "-o", gout, "--dtype", "float32"]) == 0,
+              "CLI render of .melonix")
+        g_launches = krender.render_granular.launches
+        back = load_melonix(mel)
+        want_g = mt.render_track(
+            back.wav, mt.build_grain_table(back.wav),
+            mt.MapKnots.from_markers(back.markers, back.sample_rate,
+                                     len(back.wav)), device="cpu")
+        got_g, _r = mt.read_wav(gout)
+        same = bool(np.array_equal(got_g, want_g))
+        print(f"     CLI render song.melonix (granular): B5 + B6 launches "
+              f"{g_launches}; equal to render_track on the CPU {same} (bar: "
+              f"equal)", flush=True)
+        check(g_launches > 0 and same, "granular render of .melonix")
+        mjson = os.path.join(tmp, "m.json")
+        with open(mjson, "w") as f:
+            f.write(mt.markers_to_json(bench_markers(mt, 20 * SR)[:4]))
+        for i in range(3):
+            mt.write_flac(os.path.join(tmp, f"take{i}.flac"),
+                          x[i * 20 * SR : (i + 1) * 20 * SR], SR)
+        outdir = os.path.join(tmp, "batch")
+        check(cli_main(["batch", os.path.join(tmp, "take*.flac"), "--markers",
+                        mjson, "--format", "flac", "-o", outdir]) == 0,
+              "CLI batch --format flac")
+        steps = []
+        for i in range(3):
+            one = os.path.join(tmp, f"one{i}.wav")
+            check(cli_main(["render", os.path.join(tmp, f"take{i}.flac"),
+                            "--markers", mjson, "--engine", "pv", "--formant",
+                            "--dtype", "float32", "-o", one]) == 0,
+                  "CLI render of a FLAC")
+            a_, _r = mt.load_audio(os.path.join(outdir, f"take{i}.flac"))
+            b_, _r = mt.read_wav(one)
+            steps.append(float(np.abs(a_ - b_).max()) * 32767
+                         if a_.shape == b_.shape else float("inf"))
+        print(f"     CLI batch of 3 FLAC takes --format flac (pv with "
+              f"formants) vs per-file render to float32 WAV: max diff in "
+              f"int16 steps "
+              f"{['%.3f' % v for v in steps]} (bar 1.01)", flush=True)
+        check(all(v <= 1.01 for v in steps), "batch --format flac vs render")
+
+        # -- resample alone, TF32 the process default ----------------
+        saved = torch.get_float32_matmul_precision()
+        torch.set_float32_matmul_precision("high")
+        try:
+            for sr_in, sr_out in ((44100, 48000), (48000, 44100),
+                                  (44100, 16000)):
+                got = rs.resample(x, sr_in, sr_out)
+                check(torch.get_float32_matmul_precision() == "high",
+                      "resample restores the caller's precision")
+                want = polyphase_f64(x.astype(np.float64), sr_in, sr_out)
+                snr = snr_np(got, want)
+                up, down, n_out, m_out, rows, banks, front = rs.plan(
+                    n, sr_in, sr_out)
+                x2 = torch.zeros(1, rows, down, device="cuda")
+                x2.view(-1)[front * down : front * down + n] = \
+                    torch.from_numpy(x).cuda()
+                hb = torch.from_numpy(banks).cuda()
+                tf32 = rs._polyphase_device(x2, hb, m_out)  # under "high"
+                tf32_snr = snr_np(tf32.cpu().numpy().reshape(-1)[:n_out],
+                                  want)
+                call_ms = cuda_ms(lambda: rs.resample(x, sr_in, sr_out),
+                                  inner=KERNEL_INNER)
+                with rs.ieee_float32():
+                    dev_ms = graph_ms(lambda: rs._polyphase_device(x2, hb,
+                                                                   m_out))
+                flops = 2.0 * m_out * down * up * banks.shape[0]
+                b_ms, b_by = bound(nbytes(x2) + 4 * m_out * up, flops)
+                print(f"[23] resample {sr_in} -> {sr_out} of the song "
+                      f"(banks {tuple(banks.shape)}, {m_out} rows): SNR "
+                      f"{snr:.1f} dB vs float64 (bar -100; the same products "
+                      f"in TF32 {tf32_snr:.1f} dB); {call_ms:.4f} ms a call "
+                      f"with upload and download, device product alone "
+                      f"(one CUDA graph) {dev_ms:.4f} ms, bound {b_ms:.4f} ms "
+                      f"({b_by}, {flops / 1e9:.2f} GFLOP) | {card}",
+                      flush=True)
+                check(snr < -100.0, f"resample {sr_in}->{sr_out} SNR {snr}")
+                del x2, hb, tf32
+        finally:
+            torch.set_float32_matmul_precision(saved)
+
+        # -- info and project ----------------------------------------
+        buf = _io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            check(cli_main(["info", mlx]) == 0, "CLI info")
+        info = json.loads(buf.getvalue())
+        warped = round(mt.MapKnots.from_markers(markers, SR, n).duration(), 3)
+        again = os.path.join(tmp, "again.mlx")
+        check(cli_main(["project", mlx, "-o", again]) == 0, "CLI project")
+        with open(mlx, "rb") as f1, open(again, "rb") as f2:
+            same = f1.read() == f2.read()
+        print(f"[23] CLI info song.mlx: samples {info['samples']}, rate "
+              f"{info['sample_rate']}, markers {info['markers']}, warped "
+              f"{info['warped_duration_sec']} s (want {n}, {SR}, 12, "
+              f"{warped}); project round trip byte-identical {same}",
+              flush=True)
+        check(info["samples"] == n and info["sample_rate"] == SR
+              and info["markers"] == 12
+              and info["warped_duration_sec"] == warped and same,
+              "CLI info / project")
+
+
 def main() -> int:
     import torch
 
@@ -790,6 +1010,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this check "
               "needs an NVIDIA GPU", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
     import melonix_tpu_torch as mt
@@ -841,7 +1062,8 @@ def main() -> int:
     t0 = time.perf_counter()
     check(native.try_load() is not None, "native host runtime: no compiler")
     print(f"    native host runtime {native.BUILD_DIR / native.LIB_NAME} "
-          f"built in {time.perf_counter() - t0:.1f} s", flush=True)
+          f"({len(native.SOURCES)} sources) built in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     for line in (_build.BUILD_DIR / "nvcc.log").read_text().splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print("    ptxas:", line.strip())
@@ -2603,6 +2825,12 @@ def main() -> int:
               f"device ms by name: "
               + ", ".join(f"{k[:48]} {v:.3f}" for k, v in top) + f" | {card}",
               flush=True)
+
+    # -- 23. the file slice ------------------------------------------
+    t23 = time.perf_counter()
+    file_slice(mt, x, card, root)
+    print(f"[23] file slice {time.perf_counter() - t23:.1f} s; chip_smoke.py "
+          f"{time.perf_counter() - t_start:.1f} s in all", flush=True)
 
     print(card)  # the card's name and power limit, near the end again
     print(json.dumps({"kernels": list(rows.values())}))

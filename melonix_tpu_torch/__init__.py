@@ -9,7 +9,9 @@ vocoder and the player with both engines), the Hann
 |STFT|, the spectrogram display data (reference-parity 32768-point columns,
 the tile server, the Hann |STFT| pyramid and the waveform min/max pyramid),
 and the analysis half of the editor (the pitch curve, suggested markers and
-autotune), batch rendering, and the multi-device renders and analyses on
+autotune), batch rendering, audio import and export (WAV, FLAC, MP3 and Ogg
+Vorbis through the native decoders, the long tail through the libav shim),
+``.mlx`` and ``.melonix`` projects, band-limited resampling, and the multi-device renders and analyses on
 torch.distributed (``parallel/``: tracks or channels over a mesh's ``data``
 ranks, one track's frames over its ``seq`` ranks), on an NVIDIA GPU
 through hand-written CUDA kernels (``kernels/``, sources in ``csrc/``).
@@ -28,12 +30,13 @@ from .engine.phase_vocoder import (identity_lock, render_channels_pv,
 from .engine.player import Player
 from .engine.pv_stream import PvStream
 from .engine.pitch import PitchCurve, pitch_curve
-from .engine.render import build_render_plan, render_track
+from .engine.render import RenderPlan, build_render_plan, render, render_track
 from .engine.session import render_session
 from .engine.pyramid import build_pyramid
 from .engine.spectral import spectrogram_columns, stft_mags_device
-from .io.audio import DecodeError, load_audio
-from .io.wav import read_wav, write_wav
+from .io import (Project, load_audio, load_project, read_wav, save_project,
+                 write_audio, write_flac, write_wav)
+from .io.audio import DecodeError
 from .markers import Marker, markers_from_json, markers_to_json, sort_markers
 from .parallel import (AudioMesh, data_parallel_pv, data_parallel_render,
                        make_audio_mesh, seq_parallel_pv, seq_parallel_render,
@@ -54,7 +57,9 @@ __all__ = [
     "MapKnots",
     "GrainTable",
     "build_grain_table",
+    "RenderPlan",
     "build_render_plan",
+    "render",
     "render_track",
     "render_session",
     "render_batch",
@@ -84,8 +89,13 @@ __all__ = [
     "SpecPyramid",
     "build_pyramid",
     "load_audio",
+    "write_audio",
     "DecodeError",
     "read_wav",
     "write_wav",
+    "write_flac",
+    "Project",
+    "load_project",
+    "save_project",
     "__version__",
 ]

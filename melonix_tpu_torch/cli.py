@@ -1,90 +1,113 @@
 """Command-line interface of the PyTorch/CUDA port.
 
-    python -m melonix_tpu_torch render in.wav --markers m.json -o out.wav \
-        [--engine pv [--formant] [--lock]] [--stereo] [--device cuda|cpu]
-    python -m melonix_tpu_torch pitch in.wav -o curve.json \
+    python -m melonix_tpu_torch render in.flac --markers m.json -o out.wav \
+        [--engine pv [--formant] [--lock]] [--stereo] [--rate 48000] \
+        [--trace DIR] [--device cuda|cpu]
+    python -m melonix_tpu_torch pitch in.mp3 -o curve.json \
         [--method nsdf|hps|hybrid] [--device cuda|cpu]
     python -m melonix_tpu_torch autotune in.wav -o tuned.wav \
         [--scale major --key c] [--engine granular] [--no-formant] \
         [--device cuda|cpu]
-    python -m melonix_tpu_torch batch 'songs/*.wav' -o outdir \
+    python -m melonix_tpu_torch batch 'songs/*.ogg' -o outdir \
         [--engine granular] [--markers m.json] [--autotune] [--lock] \
-        [--device cuda|cpu]
+        [--format flac] [--device cuda|cpu]
+    python -m melonix_tpu_torch info session.mlx
+    python -m melonix_tpu_torch project in.mp3 --markers m.json -o s.mlx
 
-The render of a WAV file through the granular engine (the default) or the
+Every input is an audio file (WAV, FLAC, MP3 and Ogg Vorbis natively, the
+long tail through the libav shim or the ``ffmpeg`` binary) or a project
+(``.mlx``, or the reference's ``.melonix``), which brings its markers with
+it.  ``render`` renders through the granular engine (the default) or the
 phase vocoder (``--formant`` to keep the spectral envelope, ``--lock`` for
-identity phase locking), mono or ``--stereo``, the pitch curve of a WAV file
-as JSON, its automatic pitch correction, and the batch render of many WAV
+identity phase locking), mono or ``--stereo``, resampled to ``--rate`` and
+profiled into ``--trace``; ``pitch`` writes the pitch curve as JSON,
+``autotune`` the automatic pitch correction, ``batch`` the render of many
 files (``render_batch``, which splits the jobs over the ranks of a
 torch.distributed process group when the caller has one of world size
-above 1).  The flags and defaults are
-those of ``melonix_tpu``'s subcommands of the same names, plus ``--device``
-(default ``cuda``; there is no fallback to another device).  Flags whose
-code is not ported yet exit with status 2 and name the ROADMAP item that
-ports them.
+above 1) in ``--format``; ``info`` prints a track's or project's summary
+and ``project`` bundles audio and markers into a ``.mlx`` (or ``.melonix``)
+project.  The flags and defaults are those of ``melonix_tpu``'s
+subcommands of the same names, plus ``--device`` (default ``cuda``; there
+is no fallback to another device).  ``spectrogram`` and ``ui`` are not
+ported yet.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import sys
 import time
 
 import numpy as np
 
-# flag -> ROADMAP queue A item that ports it
-NOT_PORTED = {
-    "rate": "item 9 (CLI render options: --rate)",
-    "trace": "item 9 (CLI render options: --trace)",
-}
+
+def _load_any(path: str):
+    """(wav, rate, markers, brightness, tempo) from audio, .mlx, or a
+    reference-format .melonix project (app.cpp:130-138 extension
+    dispatch)."""
+    from .config import DEFAULT_CONFIG as C
+    from .io.audio import load_audio
+    from .io.project import load_project
+
+    if path.endswith(".mlx"):
+        p = load_project(path)
+        return p.wav, p.sample_rate, p.markers, p.brightness, p.tempo
+    if path.endswith(".melonix"):
+        from .io.melonix import load_melonix
+
+        p = load_melonix(path)
+        return p.wav, p.sample_rate, p.markers, p.brightness, p.tempo
+    wav, rate = load_audio(path)
+    return wav, rate, [], C.brightness, C.tempo
 
 
-def _not_wav(path: str) -> str | None:
-    if not path.lower().endswith(".wav"):
-        return f"{path}: only WAV input is ported (ROADMAP queue A, item 14)"
-    return None
+def _markers_from_arg(path: str | None, existing):
+    from .markers import markers_from_json
 
-
-def _not_ported(args) -> str | None:
-    for flag in NOT_PORTED:
-        if getattr(args, flag):
-            return f"--{flag}: " + NOT_PORTED[flag]
-    return _not_wav(args.input)
-
-
-def _refuse(missing: str) -> int:
-    print(f"not ported yet: {missing} in ROADMAP.md queue A", file=sys.stderr)
-    return 2
+    if path is None:
+        return existing
+    with open(path) as f:
+        return markers_from_json(f.read())
 
 
 def cmd_render(args) -> int:
     from .engine.session import render_session
     from .io.audio import load_audio
+    from .io.resample import resample
     from .io.wav import write_wav
-    from .markers import markers_from_json
+    from .utils import trace
 
-    missing = _not_ported(args)
-    if missing is not None:
-        return _refuse(missing)
-    wav, rate = load_audio(args.input, mono=not args.stereo)
-    markers = []
-    if args.markers:
-        with open(args.markers) as f:
-            markers = markers_from_json(f.read())
+    if args.stereo and not args.input.endswith((".mlx", ".melonix")):
+        wav, rate = load_audio(args.input, mono=False)
+        markers = []
+    else:
+        if args.stereo:
+            # Both project formats store mono audio (app.hpp:71-76).
+            print("warning: projects store mono audio; --stereo ignored",
+                  file=sys.stderr)
+        wav, rate, markers, _b, _t = _load_any(args.input)
+    markers = _markers_from_arg(args.markers, markers)
     t0 = time.perf_counter()
-    out = render_session(wav, markers, rate, engine=args.engine,
-                         preserve_formants=args.formant,
-                         phase_locking=args.lock, device=args.device)
+    ctx = trace(args.trace) if args.trace else contextlib.nullcontext()
+    with ctx:
+        out = render_session(wav, markers, rate, engine=args.engine,
+                             preserve_formants=args.formant,
+                             phase_locking=args.lock, device=args.device)
+        out_rate = rate
+        if args.rate and args.rate != rate:
+            out = resample(out, rate, args.rate, device=args.device)
+            out_rate = args.rate
     dt = time.perf_counter() - t0
-    write_wav(args.output, out, rate, dtype=args.dtype)
+    write_wav(args.output, out, out_rate, dtype=args.dtype)
     ch = out.shape[1] if out.ndim == 2 else 1
     detail = ("phase-vocoder"
               + (" formant-preserving" if args.formant else "")
               + (" phase-locked" if args.lock else "")
               if args.engine == "pv" else "granular")
     print(
-        f"rendered {len(out)/rate:.2f}s x{ch}ch @{rate}Hz "
+        f"rendered {len(out)/out_rate:.2f}s x{ch}ch @{out_rate}Hz "
         f"({len(markers)} markers, {detail} on {args.device}) "
         f"in {dt:.2f}s -> {args.output}"
     )
@@ -93,12 +116,8 @@ def cmd_render(args) -> int:
 
 def cmd_pitch(args) -> int:
     from .engine.pitch import pitch_curve
-    from .io.audio import load_audio
 
-    missing = _not_wav(args.input)
-    if missing is not None:
-        return _refuse(missing)
-    wav, rate = load_audio(args.input)
+    wav, rate, _m, _b, _t = _load_any(args.input)
     t0 = time.perf_counter()
     curve = pitch_curve(wav, rate, method=args.method, device=args.device)
     dt = time.perf_counter() - t0
@@ -119,14 +138,10 @@ def cmd_pitch(args) -> int:
 
 def cmd_autotune(args) -> int:
     from .engine.autotune import autotune
-    from .io.audio import load_audio
     from .io.wav import write_wav
     from .markers import markers_to_json
 
-    missing = _not_wav(args.input)
-    if missing is not None:
-        return _refuse(missing)
-    wav, rate = load_audio(args.input)
+    wav, rate, _m, _b, _t = _load_any(args.input)
     t0 = time.perf_counter()
     out, markers = autotune(
         wav, rate, scale=args.scale, key=args.key, strength=args.strength,
@@ -153,66 +168,98 @@ def cmd_batch(args) -> int:
 
     from .engine.autotune import suggest_markers
     from .engine.batch import render_batch
-    from .io.audio import load_audio
-    from .io.wav import write_wav
-    from .markers import markers_from_json, sort_markers
+    from .io.audio import write_audio
+    from .markers import sort_markers
     from .parallel.sharded import world_size
 
-    if args.format != "wav":
-        return _refuse(f"--format {args.format}: only WAV output is ported "
-                       "(ROADMAP queue A, item 14)")
     files = sorted({f for pat in args.inputs for f in glob.glob(pat)})
     if not files:
         print(f"batch: no files match {args.inputs}", file=sys.stderr)
         return 2
-    for f in files:
-        missing = _not_wav(f)
-        if missing is not None:
-            return _refuse(missing)
     os.makedirs(args.outdir, exist_ok=True)
-    shared = []
-    if args.markers:
-        with open(args.markers) as fh:
-            shared = markers_from_json(fh.read())
+    shared = _markers_from_arg(args.markers, [])
 
     t0 = time.perf_counter()
     by_rate: dict[int, list] = {}
     for f in files:
-        wav, rate = load_audio(f)
-        by_rate.setdefault(rate, []).append((f, wav))
+        # Audio files render with the shared/derived markers; project
+        # files (.mlx/.melonix) carry their own edit with them.
+        wav, rate, own, _b, _t = _load_any(f)
+        by_rate.setdefault(rate, []).append((f, wav, own))
     slice_n = max(4 * world_size(), 8)
     written, used_names = [], set()
     for rate, group in sorted(by_rate.items()):
         for g0 in range(0, len(group), slice_n):
             chunk = group[g0 : g0 + slice_n]
-            tracks = [w for _f, w in chunk]
-            if args.autotune:  # suggestions layer on top of the shared edit
-                markers_l = [sort_markers(shared + suggest_markers(
+            tracks = [w for _f, w, _m in chunk]
+            base_l = [own if own else shared for _f, _w, own in chunk]
+            if args.autotune:
+                # Suggestions layer on top of the base edit: projects keep
+                # their own markers, --markers keeps the shared set.
+                markers_l = [sort_markers(base + suggest_markers(
                     w, rate, scale=args.scale, key=args.key,
                     strength=args.strength, vibrato=args.vibrato,
-                    device=args.device)) for w in tracks]
+                    device=args.device)) for w, base in zip(tracks, base_l)]
             else:
-                markers_l = [shared] * len(tracks)
+                markers_l = base_l
             outs = render_batch(
                 tracks, markers_l, rate, engine=args.engine,
                 preserve_formants=args.engine == "pv" and not args.no_formant,
                 phase_locking=args.engine == "pv" and args.lock,
                 device=args.device,
             )
-            for (f, _w), out in zip(chunk, outs):
+            for (f, _w, _m), out in zip(chunk, outs):
                 stem = os.path.splitext(os.path.basename(f))[0]
-                name, k = f"{stem}.wav", 2
+                name, k = f"{stem}.{args.format}", 2
                 while name in used_names:  # the same stem from another dir
-                    name = f"{stem}-{k}.wav"
+                    name = f"{stem}-{k}.{args.format}"
                     k += 1
                 used_names.add(name)
                 outp = os.path.join(args.outdir, name)
-                write_wav(outp, out, rate)
+                write_audio(outp, out, rate)
                 written.append(outp)
     dt = time.perf_counter() - t0
     print(f"batch: {len(written)} files ({len(by_rate)} rate group(s), "
           f"engine {args.engine} on {args.device}) in {dt:.2f}s -> "
           f"{args.outdir}")
+    return 0
+
+
+def cmd_info(args) -> int:
+    from .engine.grains import build_grain_table
+    from .engine.maps import MapKnots
+
+    wav, rate, markers, brightness, tempo = _load_any(args.input)
+    table = build_grain_table(wav)
+    knots = MapKnots.from_markers(markers, rate, len(wav))
+    print(json.dumps({
+        "samples": len(wav),
+        "sample_rate": rate,
+        "duration_sec": round(len(wav) / rate, 3),
+        "warped_duration_sec": round(knots.duration(), 3),
+        "grains": len(table),
+        "markers": len(markers),
+        "brightness": brightness,
+        "tempo": tempo,
+        "peak": round(float(np.abs(wav).max()) if len(wav) else 0.0, 4),
+    }, indent=2))
+    return 0
+
+
+def cmd_project(args) -> int:
+    from .io.project import Project, save_project
+
+    wav, rate, markers, brightness, tempo = _load_any(args.input)
+    markers = _markers_from_arg(args.markers, markers)
+    proj = Project(wav=wav, sample_rate=rate, markers=markers,
+                   brightness=brightness, tempo=tempo)
+    if args.output.endswith(".melonix"):  # reference-format interop
+        from .io.melonix import save_melonix
+
+        out = save_melonix(args.output, proj)
+    else:
+        out = save_project(args.output, proj)
+    print(f"saved project ({len(markers)} markers) -> {out}")
     return 0
 
 
@@ -236,7 +283,8 @@ def build_parser() -> argparse.ArgumentParser:
         default="granular",
         help="granular = reference-parity splicer; pv = phase vocoder",
     )
-    r.add_argument("--trace", help="write a profiler trace to this directory")
+    r.add_argument("--trace",
+                   help="write a torch.profiler trace to this directory")
     r.add_argument("--stereo", action="store_true", help="keep source channels")
     r.add_argument("--formant", action="store_true",
                    help="preserve the spectral envelope (pv engine only)")
@@ -272,7 +320,7 @@ def build_parser() -> argparse.ArgumentParser:
     _device_flag(a)
     a.set_defaults(fn=cmd_autotune)
 
-    b = sub.add_parser("batch", help="render many WAV files")
+    b = sub.add_parser("batch", help="render many files")
     b.add_argument("inputs", nargs="+", help="file globs")
     b.add_argument("-o", "--outdir", required=True)
     b.add_argument("--engine", choices=["granular", "pv"], default="pv")
@@ -288,9 +336,20 @@ def build_parser() -> argparse.ArgumentParser:
     b.add_argument("--lock", action="store_true",
                    help="identity phase locking (pv jobs)")
     b.add_argument("--format", default="wav",
-                   help="output format (only wav is ported)")
+                   help="output extension for write_audio (wav/flac/m4a/...)")
     _device_flag(b)
     b.set_defaults(fn=cmd_batch)
+
+    i = sub.add_parser("info", help="track / project summary")
+    i.add_argument("input")
+    i.set_defaults(fn=cmd_info)
+
+    j = sub.add_parser("project",
+                       help="bundle audio + markers into a .mlx project")
+    j.add_argument("input")
+    j.add_argument("--markers")
+    j.add_argument("-o", "--output", required=True)
+    j.set_defaults(fn=cmd_project)
     return p
 
 

@@ -3,19 +3,23 @@ and the playback ring.
 
 Counterpart of ``melonix_tpu/runtime/native.py``, limited to
 ``mlx_build_grains`` and ``mlx_build_plan`` (the granular export's host
-half), ``mlx_ring_*`` (:class:`Ring`, the live player's backlog) and
-``mlx_wav_info`` / ``mlx_wav_read`` (:func:`decode_wav`, the WAV import).  The
-library is built from ``native/melonix_native.cpp`` alone with
-``g++ -O3 -std=c++20 -fPIC -shared`` (the flags of ``native/Makefile``) into
-``build/native/libmelonix_torch_native.so`` at first use, and rebuilt when
-the hash of the source and flags changes.  A library that ``make -C native``
-left beside the sources is never loaded.
+half), ``mlx_ring_*`` (:class:`Ring`, the live player's backlog) and the
+decoders' two-call ``mlx_<codec>_info`` / ``mlx_<codec>_read`` pairs
+(:func:`decode_wav`, :func:`decode_flac`, :func:`decode_mp3`,
+:func:`decode_vorbis`, the audio import).  The library is built from the
+``SRCS`` of ``native/Makefile`` (``melonix_native.cpp`` and the FLAC, MP3
+and Vorbis decoders) with its flags, ``g++ -O3 -std=c++20 -fPIC``, one
+compiler process a source, all at once, then linked ``-shared`` into
+``build/native/libmelonix_torch_native.so`` at first use; it is rebuilt
+when the hash of the sources, the headers they include and the flags
+changes.  A library that ``make -C native`` left beside the sources is
+never loaded.
 
 :func:`try_load` returns ``None`` only when no C++ compiler is found; the
-callers then take the NumPy walkers and reader.  A compiler that fails
-raises.  ``build_grains.calls``, ``build_plan.calls`` and
-``decode_wav.calls`` count the native calls, so a run can show that the
-native backend did the work.
+callers then take the NumPy walkers and WAV reader.  A compiler that fails
+raises.  ``build_grains.calls``, ``build_plan.calls`` and each decoder's
+``.calls`` count the native calls, so a run can show that the native
+backend did the work.
 """
 
 from __future__ import annotations
@@ -31,15 +35,20 @@ from pathlib import Path
 import numpy as np
 
 REPO = Path(__file__).resolve().parents[2]
-SOURCE = REPO / "native" / "melonix_native.cpp"
+NATIVE = REPO / "native"
+SOURCES = tuple(NATIVE / f for f in ("melonix_native.cpp", "flac_decode.cpp",
+                                     "mp3_decode.cpp", "vorbis_decode.cpp"))
+HEADERS = (NATIVE / "mp3_tables.h", NATIVE / "pcm_cache.h")
 BUILD_DIR = REPO / "build" / "native"
 LIB_NAME = "libmelonix_torch_native.so"
-CXX_FLAGS = ("-O3", "-std=c++20", "-fPIC", "-shared")
+CXX_FLAGS = ("-O3", "-std=c++20", "-fPIC")
 
 
 def source_hash() -> str:
     h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
-    h.update(SOURCE.read_bytes())
+    for path in SOURCES + HEADERS:
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
     return h.hexdigest()
 
 
@@ -61,15 +70,33 @@ def build(cxx: str) -> Path:
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = BUILD_DIR / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [cxx, *CXX_FLAGS, "-o", str(tmp), str(SOURCE)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
+    objs = [BUILD_DIR / f"{src.stem}.{os.getpid()}.o" for src in SOURCES]
+    try:
+        # one compiler a source, all at once; each is waited for before any
+        # failure is raised, and the link waits for them all
+        cmds = [[cxx, *CXX_FLAGS, "-c", "-o", str(obj), str(src)]
+                for src, obj in zip(SOURCES, objs)]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.DEVNULL,
+                                  stderr=subprocess.PIPE, text=True)
+                 for cmd in cmds]
+        errs = [proc.communicate()[1] for proc in procs]
+        for cmd, proc, err in zip(cmds, procs, errs):
+            _raise_on_failure(cmd, proc.returncode, err)
+        cmd = [cxx, "-shared", "-o", str(tmp), *map(str, objs)]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        _raise_on_failure(cmd, res.returncode, res.stderr)
+        os.replace(tmp, lib)  # atomic: a concurrent loader sees old or new
+    finally:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"{' '.join(cmd)} failed ({res.returncode}):\n"
-                           f"{res.stderr}")
-    os.replace(tmp, lib)  # atomic: a concurrent loader sees old or new
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     stamp.write_text(digest)
     return lib
+
+
+def _raise_on_failure(cmd: list[str], rc: int, stderr: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{' '.join(cmd)} failed ({rc}):\n{stderr}")
 
 
 @functools.cache
@@ -125,11 +152,16 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.mlx_ring_clear.restype = None
     lib.mlx_ring_clear.argtypes = [vp]
 
-    lib.mlx_wav_info.restype = ctypes.c_int32
-    lib.mlx_wav_info.argtypes = [ctypes.c_char_p, i64p, i32p, i32p]
-    lib.mlx_wav_read.restype = ctypes.c_int32
-    lib.mlx_wav_read.argtypes = [ctypes.c_char_p, f32p, ctypes.c_int64,
-                                 ctypes.c_int32]
+    # the decoders' two-call protocol: info (frames, channels, rate and,
+    # but for WAV, bits) sizes the buffer, read fills it
+    for prefix in ("wav", "flac", "mp3", "vorbis"):
+        info = getattr(lib, f"mlx_{prefix}_info")
+        info.restype = ctypes.c_int32
+        info.argtypes = [ctypes.c_char_p, i64p, i32p, i32p] + (
+            [] if prefix == "wav" else [i32p])
+        read = getattr(lib, f"mlx_{prefix}_read")
+        read.restype = ctypes.c_int32
+        read.argtypes = [ctypes.c_char_p, f32p, ctypes.c_int64, ctypes.c_int32]
 
 
 class Ring:
@@ -243,33 +275,67 @@ def build_grains(lib: ctypes.CDLL, wav: np.ndarray, pgs: int):
     return GrainTable(starts[:count].copy(), lengths[:count].copy())
 
 
-def decode_wav(lib: ctypes.CDLL, path: str, *, mono: bool = True):
-    """Native WAV decode: ``(float32 (n,) or (n, ch), rate)``.
-
-    The two-call protocol of the reference's native decoders:
-    ``mlx_wav_info`` sizes the buffer, ``mlx_wav_read`` fills it, either
-    interleaved or downmixed (the channels summed in float32 and times
-    ``1.0f / ch``).  One channel, or ``mono``, gives ``(n,)``.  A nonzero
-    return code raises ValueError."""
+def _decode_two_call(lib: ctypes.CDLL, prefix: str, label: str, path: str,
+                     *, mono: bool) -> tuple[np.ndarray, int]:
+    """Drive a native decoder's two-call protocol: ``mlx_<prefix>_info``
+    sizes the buffer, ``mlx_<prefix>_read`` fills it, either interleaved or
+    downmixed (the channels summed in float32 and times ``1.0f / ch``).
+    Returns ``(float32 (n,) or (n, ch), rate)``: one channel, or ``mono``,
+    gives ``(n,)``.  A nonzero return code raises ValueError (the
+    fail-soft contract: callers keep their prior state)."""
     n = ctypes.c_int64()
     ch = ctypes.c_int32()
     rate = ctypes.c_int32()
-    rc = lib.mlx_wav_info(path.encode(), ctypes.byref(n), ctypes.byref(ch),
-                          ctypes.byref(rate))
+    args = [path.encode(), ctypes.byref(n), ctypes.byref(ch),
+            ctypes.byref(rate)]
+    if prefix != "wav":
+        args.append(ctypes.byref(ctypes.c_int32()))  # bits, unused
+    rc = getattr(lib, f"mlx_{prefix}_info")(*args)
     if rc != 0:
-        raise ValueError(f"{path}: not a decodable WAV (native rc {rc})")
+        raise ValueError(f"{path}: not a decodable {label} (native rc {rc})")
     frames, channels = int(n.value), int(ch.value)
     shape = (frames,) if mono or channels == 1 else (frames, channels)
     out = np.zeros(shape, np.float32)
-    rc = lib.mlx_wav_read(path.encode(),
-                          out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
-                          frames, 1 if mono else 0)
+    rc = getattr(lib, f"mlx_{prefix}_read")(
+        path.encode(), out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+        frames, 1 if mono else 0)
     if rc != 0:
-        raise ValueError(f"{path}: native WAV read failed (rc {rc})")
-    decode_wav.calls += 1
+        raise ValueError(f"{path}: native {label} read failed (rc {rc})")
     return out, int(rate.value)
+
+
+def decode_wav(lib: ctypes.CDLL, path: str, *, mono: bool = True):
+    """Native WAV decode (``native/melonix_native.cpp``)."""
+    out = _decode_two_call(lib, "wav", "WAV", path, mono=mono)
+    decode_wav.calls += 1
+    return out
+
+
+def decode_flac(lib: ctypes.CDLL, path: str, *, mono: bool = True):
+    """Native FLAC decode (``native/flac_decode.cpp``)."""
+    out = _decode_two_call(lib, "flac", "FLAC", path, mono=mono)
+    decode_flac.calls += 1
+    return out
+
+
+def decode_mp3(lib: ctypes.CDLL, path: str, *, mono: bool = True):
+    """Native MPEG-1/2/2.5 Layer III decode (``native/mp3_decode.cpp``)."""
+    out = _decode_two_call(lib, "mp3", "MPEG-1 L3 stream", path, mono=mono)
+    decode_mp3.calls += 1
+    return out
+
+
+def decode_vorbis(lib: ctypes.CDLL, path: str, *, mono: bool = True):
+    """Native Ogg Vorbis decode (``native/vorbis_decode.cpp``)."""
+    out = _decode_two_call(lib, "vorbis", "Ogg Vorbis stream", path,
+                           mono=mono)
+    decode_vorbis.calls += 1
+    return out
 
 
 build_plan.calls = 0
 build_grains.calls = 0
 decode_wav.calls = 0
+decode_flac.calls = 0
+decode_mp3.calls = 0
+decode_vorbis.calls = 0

@@ -1,5 +1,15 @@
-"""Process-wide metrics of the port (counters, rates, timers)."""
+"""Process-wide metrics, profiling and logging of the port."""
 
 from .metrics import Counter, RateMeter, Timer, registry, snapshot
+from .tracing import annotate, get_logger, trace
 
-__all__ = ["Counter", "RateMeter", "Timer", "registry", "snapshot"]
+__all__ = [
+    "Counter",
+    "RateMeter",
+    "Timer",
+    "registry",
+    "snapshot",
+    "annotate",
+    "get_logger",
+    "trace",
+]

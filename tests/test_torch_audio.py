@@ -140,8 +140,22 @@ def test_bad_wav_raises_decode_error(tmp_path, make):
 
 
 def test_other_suffixes_raise_decode_error(tmp_path):
-    with pytest.raises(mt.DecodeError, match="only WAV"):
-        mt.load_audio(str(tmp_path / "x.flac"))
+    """A ``.flac`` (once refused as "only WAV") decodes through the native
+    FLAC decoder, bit for bit the reference's ``load_audio``, mono and
+    multichannel; an empty one raises DecodeError in both."""
+    path = str(tmp_path / "x.flac")
+    rng = np.random.default_rng(3)
+    mt.write_flac(path, rng.uniform(-1, 1, (4000, 3)).astype(np.float32),
+                  RATE)
+    for mono in (True, False):
+        got, rate = mt.load_audio(path, mono=mono)
+        want, rate_j = j_load_audio(path, mono=mono)
+        assert rate == rate_j == RATE and got.shape == want.shape
+        np.testing.assert_array_equal(got, want)
+    empty = str(tmp_path / "empty.flac")
+    open(empty, "wb").close()
+    with pytest.raises(mt.DecodeError):
+        mt.load_audio(empty)
 
 
 def test_cli_render_of_three_channels_equals_the_oracle(tmp_path, capsys):

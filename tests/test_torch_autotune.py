@@ -406,9 +406,48 @@ def test_cli_autotune_matches_jax_cli(tmp_path, capsys, extra):
 
 @pytest.mark.parametrize("cmd", [["pitch"], ["autotune"]])
 def test_cli_analysis_non_wav_input_exits_nonzero(tmp_path, capsys, cmd):
+    """``pitch`` and ``autotune`` of a FLAC (once refused with exit 2):
+    the native decode, then the same analysis as the JAX CLI's on the same
+    file.  The pitch curve by :func:`assert_curves_close`; autotune's
+    markers by ``_markers_equal``, and, since bends that agree to float32
+    rounding (~4e-6 st on this 16-bit input) move a PV render by ~7e-3 of
+    its peak, the port's render from the JAX CLI's markers against the JAX
+    CLI's output by the PV convention, as the granular case above does."""
     src = str(tmp_path / "in.flac")
-    open(src, "wb").close()
-    assert t_main([*cmd, src, "-o", str(tmp_path / "o"), "--device",
-                   "cpu"]) == 2
-    err = capsys.readouterr().err
-    assert "not ported yet" in err and "item 14" in err
+    mt.write_flac(src, MELODIES["four"](), SR)
+    ext = ".json" if cmd == ["pitch"] else ".wav"
+    out_t, out_j = str(tmp_path / f"t{ext}"), str(tmp_path / f"j{ext}")
+    mk_t, mk_j = str(tmp_path / "t.json"), str(tmp_path / "j.json")
+    extra_t, extra_j = [], []
+    if cmd == ["autotune"]:
+        extra_t = ["--dtype", "float32", "--markers-out", mk_t]
+        extra_j = ["--dtype", "float32", "--markers-out", mk_j]
+    assert t_main([*cmd, src, "-o", out_t, "--device", "cpu", *extra_t]) == 0
+    assert "on cpu" in capsys.readouterr().out
+    assert j_main([*cmd, src, "-o", out_j, *extra_j]) == 0
+    if cmd == ["pitch"]:
+        with open(out_t) as f:
+            got = json.load(f)
+        with open(out_j) as f:
+            want = json.load(f)
+        assert got["sample_rate"] == want["sample_rate"] == SR
+        curve = lambda d: tpitch.PitchCurve(  # noqa: E731
+            f0=np.asarray(d["f0_hz"], np.float32),
+            voiced=np.asarray(d["voiced"]),
+            clarity=np.zeros(len(d["f0_hz"]), np.float32),
+            note=np.asarray(d["note"], np.float32), hop=d["hop"],
+            sample_rate=d["sample_rate"])
+        assert_curves_close(curve(got), curve(want))
+    else:
+        got, rate = mt.read_wav(out_t)
+        want, rate_j = j_read_wav(out_j)
+        assert rate == rate_j == SR and got.shape == want.shape
+        with open(mk_t) as f:
+            gm = mt.markers_from_json(f.read())
+        with open(mk_j) as f:
+            wm = mt.markers_from_json(f.read())
+        _markers_equal(gm, wm)
+        x, _ = mt.load_audio(src)
+        same = mt.render_session(x, wm, SR, engine="pv",
+                                 preserve_formants=True, device="cpu")
+        _assert_pv_close(same, want)

@@ -378,21 +378,49 @@ def test_cli_batch_matches_jax(tmp_path, chirp, extra):
 
 @pytest.mark.parametrize("case", ["mp3-input", "project-input", "flac-out"])
 def test_cli_batch_refuses_unported_io(tmp_path, chirp, capsys, case):
+    """``batch`` of an MP3 beside a WAV (two rate groups), of a ``.mlx``
+    project (its own markers, under the shared ones the WAVs take) and
+    with ``--format flac`` (once each refused with exit 2): the port's files
+    against the JAX CLI's, granular within one int16 step, PV at SNR < -60
+    dB."""
+    from melonix_tpu.io.audio import load_audio as j_load_audio
+    from melonix_tpu.io.project import Project as JProject
+    from melonix_tpu.io.project import save_project as j_save_project
+
     paths = _wav_files(tmp_path, chirp)
+    markers = tmp_path / "m.json"
+    markers.write_text(mt.markers_to_json(
+        [mt.Marker(*m) for m in cases.BATCH_SETS[2]]))
+    engine, fmt = "granular", "wav"
     if case == "mp3-input":
-        other = tmp_path / "song.mp3"
-        other.write_bytes(b"\0")
-        args = [paths[0], str(other)]
+        mp3 = tmp_path / "song.mp3"
+        mp3.write_bytes(open(os.path.join(os.path.dirname(__file__),
+                                          "fixtures", "tone.mp3"), "rb").read())
+        args = [paths[0], str(mp3)]
     elif case == "project-input":
-        other = tmp_path / "session.mlx"
-        other.write_bytes(b"\0")
-        args = [paths[0], str(other)]
+        x, sr = chirp
+        proj = str(tmp_path / "session.mlx")
+        j_save_project(proj, JProject(wav=x[::-1].copy(), sample_rate=sr,
+                                      markers=[JMarker(4000, 60.0, 0.0, 7.0)]))
+        args, engine = [paths[0], proj], "pv"
     else:
-        args = [paths[0], "--format", "flac"]
-    assert t_cli(["batch", *args, "-o", str(tmp_path / "o"), "--device",
-                  "cpu"]) == 2
-    assert "item 14" in capsys.readouterr().err
-    assert not (tmp_path / "o").exists() or not os.listdir(tmp_path / "o")
+        args, fmt = paths, "flac"
+    flags = ["--markers", str(markers), "--engine", engine, "--format", fmt]
+    assert t_cli(["batch", *args, *flags, "-o", str(tmp_path / "t"),
+                  "--device", "cpu"]) == 0
+    assert f"{len(args)} files" in capsys.readouterr().out
+    assert j_cli(["batch", *args, *flags, "-o", str(tmp_path / "j")]) == 0
+    names = sorted(os.listdir(tmp_path / "t"))
+    assert names == sorted(os.listdir(tmp_path / "j"))
+    assert len(names) == len(args) and all(n.endswith(fmt) for n in names)
+    for name in names:
+        got, rate = mt.load_audio(str(tmp_path / "t" / name))
+        want, rate_j = j_load_audio(str(tmp_path / "j" / name))
+        assert rate == rate_j and got.shape == want.shape
+        if engine == "granular":  # within one int16 step
+            assert np.abs(got - want).max() <= 1.01 / 32767
+        else:
+            assert _snr_db(got, want) < -60.0
 
 
 def test_cli_batch_no_match_exits_2(tmp_path):

@@ -304,11 +304,31 @@ def test_cli_render_granular_matches_jax_cli(tmp_path, capsys, stereo):
     ["--engine", "pv", "--rate", "16000"], ["--engine", "pv", "--trace", "tr"],
 ])
 def test_cli_unported_flags_exit_nonzero(tmp_path, capsys, extra):
-    wav_path, _m = _cli_files(tmp_path)
-    out = str(tmp_path / "o.wav")
-    assert t_main(["render", wav_path, "-o", out, "--device", "cpu", *extra]) == 2
-    err = capsys.readouterr().err
-    assert "not ported yet" in err and "ROADMAP" in err
+    """``render --rate`` and ``render --trace`` (once refused with exit 2):
+    the port's output at the JAX CLI's rate and by the PV convention against
+    it (``--rate`` through both packages' polyphase resamplers); the trace
+    directory holds a Chrome trace that parses and names the render's
+    profiled operations."""
+    wav_path, markers_path = _cli_files(tmp_path)
+    out_t, out_j = str(tmp_path / "t.wav"), str(tmp_path / "j.wav")
+    flags = [str(tmp_path / a) if a == "tr" else a for a in extra]
+    common = ["--markers", markers_path, "--dtype", "float32"]
+    assert t_main(["render", wav_path, "-o", out_t, "--device", "cpu",
+                   *common, *flags]) == 0
+    rate = 16000 if "--rate" in extra else SR
+    assert f"@{rate}Hz" in capsys.readouterr().out
+    # the JAX CLI's --trace would start jax.profiler: it renders untraced
+    j_flags = extra if "--rate" in extra else extra[:2]
+    assert j_main(["render", wav_path, "-o", out_j, *common, *j_flags]) == 0
+    got, got_rate = mt.read_wav(out_t)
+    want, want_rate = j_read_wav(out_j)
+    assert got_rate == want_rate == rate
+    _assert_pv_close(got, want)
+    if "--trace" in extra:
+        (name,) = (tmp_path / "tr").iterdir()
+        with open(name) as f:
+            events = json.load(f)["traceEvents"]
+        assert any(e.get("ph") == "X" for e in events)
 
 
 def test_cli_cuda_without_cuda_raises(tmp_path, monkeypatch):
