@@ -20,7 +20,12 @@ a locked stereo PV session; the streaming phase vocoder and the Player;
 the file slice: the song through FLAC, the MP3 and Ogg fixtures, ``.mlx``
 and ``.melonix`` projects into the CLI's ``render --rate 48000 --trace``,
 granular ``render`` and ``batch --format flac``, ``resample`` alone under a
-TF32 default, ``info`` and ``project``),
+TF32 default, ``info`` and ``project``; the editor: the CLI's
+``spectrogram`` of the song, default and ``--pyramid``, against the
+all-plain scene, and an ``EditorServer`` on a 30 s excerpt: its frame loop
+in four motions, the pitch overlay, 15 s of paced live playback through
+HTTP on the PV engine beside a frame poller with a mid-stream edit, an
+unpaced stream to the end, and ``/audio.wav`` on both engines),
 checks their output (the granular export bit for bit against its plain
 references and ``tests/oracle.py``, the columns against a float64 oracle,
 the tiles against an all-plain server, the pitch curve against the song's
@@ -399,11 +404,12 @@ def plain_twins(kpv, kres, krender, kcols, kstft, kpitch, kframes):
          kres.LerpReader) = saved
 
 
-def load_oracle(root: str):
+def load_oracle(root: str, name: str = "oracle"):
     """``tests/oracle.py`` (the literal transcription of the reference's
-    render loop; NumPy only), loaded by path without the test package."""
+    render loop; NumPy only), or another NumPy-only helper of the tests
+    (``scene_bars``), loaded by path without the test package."""
     spec = importlib.util.spec_from_file_location(
-        "oracle", os.path.join(root, "tests", "oracle.py"))
+        name, os.path.join(root, "tests", f"{name}.py"))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -1001,6 +1007,476 @@ def file_slice(mt, x: np.ndarray, card: str, root: str) -> None:
               and info["markers"] == 12
               and info["warped_duration_sec"] == warped and same,
               "CLI info / project")
+
+
+# ----------------------------------------------------------------------
+# Phase 24: the editor (ui/state.py, view.py, web.py; the CLI's
+# spectrogram and ui)
+# ----------------------------------------------------------------------
+
+UI_FRAME = "/frame.png?fmt=jpg&w=1280&h=720"
+
+
+class TimedLock:
+    """An ``RLock`` that records how long each outermost hold lasted (ms),
+    by the holder's function and, in an HTTP handler, its path (the editor
+    server's lock, swapped in before the server starts)."""
+
+    def __init__(self):
+        import threading
+
+        self._lock = threading.RLock()
+        self._local = threading.local()
+        self.holds: dict = {}
+
+    def acquire(self, *a, **kw):
+        got = self._lock.acquire(*a, **kw)
+        if got:
+            depth = getattr(self._local, "depth", 0)
+            if depth == 0:
+                f = sys._getframe(2)  # the caller of ``with lock:``
+                label = f.f_code.co_name
+                if label == "do_GET":
+                    label += " " + f.f_locals["u"].path
+                elif label == "do_POST":
+                    label += " " + f.f_locals["self"].path
+                self._local.t0, self._local.label = time.perf_counter(), label
+            self._local.depth = depth + 1
+        return got
+
+    def release(self):
+        self._local.depth -= 1
+        if self._local.depth == 0:
+            ms = 1e3 * (time.perf_counter() - self._local.t0)
+            self.holds.setdefault(self._local.label, []).append(ms)
+        self._lock.release()
+
+    def __enter__(self):
+        self.acquire()
+        return self
+
+    def __exit__(self, *exc):
+        self.release()
+
+
+class UiClient:
+    """One keep-alive HTTP connection to the editor server."""
+
+    def __init__(self, port: int, timeout: float = 60.0):
+        import http.client
+
+        self.port = port
+        self.conn = http.client.HTTPConnection("127.0.0.1", port,
+                                               timeout=timeout)
+
+    def get(self, path: str):
+        self.conn.request("GET", path)
+        r = self.conn.getresponse()
+        body = r.read()
+        check(r.status == 200, f"GET {path}: {r.status} {body[:200]!r}")
+        return body, r.getheader("Content-Type")
+
+    def post(self, path: str, obj) -> dict:
+        self.conn.request("POST", path, json.dumps(obj),
+                          {"Content-Type": "application/json"})
+        r = self.conn.getresponse()
+        body = r.read()
+        check(r.status == 200, f"POST {path} {obj}: {r.status} {body[:200]!r}")
+        return json.loads(body)
+
+    def state(self) -> dict:
+        return json.loads(self.get("/state")[0])
+
+    def close(self) -> None:
+        self.conn.close()
+
+
+def ui_settle(cl: UiClient, limit_s: float = 120.0) -> float:
+    """Poll /state until no tile is pending or in flight; the wait in ms."""
+    t0 = time.perf_counter()
+    while True:
+        tl = cl.state()["tiles"]
+        if tl["pending"] == 0 and tl.get("inflight", 0) == 0:
+            return 1e3 * (time.perf_counter() - t0)
+        check(time.perf_counter() - t0 < limit_s, f"tiles never settled: {tl}")
+        time.sleep(0.005)
+
+
+def ui_fps(cl: UiClient, seconds: float, event=None) -> tuple[float, str]:
+    """Frames a second of the /frame.png loop at 1280x720 over local HTTP
+    (bench.py:_ui_fps), with ``event`` posted before each frame."""
+    t0 = time.perf_counter()
+    frames, mime = 0, None
+    while time.perf_counter() - t0 < seconds:
+        if event is not None:
+            cl.post("/event", event)
+        _body, mime = cl.get(UI_FRAME)
+        frames += 1
+    return frames / (time.perf_counter() - t0), mime
+
+
+def live_http(port: int, sr: int, edit_markers, *, seconds: float = 15.0,
+              edit_at: float = 7.0, prebuffer: float = 0.25,
+              buf: int = 1024) -> dict:
+    """The paced ``/audio/stream?from=0`` read for ``seconds`` of audio
+    while a second connection polls /frame.png as fast as it can; one
+    ``set_markers`` edit ``edit_at`` s after the first PCM byte.  The
+    client plays ``prebuffer`` s after its first PCM byte: buffer i of
+    ``buf`` samples underruns when its last byte arrives after its play
+    time.  Then an unpaced stream (``pace=0``) from 0 to the end, with
+    the poller still running.  The poller keeps polling until both are
+    read."""
+    import http.client
+    import threading
+
+    stop = threading.Event()
+    polls, errors = [0], []
+
+    def poller():
+        c = UiClient(port)
+        try:
+            while not stop.is_set():
+                c.get(UI_FRAME)
+                polls[0] += 1
+        except Exception as e:  # reported by the caller
+            errors.append(repr(e))
+        finally:
+            c.close()
+
+    th = threading.Thread(target=poller, name="frame-poller", daemon=True)
+    th.start()
+    edit = {}
+    s = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    try:
+        s.request("GET", "/audio/stream?from=0")
+        r = s.getresponse()
+        check(r.status == 200 and r.read(44)[:4] == b"RIFF", "stream header")
+        first = r.read(1)
+        t_first = time.monotonic()
+
+        def edit_thread():
+            if not stop.wait(max(0.0, t_first + edit_at - time.monotonic())):
+                c = UiClient(port)
+                try:
+                    t = time.monotonic()
+                    st = c.post("/control", {"action": "set_markers",
+                                             "value": edit_markers})
+                    edit.update(cursor=st["cursor"], wall=t - t_first,
+                                ms=1e3 * (time.monotonic() - t))
+                finally:
+                    c.close()
+
+        et = threading.Thread(target=edit_thread, name="edit", daemon=True)
+        et.start()
+        n_buf = int(seconds * sr) // buf
+        parts, late, worst = [first + r.read(2 * buf - 1)], 0, -np.inf
+        for i in range(n_buf):
+            if i:
+                parts.append(r.read(2 * buf))
+            check(len(parts[-1]) == 2 * buf, "stream ended early")
+            lag = time.monotonic() - (t_first + prebuffer + i * buf / sr)
+            late += lag > 0
+            worst = max(worst, lag)
+        et.join(timeout=30)
+        check(not et.is_alive() and "cursor" in edit, "the edit never ran")
+    finally:
+        s.close()
+    s = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    try:
+        t0 = time.monotonic()
+        s.request("GET", "/audio/stream?from=0&pace=0")
+        r = s.getresponse()
+        whole = r.read()
+        wall = time.monotonic() - t0
+    finally:
+        s.close()
+        stop.set()
+        th.join(timeout=60)
+    check(not th.is_alive() and not errors, f"frame poller: {errors}")
+    pcm = np.frombuffer(b"".join(parts), "<i2")
+    return {"pcm": pcm, "underruns": int(late), "worst_lag_ms": 1e3 * worst,
+            "edit": edit, "polls": polls[0],
+            "unpaced_s": (len(whole) - 44) / 2 / sr, "unpaced_wall_s": wall,
+            "x_realtime": (len(whole) - 44) / 2 / sr / wall}
+
+
+def spectrogram_state(EditorState, Viewport, Config, path: str,
+                      pyramid: bool):
+    """The CLI ``spectrogram``'s scene set-up at its defaults (1280x720,
+    the whole track, brightness 50), on the card."""
+    ed = EditorState(config=Config(tile_source="pyramid") if pyramid
+                     else Config(), viewport=Viewport(1280, 720))
+    from melonix_tpu_torch.markers import sort_markers
+
+    ed.open_file(path)
+    ed.markers = sort_markers(ed.markers)
+    ed.invalidate()
+    ed.range_time = max(len(ed.wav) / ed.sample_rate, 0.001)
+    ed.set_brightness(50.0)
+    return ed
+
+
+def editor_slice(mt, x: np.ndarray, card: str, root: str, twins) -> None:
+    """Phase 24: the CLI's ``spectrogram`` on the song (B7, and B1 with
+    ``--pyramid``) against the all-plain scene; an ``EditorServer`` on a
+    30 s excerpt: the frame loop's four motions, the pitch overlay (B8),
+    live playback through HTTP on the PV engine (B2, B3, B11) with a
+    frame poller and a mid-stream edit, and ``/audio.wav`` on both engines
+    (B5 + B6; B2-B4) against the renders.  Every check raises."""
+    import torch
+
+    from melonix_tpu_torch.cli import main as cli_main
+    from melonix_tpu_torch.io.project import Project, save_project
+    from melonix_tpu_torch.kernels import columns as kcols
+    from melonix_tpu_torch.kernels import pitch as kpitch
+    from melonix_tpu_torch.kernels import pv as kpv
+    from melonix_tpu_torch.kernels import render as krender
+    from melonix_tpu_torch.kernels import resample as kres
+    from melonix_tpu_torch.ui import png as upng
+    from melonix_tpu_torch.ui import view as uview
+    from melonix_tpu_torch.ui.colormap import colormap_lut
+    from melonix_tpu_torch.ui.state import (MOD_ALT, MOD_CTRL, EditorState,
+                                            Viewport)
+    from melonix_tpu_torch.ui.web import EditorServer, _pcm16
+    from melonix_tpu_torch.utils import registry
+
+    def pcm16(y) -> np.ndarray:  # the shell's int16 quantisation
+        return np.frombuffer(_pcm16(y), "<i2")
+
+    bars = load_oracle(root, "scene_bars")
+    lut = colormap_lut()
+    metric = lambda name: registry(name).value  # noqa: E731
+    errors0 = metric("tiles.worker_errors")
+    n = len(x)
+    markers = bench_markers(mt, n)
+    env0 = os.environ.get("MELONIX_AUTOSAVE_DIR")
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ["MELONIX_AUTOSAVE_DIR"] = os.path.join(tmp, "autosave")
+        # -- the scene: the CLI's spectrogram vs the all-plain scene -----
+        mlx = save_project(os.path.join(tmp, "song.mlx"), Project(
+            wav=x, sample_rate=SR, markers=markers))
+        for pyramid in (False, True):
+            out = os.path.join(tmp, f"scene{int(pyramid)}.png")
+            argv = ["spectrogram", mlx, "-o", out, "--width", "1280",
+                    "--height", "720"] + (["--pyramid"] if pyramid else [])
+            chunks0 = metric("tiles.chunks")
+            kcols.spectrogram_columns_fused.launches = 0
+            kpv.stft_mag.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            check(cli_main(argv) == 0, f"spectrogram {argv}")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            b7 = kcols.spectrogram_columns_fused.launches
+            b1 = kpv.stft_mag.launches
+            chunks = metric("tiles.chunks") - chunks0
+            with open(out, "rb") as f:
+                got = bars.decode_png(f.read())
+            with plain_twins(*twins):
+                ed = spectrogram_state(EditorState, Viewport, mt.Config, mlx,
+                                       pyramid)
+                want = uview.render_scene(ed, synchronous_tiles=True)
+                ed.tile_server.close()
+            res = bars.scene_bars(got, want, uview, ed, lut)
+            label = "--pyramid (B1)" if pyramid else "defaults (B7)"
+            print(f"[24] spectrogram of the 180 s song with its 12 markers as "
+                  f".mlx, 1280x720, {label}: wall {wall:.3f} s; launches B7 "
+                  f"{b7} ({chunks} drained chunks), B1 {b1}; vs the all-plain "
+                  f"scene: lane pixels equal {100 * res['lane_equal']:.4f}% "
+                  f"(bar 99.9), max level diff {res['lane_max_level']} (bar 1), "
+                  f"max channel diff {res['max_channel_diff']}, outside the "
+                  f"lane bit-equal {res['outside_equal']} | {card}",
+                  flush=True)
+            check(res["outside_equal"] and res["lane_equal"] >= 0.999
+                  and res["lane_max_level"] <= 1, f"scene bars {label}")
+            if pyramid:
+                check(b1 == 1 and b7 == 0, f"--pyramid launches B1 {b1}, B7 {b7}")
+            else:
+                check(b7 == chunks and b7 >= 8 and b1 == 0,
+                      f"spectrogram launches B7 {b7} vs chunks {chunks}")
+
+        # -- the frame loop on a 30 s excerpt --------------------------
+        ex = np.ascontiguousarray(x[: 30 * SR])
+        wav_path = os.path.join(tmp, "excerpt.wav")
+        mt.write_wav(wav_path, ex, SR, dtype="float32")
+        srv = EditorServer(autosave_interval=0)  # an EditorState on cuda
+        srv._lock = TimedLock()
+        t0 = time.perf_counter()
+        srv.state.open_file(wav_path)
+        open_ms = 1e3 * (time.perf_counter() - t0)
+        cl = UiClient(srv.start())
+        try:
+            t0 = time.perf_counter()
+            cl.get(UI_FRAME)
+            first_ms = 1e3 * (time.perf_counter() - t0)
+            settle_ms = ui_settle(cl)
+            for _ in range(5):
+                cl.get(UI_FRAME)
+            fps = {}
+            mid = {"kind": "motion", "x": 600, "y": 300, "buttons": 2}
+            for name, event in (
+                    ("ui_fps_steady", None),
+                    ("ui_fps_pan", dict(mid, dx=6, dy=0)),
+                    ("ui_fps_zoom", dict(mid, dx=0, dy=6, mods=MOD_CTRL)),
+                    ("ui_fps_note_pan", dict(mid, dx=0, dy=6, mods=MOD_ALT))):
+                fps[name] = ui_fps(cl, 2.0, event)
+            # the other encoder: the stdlib PNG at level 1, as a machine
+            # without Pillow serves every frame, and each encode alone
+            img = uview.render_scene(srv.state)
+            enc = {"frame": host_ms(lambda: upng.encode_frame(img)),
+                   "png": host_ms(lambda: upng.encode_png(img, level=1))}
+            pil, upng._PILImage = upng._PILImage, None
+            try:
+                fps["ui_fps_steady (no Pillow)"] = ui_fps(cl, 2.0)
+            finally:
+                upng._PILImage = pil
+            print(f"[24] editor on a 30 s excerpt: open {open_ms:.1f} ms, "
+                  f"first frame {first_ms:.1f} ms, tiles settled "
+                  f"{settle_ms:.1f} ms later; frame loop at 1280x720 (2 s "
+                  f"bursts): " + ", ".join(f"{k} {v:.1f} ({m})" for k, (v, m)
+                                             in fps.items())
+                  + f"; one 1280x720 encode: encode_frame {enc['frame']:.2f} "
+                  f"ms ({'JPEG' if pil is not None else 'PNG'}), stdlib PNG "
+                  f"level 1 {enc['png']:.2f} ms | {card}", flush=True)
+            check(all(v > 0 for v, _m in fps.values()), "frame loop")
+
+            # -- the pitch overlay (B8, in the state's pitch thread) -----
+            kpitch.pitch_ac.launches = 0
+            t0 = time.perf_counter()
+            cl.post("/control", {"action": "pitchcurve", "value": 1})
+            while srv.state.pitch is None:
+                check(time.perf_counter() - t0 < 60.0, "pitch overlay absent")
+                time.sleep(0.005)
+            pitch_ms = 1e3 * (time.perf_counter() - t0)
+            b8 = kpitch.pitch_ac.launches
+            body, _mime = cl.get(UI_FRAME)
+            curve = srv.state.pitch
+            print(f"[24] pitch overlay: curve of {len(curve.note)} frames "
+                  f"({100 * float(np.mean(curve.voiced)):.1f}% voiced) landed "
+                  f"{pitch_ms:.1f} ms after /control; B8 launches {b8} | "
+                  f"{card}", flush=True)
+            check(b8 == 1 and curve.voiced.mean() > 0.5, "pitch overlay B8")
+            cl.post("/control", {"action": "pitchcurve", "value": 0})
+
+            # -- live playback through HTTP on the PV engine -----------
+            cl.post("/control", {"action": "engine", "value": "pv"})
+            st = srv.state
+            new = [mt.Marker(m.sample, m.note, -m.d_time,
+                             -1.5 * m.pitch_bend)
+                   for m in mt.sort_markers(bench_markers(mt, len(ex)))]
+            old_knots = st.knots
+            counters = (kpv.analysis, kpv.synth_ola_phase, kres.resample_lerp)
+            for fn in counters:
+                fn.launches = 0
+            cl.close()  # idle through the stream: the server's 30 s timeout
+            live = live_http(srv.port, SR, [m.to_dict() for m in new])
+            cl = UiClient(srv.port)
+            live_launches = {fn.__name__: fn.launches for fn in counters}
+            new_knots = st.knots
+            pcm = live["pcm"].astype(np.float32) / 32768.0
+            j_edit = int(round(live["edit"]["cursor"] * SR))
+            half = SR // 2
+            check(j_edit + half + 2 * SR <= len(pcm) and j_edit > 2 * SR,
+                  f"edit at sample {j_edit} leaves too little stream")
+            # Before the edit: the stream from 0 is the offline render.
+            old = mt.render_track_pv(ex, old_knots, device="cuda")
+            pre = torch.from_numpy(pcm[half:j_edit])
+            pre_rms, pre_env = rms_env(pre, torch.from_numpy(
+                pcm16(old[half:j_edit]).astype(np.float32) / 32768.0))
+            # After it: the PV render of the new edit restarted at the
+            # edit's cursor (the stream re-anchors phase there), held from
+            # 0.5 s on; and not the old edit's.
+            from melonix_tpu_torch.engine.pv_stream import PvStream
+
+            def restarted(knots):
+                s_ = PvStream(ex, knots, start_sec=live["edit"]["cursor"])
+                return s_.read(half + 2 * SR)[half:]
+
+            post = torch.from_numpy(pcm[j_edit + half: j_edit + half + 2 * SR])
+            ref_new = torch.from_numpy(pcm16(restarted(new_knots)).astype(
+                np.float32) / 32768.0)
+            ref_old = torch.from_numpy(pcm16(restarted(old_knots)).astype(
+                np.float32) / 32768.0)
+            post_rms, post_env = rms_env(post, ref_new)
+            old_rms, old_env = rms_env(post, ref_old)
+            print(f"[24] live HTTP (PV engine, paced, 15 s, frame poller "
+                  f"{live['polls']} frames): live_http_underruns "
+                  f"{live['underruns']} (bar 0; client plays 0.25 s after its "
+                  f"first PCM byte; latest buffer {live['worst_lag_ms']:.1f} "
+                  f"ms after its play time, negative: before it), "
+                  f"edit at {live['edit']['wall']:.2f} s (cursor "
+                  f"{live['edit']['cursor']:.3f} s, /control "
+                  f"{live['edit']['ms']:.1f} ms); unpaced to the end: "
+                  f"{live['unpaced_s']:.2f} s in {live['unpaced_wall_s']:.3f} "
+                  f"s, live_http_x_realtime {live['x_realtime']:.2f} (bar > 1); "
+                  f"launches {live_launches} | {card}", flush=True)
+            print(f"     before the edit vs render_track_pv: rms {pre_rms:.2e} "
+                  f"env {pre_env:.2e}; from 0.5 s after it vs the new edit "
+                  f"restarted at its cursor: rms {post_rms:.2e} env "
+                  f"{post_env:.2e} (bars 5e-3, 2e-2); vs the old edit "
+                  f"restarted there: rms {old_rms:.2e} env {old_env:.2e} | "
+                  f"{card}", flush=True)
+            check(live["underruns"] == 0, "live_http_underruns")
+            check(live["x_realtime"] > 1.0, "live_http_x_realtime")
+            check(live_launches["resample_lerp"] > 0
+                  and live_launches["analysis"] > 0
+                  and live_launches["synth_ola_phase"] > 0, "live launches")
+            check(pre_rms < 5e-3 and pre_env < 2e-2, "stream before the edit")
+            check(post_rms < 5e-3 and post_env < 2e-2, "the edit is heard")
+            check(old_rms > 5e-2, "the stream after the edit is the old one")
+
+            # -- /audio.wav on both engines vs the renders --------------
+            exports = {}
+            for engine in ("granular", "pv"):
+                cl.post("/control", {"action": "engine", "value": engine})
+                cnt = (krender.render_granular,) if engine == "granular" else (
+                    kpv.analysis, kpv.synth_ola_phase, kres.resample_pv)
+                for fn in cnt:
+                    fn.launches = 0
+                t0 = time.perf_counter()
+                body, mime = cl.get("/audio.wav")
+                ms = 1e3 * (time.perf_counter() - t0)
+                launches = {fn.__name__: fn.launches for fn in cnt}
+                got = np.frombuffer(body[44:], "<i2")
+                if engine == "granular":
+                    want = mt.render_track(st.wav, st.grains, st.knots,
+                                           device="cuda")
+                else:
+                    want = mt.render_track_pv(st.wav, st.knots, device="cuda")
+                want = pcm16(want)
+                rms, env = rms_env(torch.from_numpy(got.astype(np.float32)),
+                                   torch.from_numpy(want.astype(np.float32)))
+                exports[engine] = (ms, launches, bool(np.array_equal(got, want)),
+                                   rms, env)
+                check(mime == "audio/wav" and len(got) == len(want),
+                      f"/audio.wav {engine}")
+            print("[24] /audio.wav: " + "; ".join(
+                f"{e} {ms:.1f} ms, launches {la}, bit-equal to the render "
+                f"{eq} (rms {rms:.2e}, env {env:.2e})"
+                for e, (ms, la, eq, rms, env) in exports.items())
+                + f" | {card}", flush=True)
+            check(exports["granular"][2], "granular /audio.wav vs render_track")
+            check(exports["granular"][1]["render_granular"] == 1,
+                  "granular /audio.wav launches")
+            check(exports["pv"][3] < 5e-3 and exports["pv"][4] < 2e-2,
+                  "PV /audio.wav vs render_track_pv")
+            check(all(v >= 1 for v in exports["pv"][1].values()),
+                  "PV /audio.wav launches")
+            holds = sorted(srv._lock.holds.items(), key=lambda kv: -max(kv[1]))
+            print("[24] server lock holds by holder (count; median, 99th "
+                  "percentile, longest ms): " + ", ".join(
+                      f"{k} ({len(v)}; {np.median(v):.2f}, "
+                      f"{np.percentile(v, 99):.2f}, {max(v):.2f})"
+                      for k, v in holds[:8]) + f" | {card}", flush=True)
+            errors = metric("tiles.worker_errors") - errors0
+            check(errors == 0, f"{errors} tile worker errors")
+        finally:
+            cl.close()
+            srv.stop()
+            if env0 is None:
+                os.environ.pop("MELONIX_AUTOSAVE_DIR", None)
+            else:
+                os.environ["MELONIX_AUTOSAVE_DIR"] = env0
 
 
 def main() -> int:
@@ -2829,7 +3305,12 @@ def main() -> int:
     # -- 23. the file slice ------------------------------------------
     t23 = time.perf_counter()
     file_slice(mt, x, card, root)
-    print(f"[23] file slice {time.perf_counter() - t23:.1f} s; chip_smoke.py "
+    print(f"[23] file slice {time.perf_counter() - t23:.1f} s", flush=True)
+
+    # -- 24. the editor ---------------------------------------------
+    t24 = time.perf_counter()
+    editor_slice(mt, x, card, root, twins)
+    print(f"[24] editor {time.perf_counter() - t24:.1f} s; chip_smoke.py "
           f"{time.perf_counter() - t_start:.1f} s in all", flush=True)
 
     print(card)  # the card's name and power limit, near the end again

@@ -13,6 +13,10 @@
         [--format flac] [--device cuda|cpu]
     python -m melonix_tpu_torch info session.mlx
     python -m melonix_tpu_torch project in.mp3 --markers m.json -o s.mlx
+    python -m melonix_tpu_torch spectrogram in.mlx -o scene.png \
+        [--width 1280 --height 720] [--pyramid] [--device cuda|cpu]
+    python -m melonix_tpu_torch ui [in.wav] [--port 8666] [--pyramid] \
+        [--device cuda|cpu]
 
 Every input is an audio file (WAV, FLAC, MP3 and Ogg Vorbis natively, the
 long tail through the libav shim or the ``ffmpeg`` binary) or a project
@@ -26,10 +30,11 @@ files (``render_batch``, which splits the jobs over the ranks of a
 torch.distributed process group when the caller has one of world size
 above 1) in ``--format``; ``info`` prints a track's or project's summary
 and ``project`` bundles audio and markers into a ``.mlx`` (or ``.melonix``)
-project.  The flags and defaults are those of ``melonix_tpu``'s
-subcommands of the same names, plus ``--device`` (default ``cuda``; there
-is no fallback to another device).  ``spectrogram`` and ``ui`` are not
-ported yet.
+project; ``spectrogram`` renders the editor's scene to a PNG (the
+reference-parity columns, or the |STFT| pyramid with ``--pyramid``) and
+``ui`` serves the interactive browser editor.  The flags and defaults are
+those of ``melonix_tpu``'s subcommands of the same names, plus
+``--device`` (default ``cuda``; there is no fallback to another device).
 """
 
 from __future__ import annotations
@@ -111,6 +116,51 @@ def cmd_render(args) -> int:
         f"({len(markers)} markers, {detail} on {args.device}) "
         f"in {dt:.2f}s -> {args.output}"
     )
+    return 0
+
+
+def cmd_spectrogram(args) -> int:
+    from .config import Config
+    from .markers import sort_markers
+    from .ui.png import write_png
+    from .ui.state import EditorState, Viewport
+    from .ui.view import render_scene
+
+    cfg = Config(tile_source="pyramid") if args.pyramid else Config()
+    ed = EditorState(config=cfg, viewport=Viewport(args.width, args.height),
+                     device=args.device)
+    ed.open_file(args.input)
+    ed.markers = sort_markers(_markers_from_arg(args.markers, ed.markers))
+    ed.invalidate()
+    if args.start is not None:
+        ed.start_time = args.start
+    if args.range is not None:
+        ed.range_time = args.range
+    else:
+        ed.range_time = max(len(ed.wav) / ed.sample_rate, 0.001)
+    if args.note_start is not None:
+        ed.start_note = args.note_start
+    if args.note_range is not None:
+        ed.range_note = args.note_range
+    ed.set_brightness(args.brightness)
+    t0 = time.perf_counter()
+    img = render_scene(ed, synchronous_tiles=True)
+    dt = time.perf_counter() - t0
+    write_png(args.output, img)
+    if ed._tile_server:
+        ed._tile_server.close()
+    print(f"scene {img.shape[1]}x{img.shape[0]} rendered on {args.device} "
+          f"in {dt:.2f}s -> {args.output}")
+    return 0
+
+
+def cmd_ui(args) -> int:
+    from .config import Config
+    from .ui.web import serve
+
+    cfg = Config(tile_source="pyramid") if args.pyramid else Config()
+    serve(args.input, host=args.host, port=args.port, config=cfg,
+          device=args.device)
     return 0
 
 
@@ -294,6 +344,23 @@ def build_parser() -> argparse.ArgumentParser:
     _device_flag(r)
     r.set_defaults(fn=cmd_render)
 
+    s = sub.add_parser("spectrogram", help="render the editor scene to PNG")
+    s.add_argument("input")
+    s.add_argument("--markers")
+    s.add_argument("-o", "--output", required=True)
+    s.add_argument("--width", type=int, default=1280)
+    s.add_argument("--height", type=int, default=720)
+    s.add_argument("--start", type=float)
+    s.add_argument("--range", type=float, dest="range")
+    s.add_argument("--note-start", type=float)
+    s.add_argument("--note-range", type=float)
+    s.add_argument("--brightness", type=float, default=50.0)
+    s.add_argument("--pyramid", action="store_true",
+                   help="device-resident multi-res STFT pyramid instead of "
+                        "reference-parity on-demand columns")
+    _device_flag(s)
+    s.set_defaults(fn=cmd_spectrogram)
+
     t = sub.add_parser("pitch", help="batched pitch-curve extraction")
     t.add_argument("--method", choices=("nsdf", "hps", "hybrid"),
                    default="nsdf",
@@ -350,6 +417,15 @@ def build_parser() -> argparse.ArgumentParser:
     j.add_argument("--markers")
     j.add_argument("-o", "--output", required=True)
     j.set_defaults(fn=cmd_project)
+
+    u = sub.add_parser("ui", help="interactive browser editor")
+    u.add_argument("input", nargs="?", help="audio file or .mlx project to open")
+    u.add_argument("--host", default="127.0.0.1")
+    u.add_argument("--port", type=int, default=8666)
+    u.add_argument("--pyramid", action="store_true",
+                   help="device-resident multi-res tile pyramid (fast pan/zoom)")
+    _device_flag(u)
+    u.set_defaults(fn=cmd_ui)
     return p
 
 
