@@ -1205,7 +1205,8 @@ def spectrogram_state(EditorState, Viewport, Config, path: str,
     """The CLI ``spectrogram``'s scene set-up at its defaults (1280x720,
     the whole track, brightness 50), on the card."""
     ed = EditorState(config=Config(tile_source="pyramid") if pyramid
-                     else Config(), viewport=Viewport(1280, 720))
+                     else Config(), viewport=Viewport(1280, 720),
+                     warm_up=False)
     from melonix_tpu_torch.markers import sort_markers
 
     ed.open_file(path)
@@ -1310,6 +1311,13 @@ def editor_slice(mt, x: np.ndarray, card: str, root: str, twins) -> None:
             cl.get(UI_FRAME)
             first_ms = 1e3 * (time.perf_counter() - t0)
             settle_ms = ui_settle(cl)
+            # the open's warm-up (runtime/warmup.py) ends before any launch
+            # is counted; join re-raises what it raised
+            warm = srv.state.warmup
+            check(warm is not None, "the open started no warm-up")
+            warm.join(timeout=300)
+            check(not warm.is_alive() and warm.error is None,
+                  "the open's warm-up")
             for _ in range(5):
                 cl.get(UI_FRAME)
             fps = {}
@@ -1477,6 +1485,177 @@ def editor_slice(mt, x: np.ndarray, card: str, root: str, twins) -> None:
                 os.environ.pop("MELONIX_AUTOSAVE_DIR", None)
             else:
                 os.environ["MELONIX_AUTOSAVE_DIR"] = env0
+
+
+# Phase 25: the warm-up at open (runtime/warmup.py), in fresh processes
+
+
+FIRST_USES = ("tile_burst", "render_track_pv", "render_track",
+              "pv_stream_read")
+
+
+def first_use_main(argv) -> int:
+    """One fresh process of phase 25 (``chip_smoke.py --first-use MODE
+    --out FILE``): opens an ``EditorState`` on the card over phase 24's
+    30 s excerpt and times, each between two ``torch.cuda.synchronize``
+    calls on a host clock, the first 100-column tile burst, the first
+    ``render_track_pv`` and ``render_track`` of the 12-marker edit and the
+    first 8192-sample ``PvStream`` read after a restart at 10 s.  ``warm``
+    joins the open's warm-up first; ``cold`` patches the warm-up (and the
+    kernel build it starts before the decode) away, as the editor opened
+    before it had one.  Writes the outputs to FILE (``.npz``) and the times
+    to FILE + ``.json``."""
+    import argparse
+
+    import torch
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--first-use", choices=("warm", "cold"), required=True)
+    ap.add_argument("--out", required=True)
+    a = ap.parse_args(argv)
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import melonix_tpu_torch as mt
+    from melonix_tpu_torch.engine.pv_stream import PvStream
+    from melonix_tpu_torch.runtime import warmup
+    from melonix_tpu_torch.ui.state import EditorState
+
+    marks: dict = {"kind": torch.cuda.get_device_name(0)}
+    if a.first_use == "cold":
+        warmup.warmup_session_async = lambda *args, **kw: None
+        warmup.build_async = lambda: None
+    else:
+        real = warmup.warmup_session
+
+        def timed(*args, **kw):  # the warm-up's own wall, on its thread
+            t0 = time.perf_counter()
+            real(*args, **kw)
+            marks["warmup_s"] = time.perf_counter() - t0
+
+        warmup.warmup_session = timed
+    ex = np.ascontiguousarray(make_song(SR, SECONDS)[: 30 * SR])
+    n = len(ex)
+    knots = mt.MapKnots.from_markers(bench_markers(mt, n), SR, n)
+    burst = [(i, (i + 1) * n // 128 - int(0.02 * SR), (i + 1) * n // 128)
+             for i in range(100)]
+    outs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "excerpt.wav")
+        mt.write_wav(path, ex, SR, dtype="float32")
+        st = EditorState()
+        t0 = time.perf_counter()
+        st.open_file(path)
+        marks["open_s"] = time.perf_counter() - t0
+        if a.first_use == "warm":
+            t0 = time.perf_counter()
+            st.warmup.join(timeout=600)  # re-raises what the warm-up raised
+            marks["join_s"] = time.perf_counter() - t0
+            check(not st.warmup.is_alive(), "the warm-up did not end")
+            marks["warmup_error"] = repr(st.warmup.error)
+        else:
+            check(st.warmup is None, "a warm-up ran with it patched away")
+
+        def tiles():
+            t0 = time.perf_counter()
+            while True:
+                got = st.tile_server.get_tiles(burst)
+                if all(g is not None for g in got):
+                    return np.stack(got)
+                check(time.perf_counter() - t0 < 120.0, "tiles never came")
+                time.sleep(0.001)
+
+        for label, fn in zip(FIRST_USES, (
+                tiles,
+                lambda: mt.render_track_pv(ex, knots),
+                lambda: mt.render_track(ex, st.grains, knots),
+                lambda: PvStream(ex, knots, start_sec=10.0).read(8192))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs[label] = np.asarray(fn())
+            torch.cuda.synchronize()
+            marks[label + "_ms"] = 1e3 * (time.perf_counter() - t0)
+        st.tile_server.close()
+    np.savez(a.out, **outs)
+    with open(a.out + ".json", "w") as f:
+        json.dump(marks, f)
+    return 0
+
+
+def first_use_phase(card: str, root: str) -> None:
+    """Phase 25: :func:`first_use_main` in two fresh processes, warm (a)
+    and cold (b); the first uses' times, the warm-up's own wall; every
+    output of (a) bit-equal to (b)'s (the tiles and the granular export
+    are exact, B3 and B4 deterministic) and no warm-up error."""
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for mode in ("warm", "cold"):
+            out = os.path.join(tmp, f"{mode}.npz")
+            proc = subprocess.run(
+                [sys.executable, os.path.join(root, "chip_smoke.py"),
+                 "--first-use", mode, "--out", out],
+                capture_output=True, text=True, timeout=600, cwd=root)
+            check(proc.returncode == 0 and "warm-up failed" not in proc.stderr,
+                  f"phase 25 ({mode}) rc {proc.returncode}:\n"
+                  f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+            with np.load(out) as z, open(out + ".json") as f:
+                res[mode] = (json.load(f), {k: z[k] for k in z.files})
+    (mw, ow), (mc, oc) = res["warm"], res["cold"]
+    same = {k: bool(np.array_equal(ow[k], oc[k])) for k in FIRST_USES}
+    print(f"[25] warm-up at open on a 30 s excerpt ({mw['kind']}): open "
+          f"{mw['open_s']:.3f} s, the warm-up's own wall {mw['warmup_s']:.3f} "
+          f"s (joined {mw['join_s']:.3f} s after the open), error "
+          f"{mw['warmup_error']}; first uses after it vs with it patched away "
+          f"(open {mc['open_s']:.3f} s), ms: " + ", ".join(
+              f"{k} {mw[k + '_ms']:.2f} vs {mc[k + '_ms']:.2f}"
+              for k in FIRST_USES) + f"; bit-equal {same} | {card}",
+          flush=True)
+    check(mw["warmup_error"] == "None", "the warm-up raised")
+    check(all(same.values()), f"warmed outputs differ from cold: {same}")
+
+
+# Phase 26: a track longer than one stretch chunk
+
+
+def two_chunk_render(mt, pv, twins, card: str) -> None:
+    """Phase 26: ``render_track_pv`` at its defaults of a 720 s song with
+    12 markers (two chunks of ``PV_CHUNK_FRAMES``, no forced chunk) against
+    the all-plain render at the PV bars; its wall and peak device memory."""
+    import torch
+
+    from melonix_tpu_torch.kernels import pv as kpv
+    from melonix_tpu_torch.kernels import resample as kres
+
+    x = make_song(SR, 720.0)
+    n = len(x)
+    knots = mt.MapKnots.from_markers(bench_markers(mt, n), SR, n)
+    plan = pv.build_pv_plan(knots, n)
+    chunks = -(-plan.n_frames // pv.PV_CHUNK_FRAMES)
+    check(chunks == 2, f"{plan.n_frames} frames make {chunks} chunks, not 2")
+    counters = (kpv.analysis, kpv.synth_ola_phase, kres.resample_pv)
+    for fn in counters:
+        fn.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = mt.render_track_pv(x, knots, device_out=True)
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    launches = {fn.__name__: fn.launches for fn in counters}
+    with plain_twins(*twins):
+        ref = mt.render_track_pv(x, knots, device_out=True)
+    rms, env = rms_env(out, ref)
+    print(f"[26] render_track_pv of a 720 s song ({n} samples, "
+          f"{plan.n_frames} frames, {chunks} chunks of {pv.PV_CHUNK_FRAMES}, "
+          f"n_out {out.shape[0]}): wall {wall_ms:.2f} ms (NumPy in, the "
+          f"host plan included), peak device memory {peak / 2**30:.3f} GiB, "
+          f"launches {launches}; vs the all-plain render: rms {rms:.2e} (bar "
+          f"5e-3 of max), envelope {env:.2e} (bar 2e-2) | {card}",
+          flush=True)
+    check(bool(torch.isfinite(out).all()) and out.shape == ref.shape
+          and out.shape[0] == plan.n_out, "two-chunk render shape")
+    check(launches["analysis"] == chunks and launches["synth_ola_phase"]
+          == chunks and launches["resample_pv"] == 1, "two-chunk launches")
+    check(rms < 5e-3 and env < 2e-2, "two-chunk render vs plain")
 
 
 def main() -> int:
@@ -3310,8 +3489,20 @@ def main() -> int:
     # -- 24. the editor ---------------------------------------------
     t24 = time.perf_counter()
     editor_slice(mt, x, card, root, twins)
-    print(f"[24] editor {time.perf_counter() - t24:.1f} s; chip_smoke.py "
-          f"{time.perf_counter() - t_start:.1f} s in all", flush=True)
+    print(f"[24] editor {time.perf_counter() - t24:.1f} s", flush=True)
+
+    # -- 25. the warm-up at open ---------------------------------------
+    t25 = time.perf_counter()
+    first_use_phase(card, root)
+    print(f"[25] warm-up at open {time.perf_counter() - t25:.1f} s",
+          flush=True)
+
+    # -- 26. the first two-chunk PV render -------------------------------
+    t26 = time.perf_counter()
+    two_chunk_render(mt, pv, twins, card)
+    print(f"[26] two-chunk render {time.perf_counter() - t26:.1f} s; "
+          f"chip_smoke.py {time.perf_counter() - t_start:.1f} s in all",
+          flush=True)
 
     print(card)  # the card's name and power limit, near the end again
     print(json.dumps({"kernels": list(rows.values())}))
@@ -3321,4 +3512,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(rank_main(sys.argv[1:]) if len(sys.argv) > 1 else main())
+    if len(sys.argv) == 1:
+        sys.exit(main())
+    sys.exit(first_use_main(sys.argv[1:]) if sys.argv[1] == "--first-use"
+             else rank_main(sys.argv[1:]))

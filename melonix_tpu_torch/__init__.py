@@ -11,7 +11,8 @@ the tile server, the Hann |STFT| pyramid and the waveform min/max pyramid),
 and the analysis half of the editor (the pitch curve, suggested markers and
 autotune), batch rendering, audio import and export (WAV, FLAC, MP3 and Ogg
 Vorbis through the native decoders, the long tail through the libav shim),
-``.mlx`` and ``.melonix`` projects, band-limited resampling, and the multi-device renders and analyses on
+``.mlx`` and ``.melonix`` projects, band-limited resampling, the session
+warm-up at file open (``warmup_session``), and the multi-device renders and analyses on
 torch.distributed (``parallel/``: tracks or channels over a mesh's ``data``
 ranks, one track's frames over its ``seq`` ranks), on an NVIDIA GPU
 through hand-written CUDA kernels (``kernels/``, sources in ``csrc/``).
@@ -44,6 +45,7 @@ from .parallel import (AudioMesh, data_parallel_pv, data_parallel_render,
                        sharded_spectrogram_columns, sharded_stft_mags)
 from .runtime.spec_pyramid import SpecPyramid
 from .runtime.tiles import TileServer
+from .runtime.warmup import warmup_session, warmup_session_async
 
 __version__ = "0.1.0"
 
@@ -97,5 +99,7 @@ __all__ = [
     "Project",
     "load_project",
     "save_project",
+    "warmup_session",
+    "warmup_session_async",
     "__version__",
 ]

@@ -128,7 +128,7 @@ def cmd_spectrogram(args) -> int:
 
     cfg = Config(tile_source="pyramid") if args.pyramid else Config()
     ed = EditorState(config=cfg, viewport=Viewport(args.width, args.height),
-                     device=args.device)
+                     device=args.device, warm_up=False)
     ed.open_file(args.input)
     ed.markers = sort_markers(_markers_from_arg(args.markers, ed.markers))
     ed.invalidate()

@@ -10,8 +10,9 @@ Counterpart of ``melonix_tpu/engine/spectral.py``.
 * The Hann |STFT| (:func:`stft_mags_device`): B1 at 2048 points, B12 at the
   other sizes the TPU kernels took, plain ``torch.fft.rfft`` elsewhere (as
   the JAX package runs XLA there).
-* The plain complex STFT and the overlap-add inverse (:func:`istft_device`,
-  :func:`ola_device`).
+* The plain complex STFT (:func:`stft_device`, its host wrapper
+  :func:`stft`, the frame matrix :func:`extract_hop_frames`) and the
+  overlap-add inverse (:func:`istft_device`, :func:`ola_device`).
 """
 
 from __future__ import annotations
@@ -115,12 +116,34 @@ def num_frames(n_samples: int, size: int, hop: int) -> int:
     return 1 + (n_samples - size) // hop
 
 
+def extract_hop_frames(local: torch.Tensor, size: int, hop: int,
+                       n_frames: int) -> torch.Tensor:
+    """(n_frames, size) frame matrix ``local[f*hop : f*hop + size]`` of a
+    contiguous signal, zeros past its end, whether or not ``hop`` divides
+    ``size`` (a strided view of the padded signal, ``kpv.hop_frames``)."""
+    return kpv.hop_frames(local, size, hop, n_frames)
+
+
 def stft_device(wav: torch.Tensor, window: torch.Tensor, size: int, hop: int,
                 n_frames: int) -> torch.Tensor:
     """One-shot STFT: (n_frames, size // 2 + 1) complex64, frames at
     ``hop * i`` (no centering), zeros past the end."""
     frames = kpv.hop_frames(wav, size, hop, n_frames)
     return torch.fft.rfft(frames * window[None, :])
+
+
+def stft(wav, config: Config = DEFAULT_CONFIG, *, size=None, hop=None,
+         device=None):
+    """Host wrapper of :func:`stft_device` on ``device`` (default
+    ``"cuda"``, no fallback): returns (frames, hop), frames complex64
+    NumPy."""
+    size = size or config.stft_size
+    hop = hop or config.stft_hop
+    wav_dev = track_on_device(wav, device)
+    win = torch.from_numpy(hann_window(size)).to(wav_dev.device)
+    out = stft_device(wav_dev, win, size, hop,
+                      num_frames(wav_dev.shape[0], size, hop))
+    return out.cpu().numpy(), hop
 
 
 def stft_mags_device(wav: torch.Tensor, window: torch.Tensor, size: int,

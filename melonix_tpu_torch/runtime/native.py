@@ -1,12 +1,15 @@
 """ctypes bindings to the native C++ host runtime: grain chain, render plan
 and the playback ring.
 
-Counterpart of ``melonix_tpu/runtime/native.py``, limited to
-``mlx_build_grains`` and ``mlx_build_plan`` (the granular export's host
-half), ``mlx_ring_*`` (:class:`Ring`, the live player's backlog) and the
+Counterpart of ``melonix_tpu/runtime/native.py``: ``mlx_build_grains``
+and ``mlx_build_plan`` (the granular export's host half), ``mlx_ring_*``
+(:class:`Ring`, the live player's backlog), the waveform min/max pyramid
+``mlx_calc_picks`` / ``mlx_minmax_range`` (:func:`calc_picks`,
+:func:`minmax_range`), the LRU map ``mlx_lru_*`` (:class:`Lru`) and the
 decoders' two-call ``mlx_<codec>_info`` / ``mlx_<codec>_read`` pairs
 (:func:`decode_wav`, :func:`decode_flac`, :func:`decode_mp3`,
-:func:`decode_vorbis`, the audio import).  The library is built from the
+:func:`decode_vorbis`, the audio import).  Every count, index and buffer
+size is checked in Python before it reaches C.  The library is built from the
 ``SRCS`` of ``native/Makefile`` (``melonix_native.cpp`` and the FLAC, MP3
 and Vorbis decoders) with its flags, ``g++ -O3 -std=c++20 -fPIC``, one
 compiler process a source, all at once, then linked ``-shared`` into
@@ -138,7 +141,29 @@ def _declare(lib: ctypes.CDLL) -> None:
         i32p,  # tail_zeros
     ]
 
+    lib.mlx_calc_picks.restype = ctypes.c_int32
+    lib.mlx_calc_picks.argtypes = [f32p, ctypes.c_int64, f32p, f32p,
+                                   ctypes.c_int64]
+    lib.mlx_minmax_range.restype = None
+    lib.mlx_minmax_range.argtypes = [
+        f32p, ctypes.c_int64,  # wav
+        f32p, f32p, ctypes.c_int32,  # mins, maxs (flattened), n_levels
+        i64p, ctypes.c_int64,  # queries (start,end pairs), n_queries
+        f32p, f32p,  # out min, out max
+    ]
+
     vp = ctypes.c_void_p
+    lib.mlx_lru_new.restype = vp
+    lib.mlx_lru_new.argtypes = [ctypes.c_int64]
+    lib.mlx_lru_free.restype = None
+    lib.mlx_lru_free.argtypes = [vp]
+    lib.mlx_lru_get.restype = ctypes.c_int64
+    lib.mlx_lru_get.argtypes = [vp, ctypes.c_int64]
+    lib.mlx_lru_put.restype = ctypes.c_int64
+    lib.mlx_lru_put.argtypes = [vp, ctypes.c_int64, ctypes.c_int64, i64p]
+    lib.mlx_lru_size.restype = ctypes.c_int64
+    lib.mlx_lru_size.argtypes = [vp]
+
     lib.mlx_ring_new.restype = vp
     lib.mlx_ring_new.argtypes = [ctypes.c_int64]
     lib.mlx_ring_free.restype = None
@@ -201,6 +226,117 @@ class Ring:
     def close(self) -> None:
         if getattr(self, "_h", None) is not None:
             self._lib.mlx_ring_free(self._h)
+            self._h = None
+
+    __del__ = close
+
+
+def _f32p(a: np.ndarray):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_float))
+
+
+def pyramid_levels(n: int) -> list[int]:
+    """Block counts of the waveform pyramid's levels over ``n`` samples:
+    level l holds ``n >> (l + 1)`` blocks and exists while
+    ``n > 2 ** (l + 1)`` (app.cpp:352-366)."""
+    sizes = []
+    while n > 1 << (len(sizes) + 1):
+        sizes.append(n >> (len(sizes) + 1))
+    return sizes
+
+
+def calc_picks(lib: ctypes.CDLL, wav) -> tuple[int, np.ndarray, np.ndarray]:
+    """The waveform min/max pyramid of a track (``mlx_calc_picks``):
+    ``(levels, mins, maxs)``, every level's blocks one after another in
+    ``mins`` and ``maxs`` (level l at the sum of the block counts before
+    it, :func:`pyramid_levels`)."""
+    wav = np.ascontiguousarray(wav, np.float32)
+    if wav.ndim != 1:
+        raise ValueError(f"wav must be 1-D, got shape {wav.shape}")
+    n = len(wav)
+    cap = sum(pyramid_levels(n))
+    mins = np.zeros(cap, np.float32)
+    maxs = np.zeros(cap, np.float32)
+    levels = int(lib.mlx_calc_picks(_f32p(wav), n, _f32p(mins), _f32p(maxs),
+                                    cap))
+    if levels < 0:
+        raise RuntimeError(f"mlx_calc_picks: {cap} floats too few for {n}")
+    return levels, mins, maxs
+
+
+def minmax_range(lib: ctypes.CDLL, wav, mins, maxs, levels: int, queries
+                 ) -> tuple[np.ndarray, np.ndarray]:
+    """Exact min and max of ``wav[start:end]`` for each (start, end) row of
+    ``queries`` (``mlx_minmax_range`` over :func:`calc_picks`' pyramid); a
+    row with ``start >= end`` gives ``wav[start]``.  A query outside the
+    track (an end below 0 or at or past ``len(wav)``), a level count the
+    track does not have or buffers too short for it raise ValueError."""
+    wav = np.ascontiguousarray(wav, np.float32)
+    mins = np.ascontiguousarray(mins, np.float32)
+    maxs = np.ascontiguousarray(maxs, np.float32)
+    q = np.ascontiguousarray(queries, np.int64)
+    n = len(wav)
+    sizes = pyramid_levels(n)
+    if wav.ndim != 1 or not 0 <= levels <= len(sizes):
+        raise ValueError(f"{levels} levels for a track of shape {wav.shape} "
+                         f"(it has {len(sizes)})")
+    need = sum(sizes[:levels])
+    if mins.shape != maxs.shape or mins.ndim != 1 or len(mins) < need:
+        raise ValueError(f"mins {mins.shape} / maxs {maxs.shape}: {levels} "
+                         f"levels need {need} floats each")
+    if q.ndim != 2 or q.shape[1] != 2:
+        raise ValueError(f"queries must be (n, 2), got {q.shape}")
+    bad = (q < 0) | (q >= n)
+    if bad.any():
+        s, e = (int(v) for v in q[int(np.argmax(bad.any(axis=1)))])
+        raise ValueError(f"query ({s}, {e}) outside the track [0, {n})")
+    out_min = np.zeros(len(q), np.float32)
+    out_max = np.zeros(len(q), np.float32)
+    lib.mlx_minmax_range(
+        _f32p(wav), n, _f32p(mins), _f32p(maxs), levels,
+        q.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)), len(q),
+        _f32p(out_min), _f32p(out_max))
+    return out_min, out_max
+
+
+class Lru:
+    """Least-recently-used map of int64 keys to non-negative int64 values
+    with a fixed capacity (``mlx_lru_*``, the reference's spectrum caches,
+    spec.cpp:18-42).  ``get`` touches the key's recency; ``put`` past the
+    capacity evicts the oldest key."""
+
+    def __init__(self, lib: ctypes.CDLL, capacity: int):
+        if capacity < 1:
+            raise ValueError(f"capacity {capacity} < 1")
+        self._lib = lib
+        self._h = lib.mlx_lru_new(capacity)
+
+    def _handle(self):
+        if self._h is None:
+            raise ValueError("the LRU map is closed")
+        return self._h
+
+    def get(self, key: int) -> int | None:
+        """The key's value (now the most recent), or None if absent."""
+        v = int(self._lib.mlx_lru_get(self._handle(), key))
+        return None if v < 0 else v
+
+    def put(self, key: int, value: int) -> int | None:
+        """Insert or update; returns the evicted key's value, or None."""
+        if value < 0:
+            raise ValueError(f"value {value} < 0 (-1 marks a miss)")
+        evicted = ctypes.c_int64(-1)
+        if self._lib.mlx_lru_put(self._handle(), key, value,
+                                 ctypes.byref(evicted)):
+            return int(evicted.value)
+        return None
+
+    def __len__(self) -> int:
+        return int(self._lib.mlx_lru_size(self._handle()))
+
+    def close(self) -> None:
+        if getattr(self, "_h", None) is not None:
+            self._lib.mlx_lru_free(self._h)
             self._h = None
 
     __del__ = close

@@ -56,12 +56,17 @@ class Viewport:
 
 class EditorState:
     def __init__(self, config: Config = DEFAULT_CONFIG, viewport: Viewport | None = None,
-                 device=None):
+                 device=None, warm_up: bool = True):
         self.config = config
         self.viewport = viewport or Viewport()
         # Checked when a file is loaded (resolve_device), so a server can be
         # built before it knows whether the card is there.
         self.device = torch.device("cuda" if device is None else device)
+        # Off a CPU, every open warms the session's paths on a thread
+        # (runtime/warmup.py); ``warmup`` is the last open's thread.  A
+        # one-shot scene (the CLI's ``spectrogram``) passes False.
+        self.warm_up = warm_up
+        self.warmup = None
 
         self.wav: np.ndarray = np.zeros(0, np.float32)
         self.sample_rate: int = 0
@@ -222,9 +227,16 @@ class EditorState:
         if self.device.type != "cpu":
             # First view first: the tile server (and its worker thread)
             # exists from the open on, so the first frame's burst goes
-            # straight to the card.  On a cold kernel build that burst, and
-            # the first PV read, wait for nvcc (kernels/_build.py).
+            # straight to the card, ahead of the warm-up below: a silent
+            # track of this length through every path, so the first render,
+            # live read and tile burst find their first-use costs paid (the
+            # reference's plan at open, FFTW_MEASURE at spec.cpp:15).
             _ = self.tile_server
+            if self.warm_up:
+                from ..runtime import warmup
+
+                self.warmup = warmup.warmup_session_async(
+                    len(self.wav), self.sample_rate, device=self.device)
         # A new file with the overlay enabled recomputes its curve
         # (cleanup cleared self.pitch; the checkbox stays checked).
         self._ensure_pitch()
@@ -272,6 +284,12 @@ class EditorState:
         there raises before anything is decoded: the loaded session stays
         as it was."""
         resolve_device(self.device)
+        if self.warm_up and self.device.type == "cuda":
+            from ..runtime import warmup
+
+            # nvcc (kernels/_build.py) starts before the decode, beside the
+            # native runtime's build, not after the open in the tile worker
+            warmup.build_async()
         if path.endswith(".mlx"):
             self.load_project_file(path)
         elif path.endswith(".melonix"):
