@@ -434,6 +434,42 @@ def granular_parity_max_err(mt, oracle, dev) -> float:
     return float(np.max(np.abs(got - want)))
 
 
+def granular_edge_parity_max_err(mt, oracle, dev) -> float:
+    """The 4 degenerate marker sets of ``tests/test_fuzz_parity.py`` (a
+    marker at sample 0, two markers on one sample, a marker on the last
+    sample, a time reversal) on its 0.8 s, 8 kHz signal (seed 77) through
+    ``render_track`` on the card against ``oracle.export``; returns the max
+    abs error over the four (each pair of lengths must agree)."""
+    sr, rng = 8000, np.random.default_rng(77)
+    t = np.arange(int(sr * 0.8)) / sr
+    x = 0.5 * np.sin(2 * np.pi * (150 + 80 * rng.random()) * t)
+    x += 0.2 * np.sin(2 * np.pi * (300 + 200 * rng.random()) * t
+                      + rng.random())
+    x += 0.02 * rng.standard_normal(len(t))
+    x = x.astype(np.float32)
+    n = len(x)
+    M = mt.Marker
+    cases = [
+        [M(0, 50.0, 0.05, 2.0)],
+        [M(n // 2, 50.0, 0.0, 0.0), M(n // 2, 55.0, 0.02, -1.0)],
+        [M(n - 1, 50.0, 0.1, 3.0)],
+        [M(n // 3, 50.0, -0.2, 1.0), M(2 * n // 3, 50.0, 0.15, -2.0)],
+    ]
+    table = mt.build_grain_table(x)
+    grains = list(zip(table.starts.tolist(), table.lengths.tolist()))
+    worst = 0.0
+    for i, ms in enumerate(cases):
+        ms = mt.sort_markers(ms)
+        got = mt.render_track(x, table, mt.MapKnots.from_markers(ms, sr, n),
+                              device=dev)
+        want = oracle.export(x, grains, [(m.sample, m.note, m.d_time,
+                                          m.pitch_bend) for m in ms], sr)
+        check(got.shape == want.shape,
+              f"edge set {i}: lengths {got.shape} {want.shape}")
+        worst = max(worst, float(np.max(np.abs(got - want))))
+    return worst
+
+
 def pitch_err_cents(mt, dev, size=None, hop=None) -> float:
     """End-to-end PV pitch accuracy (bench.py:185-223): a 440 Hz tone through
     a +2-semitone plateau, dominant frequency of the output at the plateau
@@ -642,11 +678,15 @@ def batch_jobs(mt, x: np.ndarray):
 
 
 def rank_main(argv) -> int:
-    """One rank of phase 20's gloo group on the card (the parent runs
-    ``chip_smoke.py --rank R --world W --port P --out DIR`` per rank): the
-    sequence-parallel PV of the song on a (1, W) mesh, the batch of four
-    jobs and a stereo session on a (W, 1) mesh, each rank computing on
-    cuda:0; writes its numbers and rank 0's reference checks to DIR."""
+    """One rank of phase 20's gloo group on the card or of phase 27's NCCL
+    group over every card (the parent runs ``chip_smoke.py --rank R --world
+    W --port P --out DIR [--backend nccl]`` per rank): the sequence-parallel
+    PV of the song on a (1, W) mesh, the batch of four jobs and a stereo
+    session on a (W, 1) mesh and, on NCCL where W is even and at least 4, on
+    a (2, W / 2) mesh.  Under gloo every rank computes on cuda:0 and the
+    payloads go through host memory; under NCCL rank R joins the group
+    through ``join_group`` with the launcher's environment and computes on
+    cuda:R.  Writes its numbers and rank 0's reference checks to DIR."""
     import argparse
 
     import torch
@@ -656,6 +696,7 @@ def rank_main(argv) -> int:
     for flag in ("--rank", "--world", "--port"):
         ap.add_argument(flag, type=int, required=True)
     ap.add_argument("--out", required=True)
+    ap.add_argument("--backend", choices=("gloo", "nccl"), default="gloo")
     a = ap.parse_args(argv)
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import melonix_tpu_torch as mt
@@ -663,18 +704,44 @@ def rank_main(argv) -> int:
     from melonix_tpu_torch.kernels import resample as kres
     from melonix_tpu_torch.utils import Timer, registry
 
-    torch.cuda.set_device(0)
-    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{a.port}",
-                            world_size=a.world, rank=a.rank)
+    if a.backend == "nccl":
+        os.environ.update(RANK=str(a.rank), LOCAL_RANK=str(a.rank),
+                          WORLD_SIZE=str(a.world), MASTER_ADDR="127.0.0.1",
+                          MASTER_PORT=str(a.port))
+        dev = mt.join_group("cuda")
+    else:
+        dev = torch.device("cuda", 0)
+        torch.cuda.set_device(dev)
+        dist.init_process_group("gloo",
+                                init_method=f"tcp://127.0.0.1:{a.port}",
+                                world_size=a.world, rank=a.rank)
     seq_mesh = mt.make_audio_mesh(a.world, data=1)
-    data_mesh = mt.make_audio_mesh(a.world, data=a.world)
+    meshes = [("", mt.make_audio_mesh(a.world, data=a.world))]
+    if a.backend == "nccl" and a.world % 2 == 0 and a.world >= 4:
+        meshes.append((f"_2x{a.world // 2}", mt.make_audio_mesh(a.world,
+                                                                data=2)))
+    # every group's communicator formed before anything is timed (NCCL
+    # forms one at a group's first collective), the set-up timed alone;
+    # every rank walks its own groups in the same order
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for m in [seq_mesh] + [mesh for _tag, mesh in meshes]:
+        for g, size in ((m.seq, m.shape["seq"]), (m.data, m.shape["data"])):
+            one = torch.zeros(1, device=dev if a.backend == "nccl"
+                              else "cpu")
+            dist.all_gather([torch.empty_like(one) for _ in range(size)], one,
+                            group=g)
+    torch.cuda.synchronize()
+    groups_ms = 1e3 * (time.perf_counter() - t0)
     x = make_song(SR, SECONDS)
     markers = bench_markers(mt, len(x))
     gather = registry("parallel.gather", Timer)
     sent = registry("parallel.gather_bytes")
     counters = (kpv.analysis, kpv.synth_ola, kpv.synth_ola_phase,
                 kres.resample_pv)
-    res = {"rank": a.rank, "kind": torch.cuda.get_device_name(0)}
+    res = {"rank": a.rank, "device": str(dev), "backend": a.backend,
+           "kind": torch.cuda.get_device_name(dev), "groups_ms": groups_ms,
+           "meshes": [m[0] for m in meshes]}
 
     def run(label, fn):
         """fn() once counted and timed (after all ranks arrive), with its
@@ -696,8 +763,10 @@ def rank_main(argv) -> int:
         dist.barrier()
         names, busy, wall = device_profile(fn)
         top = sorted(names.items(), key=lambda kv: -kv[1])[:6]
-        res[label]["profile"] = {"busy_ms": busy, "wall_ms": wall,
-                                 "top": [[k[:48], v] for k, v in top]}
+        res[label]["profile"] = {
+            "busy_ms": busy, "wall_ms": wall,
+            "top": [[k[:48], v] for k, v in top],
+            "nccl_ms": sum(v for k, v in names.items() if "nccl" in k.lower())}
         return out
 
     def seq_pv():
@@ -727,6 +796,7 @@ def rank_main(argv) -> int:
         "live": int((mag.abs().amax(dim=1) > 0).sum()),
         "max_abs_psi": float(psi.abs().max()),
         "same_shape": y.shape == want.shape,
+        "device": str(y.device),
         "snr_db": float(10.0 * torch.log10(
             err.clamp_min(1e-300) / want.double().square().sum())),
         "max_abs_err": float((y - want).abs().max())}
@@ -735,36 +805,444 @@ def rank_main(argv) -> int:
     np.save(os.path.join(a.out, f"seq_pv_rank{a.rank}.npy"), out)
 
     tracks, ms_l = batch_jobs(mt, x)
-    for engine in ("granular", "pv"):
-        outs = run(f"batch_{engine}", lambda: mt.render_batch(
-            tracks, ms_l, SR, engine=engine, mesh=data_mesh))
-        if a.rank == 0:
-            errs = []
-            for t, ms, o in zip(tracks, ms_l, outs):
-                want = mt.render_session(t, ms, SR, engine=engine, mesh=None)
-                same_len = o.shape == want.shape
-                if engine == "granular":
-                    errs.append([same_len, float(np.abs(o - want).max()),
-                                 bool(np.array_equal(o == 0.0, want == 0.0))])
-                else:
-                    errs.append([same_len, snr_np(o, want)])
-            res[f"batch_{engine}"]["vs_render_session"] = errs
     st = np.ascontiguousarray(np.stack([x, 0.8 * x[::-1]], axis=1),
                               dtype=np.float32)
-    for engine in ("granular", "pv"):
-        got = run(f"stereo_{engine}", lambda: mt.render_session(
-            st, markers, SR, engine=engine, mesh=data_mesh))
-        if a.rank == 0:
-            want = mt.render_session(st, markers, SR, engine=engine,
-                                     mesh=None)
-            res[f"stereo_{engine}"]["vs_no_mesh"] = [
-                got.shape == want.shape, float(np.abs(got - want).max()),
-                bool(np.array_equal(got == 0.0, want == 0.0))]
+    refs = {}  # rank 0's single-device renders, made once for every mesh
+    for tag, mesh in meshes:
+        for engine in ("granular", "pv"):
+            outs = run(f"batch_{engine}{tag}", lambda: mt.render_batch(
+                tracks, ms_l, SR, engine=engine, mesh=mesh))
+            if a.rank == 0:
+                errs = []
+                for j, (t, ms, o) in enumerate(zip(tracks, ms_l, outs)):
+                    if (engine, j) not in refs:
+                        refs[engine, j] = mt.render_session(
+                            t, ms, SR, engine=engine, mesh=None)
+                    want = refs[engine, j]
+                    same_len = o.shape == want.shape
+                    if engine == "granular":
+                        errs.append([same_len, float(np.abs(o - want).max()),
+                                     bool(np.array_equal(o == 0.0,
+                                                         want == 0.0))])
+                    else:
+                        errs.append([same_len, snr_np(o, want)])
+                res[f"batch_{engine}{tag}"]["vs_render_session"] = errs
+        for engine in ("granular", "pv"):
+            got = run(f"stereo_{engine}{tag}", lambda: mt.render_session(
+                st, markers, SR, engine=engine, mesh=mesh))
+            if a.rank == 0:
+                if ("stereo", engine) not in refs:
+                    refs["stereo", engine] = mt.render_session(
+                        st, markers, SR, engine=engine, mesh=None)
+                want = refs["stereo", engine]
+                res[f"stereo_{engine}{tag}"]["vs_no_mesh"] = [
+                    got.shape == want.shape, float(np.abs(got - want).max()),
+                    bool(np.array_equal(got == 0.0, want == 0.0))]
     with open(os.path.join(a.out, f"rank{a.rank}.json"), "w") as f:
         json.dump(res, f)
     dist.barrier()
     dist.destroy_process_group()
     return 0
+
+
+def run_ranks(world: int, backend: str, timeout: float = 420):
+    """Phase 20's or 27's ranks (:func:`rank_main`), one process each, on a
+    free local port: (each rank's numbers, each rank's seq-parallel PV)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        with contextlib.closing(socket.socket()) as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--rank", str(r),
+             "--world", str(world), "--port", str(port), "--out", tmp,
+             "--backend", backend])
+            for r in range(world)]
+        try:
+            codes = [p.wait(timeout=timeout) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        check(codes == [0] * world, f"{backend} ranks exited {codes}")
+        rk = []
+        for r in range(world):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                rk.append(json.load(f))
+        seq_out = [np.load(os.path.join(tmp, f"seq_pv_rank{r}.npy"))
+                   for r in range(world)]
+    return rk, seq_out
+
+
+def rank_checks(tag: str, rk, seq_out, want, exact, card: str, where: str,
+                beside=None) -> None:
+    """Phase 20's and 27's bars on the ranks' results: the seq-parallel PV
+    against the exact phase sum and the single render ``want`` (every rank
+    returning the whole track), B10 on each rank's own operands against its
+    twin, each rank's launches, and the batch and stereo renders on every
+    mesh against the single-device renders; each rank's wall and gathers
+    printed (``beside``: phase 20's gloo ranks, printed next to them)."""
+    import torch
+
+    world = len(rk)
+    rms_x, env_x = rms_rel_env(seq_out[0], exact, SR)
+    rms_s, env_s = rms_env(torch.from_numpy(seq_out[0]),
+                           torch.from_numpy(want))
+    rms_q, env_q = rms_rel_env(seq_out[0], want, SR)
+    same_ranks = all(np.array_equal(o, seq_out[0]) for o in seq_out)
+    print(f"{tag} seq-parallel PV of the {SECONDS:.0f} s song on {world} "
+          f"{where} (data=1, seq={world}): vs the exact phase sum rms "
+          f"{rms_x:.3e} of rms (bar 2e-3), envelope {env_x:.3e} (bar 2e-2); "
+          f"vs render_track_pv rms {rms_s:.3e} of max (bar 2e-3), envelope "
+          f"{env_s:.3e} (bar 2e-2), quarter-second form rms {rms_q:.3e} of "
+          f"rms, envelope {env_q:.3e}; every rank returns the whole track, "
+          f"equal {same_ranks}", flush=True)
+
+    def nccl(q):
+        """NCCL's kernels in the profiled run: the gathers on the device,
+        waits for the slowest rank included (the host timer holds only
+        their queueing)."""
+        if "nccl_ms" not in q["profile"] or not q["profile"]["nccl_ms"]:
+            return ""
+        return f", NCCL kernels {q['profile']['nccl_ms']:.2f} ms on the device"
+
+    def old(r, label):
+        if beside is None or r >= len(beside) or label not in beside[r]:
+            return ""
+        q = beside[r][label]
+        return (f" (phase 20, gloo on one card: wall {q['wall_ms']:.2f} ms, "
+                f"gathers {q['gather_ms']:.2f} ms)")
+
+    for r in rk:
+        b = r["b10_vs_twin"]
+        print(f"     rank {r['rank']} on {r['device']}: B10 on its own "
+              f"operands ({b['frames']} frames, {b['live']} live, |psi| up "
+              f"to {b['max_abs_psi']:.4g}, on {b['device']}) vs its twin: "
+              f"SNR {b['snr_db']:.1f} dB (bar < -100), max abs err "
+              f"{b['max_abs_err']:.3e}", flush=True)
+        check(b["same_shape"] and b["snr_db"] < -100.0
+              and b["device"] == r["device"],
+              f"rank {r['rank']}: B10 vs twin on the seq path's operands")
+        q = r["seq_pv"]
+        print(f"     rank {r['rank']}: its {len(r['meshes']) + 1} meshes' "
+              f"groups formed (one all-gather each) in "
+              f"{r['groups_ms']:.1f} ms before any timing", flush=True)
+        print(f"     rank {r['rank']}: wall {q['wall_ms']:.2f} ms, of it "
+              f"{q['gathers']} {r['backend']} all-gathers "
+              f"{q['gather_ms']:.2f} ms on the host"
+              f"{nccl(q)} ({q['gather_bytes'] / 2**20:.1f} MiB "
+              f"sent){old(r['rank'], 'seq_pv')}; launches {q['launches']} "
+              f"(bars: B2 1, B10 1, B3 0) | {card}", flush=True)
+        pr = q["profile"]
+        print(f"       profiled: device busy {pr['busy_ms']:.3f} ms of "
+              f"{pr['wall_ms']:.2f} ms wall (idle share "
+              f"{1.0 - pr['busy_ms'] / pr['wall_ms']:.4f}); device ms by "
+              f"name: " + ", ".join(f"{k} {v:.3f}" for k, v in pr["top"]),
+              flush=True)
+        check(q["launches"]["analysis"] == 1 and q["launches"]["synth_ola"] == 1
+              and q["launches"]["synth_ola_phase"] == 0,
+              f"rank {r['rank']} seq PV launches {q['launches']}")
+    check(seq_out[0].shape == want.shape == exact.shape and same_ranks
+          and rms_x < 2e-3 and env_x < 2e-2, "seq-parallel PV vs exact sum")
+    check(rms_s < 2e-3 and env_s < 2e-2, "seq-parallel PV vs single")
+    r0 = rk[0]
+    for mtag in r0["meshes"]:
+        shape = (f"data={world}, seq=1" if not mtag
+                 else f"data=2, seq={world // 2}")
+        g = r0[f"batch_granular{mtag}"]["vs_render_session"]
+        p = r0[f"batch_pv{mtag}"]["vs_render_session"]
+        for engine in ("granular", "pv"):
+            for r in rk:
+                q = r[f"batch_{engine}{mtag}"]
+                pr = q["profile"]
+                print(f"     render_batch of 4 jobs, {engine}, ({shape}), "
+                      f"rank {r['rank']}: wall {q['wall_ms']:.2f} ms, "
+                      f"gathers {q['gather_ms']:.2f} ms on the host"
+                      f"{nccl(q)} ({q['gather_bytes'] / 2**20:.1f} MiB)"
+                      f"{old(r['rank'], f'batch_{engine}' + mtag)}; launches "
+                      f"{q['launches']}; device busy {pr['busy_ms']:.3f} ms "
+                      f"of {pr['wall_ms']:.2f} ms profiled (idle share "
+                      f"{1.0 - pr['busy_ms'] / pr['wall_ms']:.4f}) | {card}",
+                      flush=True)
+        print(f"     batch ({shape}) vs per-job render_session: granular "
+              f"[len ok, max err, zeros equal] {g} (bar 2e-6); pv [len ok, "
+              f"SNR dB] {p} (bar < -60)", flush=True)
+        check(all(a and e <= 2e-6 and z for a, e, z in g)
+              and all(a and v < -60.0 for a, v in p),
+              f"render_batch on {world} ranks ({shape}) vs render_session")
+        for engine in ("granular", "pv"):
+            ok, e, z = r0[f"stereo_{engine}{mtag}"]["vs_no_mesh"]
+            q = r0[f"stereo_{engine}{mtag}"]
+            print(f"     stereo {engine} session, channels over data "
+                  f"({shape}): vs mesh=None max err {e:.3e} (bar "
+                  f"{'2e-6' if engine == 'granular' else 'equal'}), zeros "
+                  f"equal {z}; rank 0 wall {q['wall_ms']:.2f} ms"
+                  f"{old(0, f'stereo_{engine}' + mtag)}", flush=True)
+            check(ok and z and (e <= 2e-6 if engine == "granular"
+                                else e == 0.0),
+                  f"stereo {engine} session over data ({shape})")
+
+
+def cli_batch_takes(mt, x: np.ndarray, tmp: str) -> None:
+    """Phase 21's CLI half: three 20 s takes of the song (float32 WAVs) and
+    the first four bench markers written to ``tmp``, the CLI's ``batch``
+    (pv with formants, the default; one process) into
+    ``tmp/out21``, held bit for bit to a per-file ``render --engine pv
+    --formant`` of each (``tmp/one{i}.wav``); phase 27 reuses all of it."""
+    from melonix_tpu_torch.cli import main as cli_main
+
+    for i in range(3):
+        mt.write_wav(os.path.join(tmp, f"take{i}.wav"),
+                     x[i * 20 * SR : (i + 1) * 20 * SR], SR, dtype="float32")
+    mjson = os.path.join(tmp, "m.json")
+    with open(mjson, "w") as f:
+        f.write(mt.markers_to_json(bench_markers(mt, 20 * SR)[:4]))
+    outdir = os.path.join(tmp, "out21")
+    check(cli_main(["batch", os.path.join(tmp, "take*.wav"), "--markers",
+                    mjson, "-o", outdir]) == 0, "CLI batch")
+    same = []
+    for i in range(3):
+        one = os.path.join(tmp, f"one{i}.wav")
+        check(cli_main(["render", os.path.join(tmp, f"take{i}.wav"),
+                        "--markers", mjson, "--engine", "pv", "--formant",
+                        "-o", one]) == 0, "CLI render")
+        a_, _r = mt.read_wav(os.path.join(outdir, f"take{i}.wav"))
+        b_, _r = mt.read_wav(one)
+        same.append(bool(np.array_equal(a_, b_)))
+    print(f"     CLI batch of 3 WAVs (pv with formants, the default) vs per-"
+          f"file render --engine pv --formant: equal {same} (bar: equal)",
+          flush=True)
+    check(all(same), "CLI batch vs render")
+
+
+def file_bytes(path: str) -> bytes:
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def one_card_pair(root: str, takes: str) -> None:
+    """Two NCCL ranks on one card (``CUDA_VISIBLE_DEVICES`` of one card):
+    ``launch`` of the CLI's ``batch`` must exit non-zero within 60 s with
+    the port's own ``rank_device`` error, not NCCL's and not a hang.  The
+    launch's own 60 s timeout stops the ranks of a hang (the 90 s kill of
+    this process's session is the last resort)."""
+    import signal
+
+    visible = os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0]
+    code = (f"import sys; sys.path.insert(0, {root!r}); "
+            "from melonix_tpu_torch.parallel.launch import launch; "
+            f"sys.exit(launch(['batch', {os.path.join(takes, 'take*.wav')!r},"
+            f" '-o', {os.path.join(takes, 'pair')!r}, '--device', 'cuda'], 2,"
+            " timeout=60))")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-c", code],
+                            env=dict(os.environ, CUDA_VISIBLE_DEVICES=visible),
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True, start_new_session=True)
+    try:
+        text = proc.communicate(timeout=90)[0]
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        text = proc.communicate()[0] + "\n[killed after 90 s]"
+    dt = time.perf_counter() - t0
+    ours = "RankDeviceError" in text and "asks for cuda:1" in text
+    lines = [ln for ln in text.splitlines() if "RankDeviceError" in ln]
+    print(f"[27] two NCCL ranks under CUDA_VISIBLE_DEVICES={visible}: exit "
+          f"{proc.returncode} after {dt:.1f} s (bar: non-zero within 60 s), "
+          f"the port's own error {ours}: {lines[-1] if lines else text[-400:]}",
+          flush=True)
+    check(proc.returncode not in (0, None) and dt < 60.0 and ours,
+          "two NCCL ranks on one card refused by rank_device")
+
+
+def b2_shard_split(mt, x: np.ndarray, n_shards: int,
+                   device="cuda") -> tuple[float, int]:
+    """B2 on the seq-parallel PV's padded frames of the song in one call
+    against the same frames in ``n_shards`` consecutive calls, as the seq
+    ranks run it: (max |difference| of (re, im) over max |re, im|, frames a
+    shard); 0.0 when no frame's result depends on how the frames are
+    split."""
+    import torch
+
+    from melonix_tpu_torch.engine import phase_vocoder as pv
+    from melonix_tpu_torch.engine.spectral import hann_window
+    from melonix_tpu_torch.kernels import pv as kpv
+    from melonix_tpu_torch.parallel import sharded
+
+    plan = pv.build_pv_plan(mt.MapKnots.from_markers(
+        bench_markers(mt, len(x)), SR, len(x)), len(x))
+    kw, ops = sharded.seq_pv_args(plan, n_shards)
+    f = kw["n_frames"] // n_shards
+    wav = torch.from_numpy(x).to(device)
+    win = torch.from_numpy(hann_window(kw["size"])).to(device)
+    st = torch.from_numpy(np.asarray(ops[0], np.int32)).to(device)
+    whole = torch.stack(kpv.analysis(wav, st, win, kw["size"]))
+    parts = [kpv.analysis(wav, st[i * f:(i + 1) * f].contiguous(), win,
+                          kw["size"]) for i in range(n_shards)]
+    split = torch.stack([torch.cat([p[j] for p in parts]) for j in (0, 1)])
+    return float((whole - split).abs().max() / whole.abs().max()), f
+
+
+def spawn_breakdown(root: str) -> dict:
+    """What a rank pays before its first render, in one fresh process
+    timed step by step (ms): the interpreter to its first line, ``import
+    torch``, ``import melonix_tpu_torch``, the CUDA context (a first
+    tensor on the card), an NCCL group of one (formed and a barrier
+    passed), the kernel library's load (built already), and the exit."""
+    with contextlib.closing(socket.socket()) as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    code = f"""
+import time
+t = [time.perf_counter()]
+import datetime, json, sys
+import torch
+t.append(time.perf_counter())
+sys.path.insert(0, {root!r})
+import melonix_tpu_torch
+t.append(time.perf_counter())
+torch.cuda.set_device(0)
+torch.zeros(1, device="cuda")
+torch.cuda.synchronize()
+t.append(time.perf_counter())
+import torch.distributed as dist
+dist.init_process_group("nccl", init_method="tcp://127.0.0.1:{port}",
+                        rank=0, world_size=1,
+                        device_id=torch.device("cuda", 0),
+                        timeout=datetime.timedelta(seconds=60))
+dist.barrier()
+torch.cuda.synchronize()
+t.append(time.perf_counter())
+from melonix_tpu_torch.kernels import _build
+_build.library()
+t.append(time.perf_counter())
+dist.destroy_process_group()
+print(json.dumps([b - a for a, b in zip(t, t[1:])]))
+"""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=300)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"spawn breakdown: {proc.stderr[-2000:]}")
+    steps = json.loads(proc.stdout.strip().splitlines()[-1])
+    names = ("torch_import", "melonix_import", "cuda_context", "nccl_group",
+             "library_load")
+    out = {k: 1e3 * v for k, v in zip(names, steps)}
+    out["start_and_exit"] = 1e3 * wall - sum(out.values())
+    out["wall"] = 1e3 * wall
+    return out
+
+
+def every_card_phase(mt, x: np.ndarray, card: str, root: str, takes: str,
+                     want: np.ndarray, exact: np.ndarray,
+                     rk20=None) -> None:
+    """Phase 27: the port on every card.  The cards and their power limits;
+    the launcher's spawn-to-first-render time (``launch`` of a one-rank
+    ``render`` against the same render in this process); the CLI's
+    ``batch`` through ``launch`` over every visible card on phase 21's
+    takes, ``--engine pv`` (formants, the default) and ``--engine
+    granular``, each file held to the per-file render (one card: one NCCL
+    rank, bit for bit phase 21's files and the per-file renders; more: PV
+    SNR < -60 dB against ``render_session``, granular within one int16
+    step of the per-file render's file); two NCCL ranks on one card refused
+    by the port; and, with two cards or more, phase 20's cases on one NCCL
+    rank a card at phase 20's bars (:func:`rank_checks`)."""
+    import torch
+
+    from melonix_tpu_torch.cli import main as cli_main
+    from melonix_tpu_torch.parallel.launch import launch
+
+    n_cards = torch.cuda.device_count()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()
+    print(f"[27] torch.cuda.device_count() {n_cards}; cards: "
+          + "; ".join(f"{i}: {ln}" for i, ln in enumerate(smi)), flush=True)
+    glob = os.path.join(takes, "take*.wav")
+    mjson = os.path.join(takes, "m.json")
+    take0 = os.path.join(takes, "take0.wav")
+
+    # the spawn: a process, its CUDA context, the library load, one render
+    args = ["render", take0, "--markers", mjson, "--engine", "pv",
+            "--formant"]
+    t0 = time.perf_counter()
+    rc = launch(args + ["-o", os.path.join(takes, "spawned.wav")], 1)
+    spawn_ms = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    check(cli_main(args + ["-o", os.path.join(takes, "here.wav")]) == 0,
+          "CLI render")
+    here_ms = 1e3 * (time.perf_counter() - t0)
+    same = file_bytes(os.path.join(takes, "spawned.wav")) == file_bytes(
+        os.path.join(takes, "here.wav")) if rc == 0 else False
+    print(f"[27] launch of a one-rank render (20 s take, pv with formants; "
+          f"spawn, imports, CUDA context, library load, render, write): "
+          f"{spawn_ms:.1f} ms; the same render in this warm process "
+          f"{here_ms:.1f} ms; the spawn's cost {spawn_ms - here_ms:.1f} ms; "
+          f"files equal {same} | {card}", flush=True)
+    check(rc == 0 and same, f"launched render rc {rc}, equal {same}")
+    parts = spawn_breakdown(root)
+    print("[27] a fresh rank before its first render, ms: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in parts.items())
+          + f" | {card}", flush=True)
+
+    for engine in ("pv", "granular"):
+        outdir = os.path.join(takes, f"out27_{engine}")
+        t0 = time.perf_counter()
+        rc = launch(["batch", glob, "--markers", mjson, "--engine", engine,
+                     "-o", outdir], n_cards)
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+        check(rc == 0, f"launched batch ({engine}) rc {rc}")
+        errs = []
+        for i in range(3):
+            name = f"take{i}.wav"
+            got = os.path.join(outdir, name)
+            if engine == "pv":
+                ref = os.path.join(takes, "out21", name)
+            else:
+                ref = os.path.join(takes, f"one{i}_granular.wav")
+                check(cli_main(["render", os.path.join(takes, name),
+                                "--markers", mjson, "--engine", "granular",
+                                "-o", ref]) == 0, "CLI render (granular)")
+            a_, _r = mt.read_wav(got)
+            b_, _r = mt.read_wav(ref)
+            if n_cards == 1:
+                errs.append(file_bytes(got) == file_bytes(ref))
+            elif engine == "pv":
+                t_, _r = mt.read_wav(os.path.join(takes, name))
+                want_i = mt.render_session(
+                    t_, mt.markers_from_json(file_bytes(mjson).decode()), SR,
+                    engine="pv", preserve_formants=True, mesh=None)
+                errs.append(a_.shape == want_i.shape
+                            and snr_np(a_, want_i) < -60.0)
+            else:
+                errs.append(a_.shape == b_.shape and float(
+                    np.abs(a_ - b_).max()) <= 1.01 / 32767)
+        bar = ("bit for bit phase 21's files" if engine == "pv"
+               else "bit for bit the per-file render") if n_cards == 1 else (
+            "SNR < -60 dB vs render_session" if engine == "pv"
+            else "one int16 step of the per-file render")
+        print(f"[27] CLI batch of 3 WAVs ({engine}) through launch over "
+              f"{n_cards} card(s) ({n_cards} NCCL rank(s)): {wall_ms:.1f} ms "
+              f"wall from the launch to the last rank's exit; each file "
+              f"{bar}: {errs} | {card}", flush=True)
+        check(all(errs), f"launched batch ({engine}) vs per-file renders")
+
+    one_card_pair(root, takes)
+
+    if n_cards < 2:
+        print("[27] the cases across cards (phase 20's seq-parallel PV on "
+              "(1, n), render_batch and the stereo session on (n, 1) and "
+              "(2, n / 2), B10 on each rank's operands, one NCCL rank a "
+              "card) did not run: this machine has one card", flush=True)
+        return
+    for shards in sorted({2, n_cards}):
+        diff, f = b2_shard_split(mt, x, shards)
+        print(f"[27] B2 on the seq PV's frames in {shards} calls of {f} "
+              f"frames vs one call: max diff {diff:.3e} of max", flush=True)
+    rk, seq_out = run_ranks(n_cards, "nccl", timeout=600)
+    rank_checks("[27]", rk, seq_out, want, exact, card,
+                "NCCL ranks (one a card, payloads on the cards)", beside=rk20)
 
 
 def synth_ptxas(log: str) -> list[tuple[str, int, int, int]]:
@@ -2159,17 +2637,20 @@ def main() -> int:
     nz = torch.nonzero(out_g).flatten()
     trailing = total - 1 - int(nz[-1]) if nz.numel() else total
     parity = granular_parity_max_err(mt, oracle, dev)
+    edge_parity = granular_edge_parity_max_err(mt, oracle, dev)
     print(f"[8] granular path: render_track n_out {out_g.shape[0]} (bar "
           f"{total}), finite, {trailing} trailing zeros (bar 1500); equal to "
           f"all-plain path {torch.equal(out_g, out_gp)}, to render_device "
           f"{torch.equal(out_g, out_rd)}; granular_parity_max_err {parity} "
-          f"(bar 0.0)", flush=True)
+          f"(bar 0.0); on the 4 degenerate marker sets of "
+          f"test_fuzz_parity.py {edge_parity} (bar 0.0)", flush=True)
     check(out_g.shape == (total,) and bool(torch.isfinite(out_g).all()),
           "granular output length / finite")
     check(trailing == 1500, f"{trailing} trailing zeros")
     check(torch.equal(out_g, out_gp), "render_track vs all-plain path")
     check(torch.equal(out_g, out_rd), "render_track vs render_device")
     check(parity == 0.0, f"granular_parity_max_err {parity}")
+    check(edge_parity == 0.0, f"degenerate marker sets: {edge_parity}")
     print(f"    launches in one granular run: {glaunches}", flush=True)
     check(all(v > 0 for v in glaunches.values()),
           "a granular kernel was not launched")
@@ -3206,29 +3687,7 @@ def main() -> int:
     del tiled, x4
 
     # -- 20. two ranks on gloo, each on this card ----------------------
-    with tempfile.TemporaryDirectory() as tmp:
-        with contextlib.closing(socket.socket()) as sock:
-            sock.bind(("127.0.0.1", 0))
-            port = sock.getsockname()[1]
-        world = 2
-        procs = [subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--rank", str(r),
-             "--world", str(world), "--port", str(port), "--out", tmp])
-            for r in range(world)]
-        try:
-            codes = [p.wait(timeout=420) for p in procs]
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.wait()
-        check(codes == [0] * world, f"gloo ranks exited {codes}")
-        rk = []
-        for r in range(world):
-            with open(os.path.join(tmp, f"rank{r}.json")) as f:
-                rk.append(json.load(f))
-        seq_out = [np.load(os.path.join(tmp, f"seq_pv_rank{r}.npy"))
-                   for r in range(world)]
+    rk20, seq20 = run_ranks(2, "gloo")
     # The reference: the same formulas with the phase sum formed exactly
     # (float64, rounded once), held in the JAX suite's quarter-second form
     # at its bars (test_parallel.py:219-231), both the seq-parallel PV and
@@ -3237,78 +3696,15 @@ def main() -> int:
     # of max, 2e-2) and read in both forms.
     exact = pv_sum_order_render(mt, x, bench_markers(mt, n), dev)
     want = out.cpu().numpy()  # render_track_pv of the song on the card
-    rms_x, env_x = rms_rel_env(seq_out[0], exact, SR)
     rms_1, env_1 = rms_rel_env(want, exact, SR)
-    rms_s, env_s = rms_env(torch.from_numpy(seq_out[0]), out.cpu())
-    rms_q, env_q = rms_rel_env(seq_out[0], want, SR)
-    same_ranks = all(np.array_equal(o, seq_out[0]) for o in seq_out)
-    print(f"[20] seq-parallel PV of the {SECONDS:.0f} s song on 2 gloo ranks "
-          f"(data=1, seq=2, each rank on cuda:0): vs the exact phase sum rms "
-          f"{rms_x:.3e} of rms (bar 2e-3), envelope {env_x:.3e} (bar 2e-2); "
-          f"render_track_pv vs the exact sum: rms {rms_1:.3e} of rms (bar "
-          f"2e-3), envelope {env_1:.3e} (bar 2e-2); seq-parallel PV "
-          f"vs render_track_pv rms {rms_s:.3e} of "
-          f"max (bar 2e-3), envelope {env_s:.3e} (bar 2e-2), quarter-second "
-          f"form rms {rms_q:.3e} of rms, envelope {env_q:.3e}; both ranks "
-          f"return the whole track, equal {same_ranks}", flush=True)
-    for r in rk:
-        b = r["b10_vs_twin"]
-        print(f"     rank {r['rank']}: B10 on its own operands ({b['frames']} "
-              f"frames, {b['live']} live, |psi| up to {b['max_abs_psi']:.4g}) "
-              f"vs its twin: SNR {b['snr_db']:.1f} dB (bar < -100), max abs "
-              f"err {b['max_abs_err']:.3e}", flush=True)
-        check(b["same_shape"] and b["snr_db"] < -100.0,
-              f"rank {r['rank']}: B10 vs twin on the seq path's operands")
-        q = r["seq_pv"]
-        print(f"     rank {r['rank']}: wall {q['wall_ms']:.2f} ms, of it "
-              f"{q['gathers']} host-staged all-gathers {q['gather_ms']:.2f} ms "
-              f"({q['gather_bytes'] / 2**20:.1f} MiB sent); launches "
-              f"{q['launches']} (bars: B2 1, B10 1, B3 0) | {card}",
-              flush=True)
-        pr = q["profile"]
-        print(f"       profiled: device busy {pr['busy_ms']:.3f} ms of "
-              f"{pr['wall_ms']:.2f} ms wall (idle share "
-              f"{1.0 - pr['busy_ms'] / pr['wall_ms']:.4f}); device ms by "
-              f"name: " + ", ".join(f"{k} {v:.3f}" for k, v in pr["top"]),
-              flush=True)
-        check(q["launches"]["analysis"] == 1 and q["launches"]["synth_ola"] == 1
-              and q["launches"]["synth_ola_phase"] == 0,
-              f"rank {r['rank']} seq PV launches {q['launches']}")
-    check(seq_out[0].shape == want.shape == exact.shape and same_ranks
-          and rms_x < 2e-3 and env_x < 2e-2, "seq-parallel PV vs exact sum")
+    print(f"[20] render_track_pv vs the exact phase sum: rms {rms_1:.3e} of "
+          f"rms (bar 2e-3), envelope {env_1:.3e} (bar 2e-2)", flush=True)
     check(rms_1 < 2e-3 and env_1 < 2e-2, "render_track_pv vs exact sum")
-    check(rms_s < 2e-3 and env_s < 2e-2, "seq-parallel PV vs single")
-    rows["pv_synth_ola"]["launches"] = rk[0]["seq_pv"]["launches"]["synth_ola"]
-    r0 = rk[0]
-    g_ok = all(a and e <= 2e-6 and z for a, e, z in
-               r0["batch_granular"]["vs_render_session"])
-    p_ok = all(a and v < -60.0 for a, v in r0["batch_pv"]["vs_render_session"])
-    for engine in ("granular", "pv"):
-        for r in rk:
-            q = r[f"batch_{engine}"]
-            print(f"     render_batch of 4 jobs, {engine}, (data=2, seq=1), "
-                  f"rank {r['rank']}: wall {q['wall_ms']:.2f} ms, gathers "
-                  f"{q['gather_ms']:.2f} ms ({q['gather_bytes'] / 2**20:.1f} "
-                  f"MiB); launches {q['launches']} | {card}", flush=True)
-            pr = q["profile"]
-            print(f"       profiled: device busy {pr['busy_ms']:.3f} ms of "
-                  f"{pr['wall_ms']:.2f} ms wall (idle share "
-                  f"{1.0 - pr['busy_ms'] / pr['wall_ms']:.4f}); device ms by "
-                  f"name: " + ", ".join(f"{k} {v:.3f}" for k, v in pr["top"]),
-                  flush=True)
-    print(f"     batch vs per-job render_session: granular [len ok, max err, "
-          f"zeros equal] {r0['batch_granular']['vs_render_session']} (bar "
-          f"2e-6); pv [len ok, SNR dB] {r0['batch_pv']['vs_render_session']} "
-          f"(bar < -60)", flush=True)
-    check(g_ok and p_ok, "render_batch on 2 ranks vs render_session")
-    for engine in ("granular", "pv"):
-        ok, e, z = r0[f"stereo_{engine}"]["vs_no_mesh"]
-        q = r0[f"stereo_{engine}"]
-        print(f"     stereo {engine} session, channels over data: vs "
-              f"mesh=None max err {e:.3e} (bar {'2e-6' if engine == 'granular' else 'equal'}), "
-              f"zeros equal {z}; rank 0 wall {q['wall_ms']:.2f} ms", flush=True)
-        check(ok and z and (e <= 2e-6 if engine == "granular" else e == 0.0),
-              f"stereo {engine} session over data")
+    rank_checks("[20]", rk20, seq20, want, exact, card,
+                "gloo ranks (each rank on cuda:0, payloads staged through "
+                "host memory)")
+    rows["pv_synth_ola"]["launches"] = rk20[0]["seq_pv"]["launches"][
+        "synth_ola"]
 
     # -- 21. world size 1: render_batch and the CLI's batch ------------
     tracks_b, ms_b = batch_jobs(mt, x)
@@ -3325,30 +3721,8 @@ def main() -> int:
               f"to its render_session {same} (bar: equal) | {card}",
               flush=True)
         check(all(same), f"render_batch {engine} at world 1")
-    with tempfile.TemporaryDirectory() as tmp:
-        for i in range(3):
-            mt.write_wav(os.path.join(tmp, f"take{i}.wav"),
-                         x[i * 20 * SR : (i + 1) * 20 * SR], SR,
-                         dtype="float32")
-        mjson = os.path.join(tmp, "m.json")
-        with open(mjson, "w") as f:
-            f.write(mt.markers_to_json(bench_markers(mt, 20 * SR)[:4]))
-        outdir = os.path.join(tmp, "out")
-        check(cli_main(["batch", os.path.join(tmp, "take*.wav"), "--markers",
-                        mjson, "-o", outdir]) == 0, "CLI batch")
-        same = []
-        for i in range(3):
-            one = os.path.join(tmp, f"one{i}.wav")
-            check(cli_main(["render", os.path.join(tmp, f"take{i}.wav"),
-                            "--markers", mjson, "--engine", "pv", "--formant",
-                            "-o", one]) == 0, "CLI render")
-            a_, _r = mt.read_wav(os.path.join(outdir, f"take{i}.wav"))
-            b_, _r = mt.read_wav(one)
-            same.append(bool(np.array_equal(a_, b_)))
-    print(f"     CLI batch of 3 WAVs (pv with formants, the default) vs per-"
-          f"file render --engine pv --formant: equal {same} (bar: equal)",
-          flush=True)
-    check(all(same), "CLI batch vs render")
+    takes = tempfile.TemporaryDirectory()  # phase 21's takes, for 27 too
+    cli_batch_takes(mt, x, takes.name)
 
     # -- 22. times (CUDA events, median of 5 after a warm-up) ---------
     for r in rows.values():
@@ -3500,7 +3874,14 @@ def main() -> int:
     # -- 26. the first two-chunk PV render -------------------------------
     t26 = time.perf_counter()
     two_chunk_render(mt, pv, twins, card)
-    print(f"[26] two-chunk render {time.perf_counter() - t26:.1f} s; "
+    print(f"[26] two-chunk render {time.perf_counter() - t26:.1f} s",
+          flush=True)
+
+    # -- 27. every card: the launcher, NCCL, the CLI's batch --------------
+    t27 = time.perf_counter()
+    every_card_phase(mt, x, card, root, takes.name, want, exact, rk20)
+    takes.cleanup()
+    print(f"[27] every card {time.perf_counter() - t27:.1f} s; "
           f"chip_smoke.py {time.perf_counter() - t_start:.1f} s in all",
           flush=True)
 
@@ -3511,8 +3892,57 @@ def main() -> int:
     return 0
 
 
+def every_card_main() -> int:
+    """``chip_smoke.py --every-card``: phase 27 alone, for a machine with
+    several cards (the build, phase 21's takes and CLI batch, and the
+    single-card references phase 27 holds the ranks to; no gloo figures
+    beside them)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this check "
+              "needs an NVIDIA GPU", file=sys.stderr)
+        return 1
+    t_start = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, root)
+    import melonix_tpu_torch as mt
+    from melonix_tpu_torch.kernels import _build
+    from melonix_tpu_torch.runtime import native
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(card)
+    t0 = time.perf_counter()
+    _build.build()
+    _build.library()
+    check(native.try_load() is not None, "native host runtime: no compiler")
+    print(f"[2] built in {time.perf_counter() - t0:.1f} s | torch "
+          f"{torch.__version__} CUDA {torch.version.cuda}", flush=True)
+    x = make_song(SR, SECONDS)
+    want = mt.render_track_pv(x, mt.MapKnots.from_markers(
+        bench_markers(mt, len(x)), SR, len(x)), device=dev)
+    exact = pv_sum_order_render(mt, x, bench_markers(mt, len(x)), dev)
+    with tempfile.TemporaryDirectory() as takes:
+        cli_batch_takes(mt, x, takes)
+        every_card_phase(mt, x, card, root, takes, np.asarray(want), exact)
+    print(f"[27] every card: chip_smoke.py --every-card "
+          f"{time.perf_counter() - t_start:.1f} s in all", flush=True)
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(dev),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 if __name__ == "__main__":
     if len(sys.argv) == 1:
         sys.exit(main())
+    if sys.argv[1] == "--every-card":
+        sys.exit(every_card_main())
     sys.exit(first_use_main(sys.argv[1:]) if sys.argv[1] == "--first-use"
              else rank_main(sys.argv[1:]))

@@ -14,7 +14,8 @@ Vorbis through the native decoders, the long tail through the libav shim),
 ``.mlx`` and ``.melonix`` projects, band-limited resampling, the session
 warm-up at file open (``warmup_session``), and the multi-device renders and analyses on
 torch.distributed (``parallel/``: tracks or channels over a mesh's ``data``
-ranks, one track's frames over its ``seq`` ranks), on an NVIDIA GPU
+ranks, one track's frames over its ``seq`` ranks; one process per card,
+``launch`` / ``join_group`` / ``rank_device``), on an NVIDIA GPU
 through hand-written CUDA kernels (``kernels/``, sources in ``csrc/``).
 Every public function runs on the device it is given: a CUDA tensor
 launches the kernels, a CPU tensor runs their plain PyTorch twins.  The
@@ -40,7 +41,7 @@ from .io import (Project, load_audio, load_project, read_wav, save_project,
 from .io.audio import DecodeError
 from .markers import Marker, markers_from_json, markers_to_json, sort_markers
 from .parallel import (AudioMesh, data_parallel_pv, data_parallel_render,
-                       make_audio_mesh, seq_parallel_pv, seq_parallel_render,
+                       join_group, launch, make_audio_mesh, rank_device, seq_parallel_pv, seq_parallel_render,
                        session_step, session_step_full, sharded_pitch,
                        sharded_spectrogram_columns, sharded_stft_mags)
 from .runtime.spec_pyramid import SpecPyramid
@@ -67,6 +68,9 @@ __all__ = [
     "render_batch",
     "AudioMesh",
     "make_audio_mesh",
+    "launch",
+    "join_group",
+    "rank_device",
     "sharded_stft_mags",
     "sharded_pitch",
     "sharded_spectrogram_columns",

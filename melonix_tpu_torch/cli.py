@@ -26,15 +26,26 @@ phase vocoder (``--formant`` to keep the spectral envelope, ``--lock`` for
 identity phase locking), mono or ``--stereo``, resampled to ``--rate`` and
 profiled into ``--trace``; ``pitch`` writes the pitch curve as JSON,
 ``autotune`` the automatic pitch correction, ``batch`` the render of many
-files (``render_batch``, which splits the jobs over the ranks of a
-torch.distributed process group when the caller has one of world size
-above 1) in ``--format``; ``info`` prints a track's or project's summary
-and ``project`` bundles audio and markers into a ``.mlx`` (or ``.melonix``)
-project; ``spectrogram`` renders the editor's scene to a PNG (the
-reference-parity columns, or the |STFT| pyramid with ``--pyramid``) and
-``ui`` serves the interactive browser editor.  The flags and defaults are
-those of ``melonix_tpu``'s subcommands of the same names, plus
-``--device`` (default ``cuda``; there is no fallback to another device).
+files (``render_batch``) in ``--format``; ``info`` prints a track's or
+project's summary and ``project`` bundles audio and markers into a
+``.mlx`` (or ``.melonix``) project; ``spectrogram`` renders the editor's
+scene to a PNG (the reference-parity columns, or the |STFT| pyramid with
+``--pyramid``) and ``ui`` serves the interactive browser editor.  The flags
+and defaults are those of ``melonix_tpu``'s subcommands of the same names,
+plus ``--device`` (default ``cuda``; there is no fallback to another
+device).
+
+Several cards, one process a card (the JAX package's mesh is one process
+over every device): under a launcher (``parallel.launch``, or ``torchrun
+--nproc_per_node=N -m melonix_tpu_torch batch|render ...``) ``batch`` and
+``render`` join the process group on their rank's card (NCCL on the cards,
+gloo for ``--device cpu``); ``batch`` splits each slice of ``max(4 *
+ranks, 8)`` files over the ranks and a stereo ``render`` its channels.
+Rank 0 alone writes files and prints the summary; a rank's failure is the
+command's failure.  Started alone, every command stays in this process on
+one card: a launched ``batch`` finished later than one process at every
+fleet size measured (``batch_fleet.py``), since each rank first pays its
+own start and rank 0 still decodes and writes every file.
 """
 
 from __future__ import annotations
@@ -77,7 +88,31 @@ def _markers_from_arg(path: str | None, existing):
         return markers_from_json(f.read())
 
 
+@contextlib.contextmanager
+def _rank(device: str):
+    """The device a command computes on: under a launcher's environment or
+    an existing process group, this rank's card after joining the group
+    (``parallel.join_group``; left again at the end if it formed it), else
+    ``device`` as given.  Yields (device, whether this process writes)."""
+    from .parallel.launch import (grouped, is_rank0, join_group, launched,
+                                  leave_group)
+
+    if not (launched() or grouped()):
+        yield device, True
+        return
+    try:
+        dev = join_group(device)
+        yield dev, is_rank0()
+    finally:
+        leave_group()
+
+
 def cmd_render(args) -> int:
+    with _rank(args.device) as (device, writer):
+        return _render(args, device, writer)
+
+
+def _render(args, device, writer: bool) -> int:
     from .engine.session import render_session
     from .io.audio import load_audio
     from .io.resample import resample
@@ -95,16 +130,19 @@ def cmd_render(args) -> int:
         wav, rate, markers, _b, _t = _load_any(args.input)
     markers = _markers_from_arg(args.markers, markers)
     t0 = time.perf_counter()
-    ctx = trace(args.trace) if args.trace else contextlib.nullcontext()
+    ctx = (trace(args.trace) if args.trace and writer
+           else contextlib.nullcontext())
     with ctx:
         out = render_session(wav, markers, rate, engine=args.engine,
                              preserve_formants=args.formant,
-                             phase_locking=args.lock, device=args.device)
+                             phase_locking=args.lock, device=device)
         out_rate = rate
         if args.rate and args.rate != rate:
-            out = resample(out, rate, args.rate, device=args.device)
+            out = resample(out, rate, args.rate, device=device)
             out_rate = args.rate
     dt = time.perf_counter() - t0
+    if not writer:
+        return 0
     write_wav(args.output, out, out_rate, dtype=args.dtype)
     ch = out.shape[1] if out.ndim == 2 else 1
     detail = ("phase-vocoder"
@@ -113,7 +151,7 @@ def cmd_render(args) -> int:
               if args.engine == "pv" else "granular")
     print(
         f"rendered {len(out)/out_rate:.2f}s x{ch}ch @{out_rate}Hz "
-        f"({len(markers)} markers, {detail} on {args.device}) "
+        f"({len(markers)} markers, {detail} on {device}) "
         f"in {dt:.2f}s -> {args.output}"
     )
     return 0
@@ -212,7 +250,13 @@ def cmd_autotune(args) -> int:
 
 
 def cmd_batch(args) -> int:
-    """Serving path: render a fleet of files in slices of the batch path."""
+    """Serving path: render a fleet of files in slices of the batch path,
+    each slice over the ranks of the process group when there is one."""
+    with _rank(args.device) as (device, writer):
+        return _batch(args, device, writer)
+
+
+def _batch(args, device, writer: bool) -> int:
     import glob
     import os
 
@@ -226,7 +270,8 @@ def cmd_batch(args) -> int:
     if not files:
         print(f"batch: no files match {args.inputs}", file=sys.stderr)
         return 2
-    os.makedirs(args.outdir, exist_ok=True)
+    if writer:
+        os.makedirs(args.outdir, exist_ok=True)
     shared = _markers_from_arg(args.markers, [])
 
     t0 = time.perf_counter()
@@ -249,15 +294,17 @@ def cmd_batch(args) -> int:
                 markers_l = [sort_markers(base + suggest_markers(
                     w, rate, scale=args.scale, key=args.key,
                     strength=args.strength, vibrato=args.vibrato,
-                    device=args.device)) for w, base in zip(tracks, base_l)]
+                    device=device)) for w, base in zip(tracks, base_l)]
             else:
                 markers_l = base_l
             outs = render_batch(
                 tracks, markers_l, rate, engine=args.engine,
                 preserve_formants=args.engine == "pv" and not args.no_formant,
                 phase_locking=args.engine == "pv" and args.lock,
-                device=args.device,
+                device=device,
             )
+            if not writer:
+                continue
             for (f, _w, _m), out in zip(chunk, outs):
                 stem = os.path.splitext(os.path.basename(f))[0]
                 name, k = f"{stem}.{args.format}", 2
@@ -269,9 +316,10 @@ def cmd_batch(args) -> int:
                 write_audio(outp, out, rate)
                 written.append(outp)
     dt = time.perf_counter() - t0
-    print(f"batch: {len(written)} files ({len(by_rate)} rate group(s), "
-          f"engine {args.engine} on {args.device}) in {dt:.2f}s -> "
-          f"{args.outdir}")
+    if writer:
+        print(f"batch: {len(written)} files ({len(by_rate)} rate group(s), "
+              f"engine {args.engine} on {device}, {world_size()} rank(s)) "
+              f"in {dt:.2f}s -> {args.outdir}")
     return 0
 
 

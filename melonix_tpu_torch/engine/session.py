@@ -9,13 +9,14 @@ session renders every channel against one shared PV plan
 (:func:`render_channels_pv`).
 
 Routing (session.py:146-203): with a mesh (``parallel.AudioMesh``; "auto"
-makes one over the process group when its world size is above 1) the
-channels of a multichannel session split over the mesh's ``data`` ranks
-(``data_parallel_render`` for the granular engine, ``render_channels_pv``'s
-mesh route for the phase vocoder).  A MONO track with an EXPLICIT mesh whose
-``seq`` axis is above 1 renders through the sequence-parallel renderers
-(``seq_render`` / ``seq_parallel_pv``): opt-in, since the distributed PV
-phase carry reorders float sums (the PV convention, not bit equality).
+makes one over the process group when its world size is above 1, on the
+rank's own card) the channels of a multichannel session split over the
+mesh's ``data`` ranks (``data_parallel_render`` for the granular engine,
+``render_channels_pv``'s mesh route for the phase vocoder).  A MONO track
+with an EXPLICIT mesh whose ``seq`` axis is above 1 renders through the
+sequence-parallel renderers (``seq_render`` / ``seq_parallel_pv``):
+opt-in, since the distributed PV phase carry reorders float sums (the PV
+convention, not bit equality).
 Everything else takes the single-device path on ``device``.
 """
 
@@ -33,13 +34,14 @@ from .render import build_render_plan, render
 
 def _session_mesh(mesh, device=None):
     """Resolve the ``mesh`` argument: "auto" -> a (data, seq) mesh over the
-    process group when its world size is above 1, else None (the
-    single-device path); anything else as given."""
+    process group when its world size is above 1, on this rank's card
+    (``parallel.sharded.auto_mesh``), else None (the single-device path);
+    anything else as given."""
     if not (isinstance(mesh, str) and mesh == "auto"):
         return mesh
-    from ..parallel.sharded import make_audio_mesh, world_size
+    from ..parallel.sharded import auto_mesh
 
-    return make_audio_mesh(device=device) if world_size() > 1 else None
+    return auto_mesh(device)
 
 
 def _render_channels_granular(wav_ch: np.ndarray, plan, mesh) -> np.ndarray:

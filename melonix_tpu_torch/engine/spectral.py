@@ -27,7 +27,7 @@ from ..kernels import stft as kstft
 from ..kernels.columns import extract_frames as _extract_frames  # noqa: F401
 
 
-def resolve_device(device) -> torch.device:
+def require_device(device) -> torch.device:
     """``torch.device(device)``, refusing CUDA where there is none (no run
     ever moves to another device than the one asked for)."""
     dev = torch.device(device)
@@ -36,6 +36,16 @@ def resolve_device(device) -> torch.device:
             f"device {device!r} requested but torch.cuda.is_available() is "
             "False"
         )
+    return dev
+
+
+def resolve_device(device) -> torch.device:
+    """:func:`require_device`, with a bare ``"cuda"`` resolved to the
+    current card, ``cuda:{current_device()}``, so that it compares equal to
+    the device of a tensor on that card; ``cuda:N`` stays ``cuda:N``."""
+    dev = require_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
 

@@ -9,7 +9,9 @@ seconds, not minutes.  The build runs at the first kernel launch of a process
 (never at import: the CPU tests import every module) and again whenever the
 hash of the sources and flags changes.  One lock serialises the build and
 the load, so threads that launch their first kernels together (the tile
-server's worker and the caller) build once.
+server's worker and the caller) build once.  A launcher calls :func:`build`
+(which loads nothing and touches no card) before it starts its ranks, so
+they find the library built.
 
 Each C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; :func:`check` turns a non-zero code into an error.
@@ -130,7 +132,8 @@ def nvcc_path() -> str:
 
 def build() -> Path:
     """Compile the kernels unless a library of the current hash exists:
-    one ``nvcc -c`` per source, all started together, then one link."""
+    one ``nvcc -c`` per source, all started together, then one link.  It
+    loads nothing and touches no card."""
     with _LOCK:
         lib = BUILD_DIR / LIB_NAME
         stamp = BUILD_DIR / (LIB_NAME + ".sha256")
@@ -201,7 +204,11 @@ def check(name: str, err: int) -> None:
 
 
 def require(t, name: str, dtype, shape: tuple, device) -> None:
-    """Validate a kernel operand: device, dtype, shape, contiguity."""
+    """Validate a kernel operand: device (a bare ``cuda`` is the current
+    card), dtype, shape, contiguity."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
     if t.device != device:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
     if t.dtype != dtype:
@@ -253,7 +260,10 @@ def stream(device) -> int:
 
 def cuda_device(t):
     """The CUDA device of ``t``; raises for any device but CUDA (CPU
-    tensors never reach here: the wrappers send them to the plain twins)."""
+    tensors never reach here: the wrappers send them to the plain twins).
+    The C entry points launch on the calling thread's current device, so
+    every wrapper makes this one current around its call
+    (``torch.cuda.device``): a tensor on any card launches on its own."""
     if t.device.type != "cuda":
         raise ValueError(
             f"no kernel for a tensor on {t.device}: CUDA launches the "

@@ -1,6 +1,7 @@
 """Multi-device renders and analyses on torch.distributed (counterpart of
-``melonix_tpu/parallel``)."""
+``melonix_tpu/parallel``), one process per card (``launch``)."""
 
+from .launch import RankDeviceError, join_group, launch, rank_device
 from .sharded import (
     AudioMesh,
     make_audio_mesh,
@@ -21,6 +22,10 @@ from .sharded import (
 )
 
 __all__ = [
+    "RankDeviceError",
+    "join_group",
+    "launch",
+    "rank_device",
     "AudioMesh",
     "make_audio_mesh",
     "sharded_stft_mags",

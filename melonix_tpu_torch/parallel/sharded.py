@@ -17,7 +17,11 @@ the shards are all-gathered, so every rank returns the whole result (as
 ``np.asarray`` of the JAX output is whole).  The one-hop ``ppermute``s are
 all-gathers of the neighbours' rows (their payloads are a halo or one
 frame of bins).  On a gloo group a payload on another device than the CPU
-is staged through a host tensor; NCCL takes device tensors as they are.
+is staged through a host tensor; an NCCL group takes the payload on the
+card as it is (no host copy) and refuses one on the CPU.  Each rank computes
+on its own card: ``make_audio_mesh`` takes it from ``launch.rank_device``
+(``cuda:{LOCAL_RANK}`` under a launcher), and every host operand is
+uploaded to it.
 
 A mesh covers the whole process group: ``data`` x ``seq`` ranks, seq
 groups of consecutive ranks (rank = data_index * seq + seq_index, the JAX
@@ -31,16 +35,17 @@ JAX package leaves it to XLA.
 
 from __future__ import annotations
 
+import atexit
 import dataclasses
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..engine.spectral import resolve_device
 from ..kernels import pv as kpv
 from ..kernels import resample as kres
 from ..utils import Timer, registry
+from .launch import grouped, rank_device
 
 _GATHER_TIME = registry("parallel.gather", Timer)
 _GATHER_BYTES = registry("parallel.gather_bytes")
@@ -89,9 +94,7 @@ def mesh_shape(n: int, data: int | None = None) -> tuple[int, int]:
 
 def world_size() -> int:
     """The size of the default process group, 1 without one."""
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_world_size()
-    return 1
+    return dist.get_world_size() if grouped() else 1
 
 
 def make_audio_mesh(n: int | None = None, data: int | None = None, *,
@@ -99,7 +102,8 @@ def make_audio_mesh(n: int | None = None, data: int | None = None, *,
     """A (data, seq) mesh over the whole process group (``n`` defaults to,
     and must equal, its world size).  Every rank must call it, in the same
     order as its other group creations: it creates every data and seq group
-    on every rank.  ``device`` defaults to ``"cuda"`` (no fallback)."""
+    on every rank, in one order.  ``device`` defaults to ``"cuda"`` (no
+    fallback), this rank's own card (:func:`launch.rank_device`)."""
     world = world_size()
     n = world if n is None else n
     if n != world:
@@ -108,7 +112,7 @@ def make_audio_mesh(n: int | None = None, data: int | None = None, *,
             f"this one has {world}"
         )
     d, s = mesh_shape(n, data)
-    dev = resolve_device("cuda" if device is None else device)
+    dev = rank_device("cuda" if device is None else device)
     if world == 1:
         return AudioMesh({"data": 1, "seq": 1}, 0, None, None, dev)
     rank = dist.get_rank()
@@ -126,18 +130,49 @@ def make_audio_mesh(n: int | None = None, data: int | None = None, *,
     return AudioMesh({"data": d, "seq": s}, rank, data_g, seq_g, dev)
 
 
+# [(default group, device, mesh)]: the "auto" mesh of the live group, kept
+# while the group lives and dropped by ``launch.leave_group`` and at exit
+# (a process group freed while the interpreter shuts down aborts it)
+_AUTO: list = []
+atexit.register(_AUTO.clear)
+
+
+def auto_mesh(device=None) -> AudioMesh | None:
+    """The mesh that ``mesh="auto"`` means: a (data, seq) mesh over the
+    process group on this rank's card (:func:`launch.rank_device`) when its
+    world size is above 1, else None.  It is made once for a group and
+    device (every rank makes it at the same call, so its groups form in one
+    order on every rank) and reused while that group lives."""
+    if world_size() <= 1:
+        return None
+    dev = rank_device("cuda" if device is None else device)
+    world = dist.group.WORLD
+    if not _AUTO or _AUTO[0][0] is not world or _AUTO[0][1] != dev:
+        _AUTO[:] = [(world, dev, make_audio_mesh(device=dev))]
+    return _AUTO[0][2]
+
+
 def _gather(t: torch.Tensor, group, size: int) -> list[torch.Tensor]:
     """All-gather of equal-shaped tensors over ``group`` (``size`` ranks):
     every rank's tensor, in rank order, on ``t``'s device.  A gloo group
-    takes the payload through a host tensor.  The ``parallel.gather`` timer
-    holds each gather's wall time (host staging included; the device work
-    queued before it is waited for first, outside the timer) and
-    ``parallel.gather_bytes`` the bytes each rank sends."""
+    takes the payload through a host tensor; an NCCL group takes it on the
+    card, with no host copy and no wait for the card, and raises for a CPU
+    tensor.  The ``parallel.gather`` timer holds the host's time in each
+    gather (gloo: the staging and the exchange, after the device work
+    queued before it is waited for, outside the timer; NCCL: queueing the
+    collective on the stream, whose device time a profile shows as NCCL's
+    kernels) and ``parallel.gather_bytes`` the bytes each rank sends."""
     if group is None:  # world size 1
         return [t]
-    stage = dist.get_backend(group) == "gloo" and t.device.type != "cpu"
+    backend = dist.get_backend(group)
+    if backend == "nccl" and t.device.type != "cuda":
+        raise ValueError(
+            f"an NCCL all-gather of a tensor on {t.device}: NCCL payloads "
+            "stay on the card"
+        )
+    stage = backend == "gloo" and t.device.type != "cpu"
     src = t.detach().contiguous()
-    if src.device.type == "cuda":
+    if stage and src.device.type == "cuda":
         torch.cuda.current_stream(src.device).synchronize()
     with _GATHER_TIME:
         src = src.cpu() if stage else src
@@ -311,6 +346,8 @@ def _render_one(wav, grain_start, grain_len, rate, out_offset, seam_src,
 
 
 def _data_rows(mesh: AudioMesh, n_rows: int) -> range:
+    """The rows of an ``n_rows`` batch that this rank's data index takes:
+    one contiguous block, blocks in data-index order."""
     d = mesh.shape["data"]
     if n_rows % d:
         raise ValueError(f"{n_rows} rows over {d} data shards")
@@ -318,17 +355,40 @@ def _data_rows(mesh: AudioMesh, n_rows: int) -> range:
     return range(mesh.data_index * per, (mesh.data_index + 1) * per)
 
 
+def _my_rows(mesh: AudioMesh, n_rows: int, local: bool) -> range:
+    """This rank's rows of a batch operand of ``n_rows`` rows: all of them
+    when the operand holds only this rank's rows (``local``), else its
+    block of the whole batch."""
+    return range(n_rows) if local else _data_rows(mesh, n_rows)
+
+
+def data_max(mesh: AudioMesh, shared, own) -> tuple[np.ndarray, np.ndarray]:
+    """One all-gather over ``data`` of this rank's host integers: the
+    elementwise maximum of every rank's ``shared``, and every rank's ``own``
+    (values of its block of rows, as many on every rank) in data-index
+    order.  What a batch whose ranks planned only their own rows needs to
+    agree on: the padded shapes and each row's lengths."""
+    vals = np.concatenate([np.asarray(shared, np.int64),
+                           np.asarray(own, np.int64)])
+    got = torch.stack(_gather_data(mesh, _on(mesh, vals))).cpu().numpy()
+    k = len(shared)
+    return got[:, :k].max(axis=0), got[:, k:].reshape(-1)
+
+
 def data_parallel_render(wav_b, grain_start_b, grain_len_b, rate_b,
                          out_offset_b, seam_src_b, n_valid_b,
-                         mesh: AudioMesh, out_len: int) -> torch.Tensor:
+                         mesh: AudioMesh, out_len: int, *,
+                         local: bool = False) -> torch.Tensor:
     """Batched granular render, tracks sharded over ``data``: (B, out_len)
     from (B, n) tracks and the padded plans of
-    :func:`granular_batch_args`."""
+    :func:`granular_batch_args`.  With ``local`` the operands hold only
+    this rank's block of rows (B / data of them), and only they are
+    uploaded; the result is the whole batch either way."""
     ops = [_on(mesh, a) for a in (wav_b, grain_start_b, grain_len_b, rate_b,
                                   out_offset_b, seam_src_b, n_valid_b)]
     ops[0] = ops[0].to(torch.float32)
     rows = [_render_one(*(a[r] for a in ops[:6]), int(ops[6][r]), out_len)
-            for r in _data_rows(mesh, ops[0].shape[0])]
+            for r in _my_rows(mesh, ops[0].shape[0], local)]
     return torch.cat(_gather_data(mesh, torch.stack(rows)))
 
 
@@ -410,14 +470,14 @@ def seq_render_args(plan, wav, out_len: int, n_seq: int):
     )
 
 
-def granular_batch_args(plans):
+def granular_batch_args(plans, dims=None):
     """Bucket per-track RenderPlans to shared shapes for
     :func:`data_parallel_render`: padding steps carry strictly increasing
     out_offsets past each track's n_valid with rate 1, length 1 and seam -1,
-    all masked out by ``n_valid``.  Returns (gs, gl, rt, oo, ss, nv,
-    out_max)."""
-    s_max = max(p.n_steps for p in plans)
-    out_max = max(int(p.out_offset[-1]) for p in plans)
+    all masked out by ``n_valid``.  ``dims``, (steps, output length), gives
+    shapes agreed over more plans than these (:func:`data_max`).  Returns
+    (gs, gl, rt, oo, ss, nv, out_max)."""
+    s_max, out_max = dims if dims is not None else granular_dims(plans)
     B = len(plans)
     gs = np.zeros((B, s_max), np.int32)
     gl = np.ones((B, s_max), np.int32)
@@ -435,6 +495,13 @@ def granular_batch_args(plans):
         ss[b, :s] = p.seam_src
         nv[b] = p.out_offset[-1]
     return gs, gl, rt, oo, ss, nv, out_max
+
+
+def granular_dims(plans) -> tuple[int, int]:
+    """The shapes :func:`granular_batch_args` pads ``plans`` to: (most
+    steps, longest grain output)."""
+    return (max(p.n_steps for p in plans),
+            max(int(p.out_offset[-1]) for p in plans))
 
 
 # ----------------------------------------------------------------------
@@ -476,7 +543,7 @@ def _anchors(mesh: AudioMesh, anc_j, src_b, r_b, s_b):
 def data_parallel_pv(mesh: AudioMesh, *, size: int, hop: int, n_frames: int,
                      stretch_len: int, n_out_pad: int, sr: int,
                      formant: bool = False, n_ceps: int = 40,
-                     lock: bool = False):
+                     lock: bool = False, local: bool = False):
     """Full PV render (stretch, masked normalisation, resample) of a batch
     of tracks sharded over ``data``; every track's plan fits one stretch
     chunk (:func:`pv_batch_args` buckets them to shared shapes).  Each row
@@ -485,8 +552,10 @@ def data_parallel_pv(mesh: AudioMesh, *, size: int, hop: int, n_frames: int,
     (the contract of the JAX package's XLA positions + lerp).
 
     Returns f(wav_b, starts_b, da_b, rho_b, f_real_b, window, anc_j_b,
-    src_b, r_b, s_b, base_b) -> (B, n_out_pad) audio.  (The JAX builder's
-    ``fused``/``interpret`` pick its TPU kernels; here the device does.)"""
+    src_b, r_b, s_b, base_b) -> (B, n_out_pad) audio.  With ``local`` the
+    batch operands hold only this rank's block of rows, and only they are
+    uploaded.  (The JAX builder's ``fused``/``interpret`` pick its TPU
+    kernels; here the device does.)"""
     from ..engine.phase_vocoder import _stretch_chunk_core
 
     n_bins = size // 2 + 1
@@ -499,7 +568,7 @@ def data_parallel_pv(mesh: AudioMesh, *, size: int, hop: int, n_frames: int,
         f_real_b = np.asarray(f_real_b)
         z = torch.zeros(n_bins, dtype=torch.float32, device=mesh.device)
         rows = []
-        for r in _data_rows(mesh, wav_b.shape[0]):
+        for r in _my_rows(mesh, wav_b.shape[0], local):
             fr = int(f_real_b[r])
             y, _, _, _ = _stretch_chunk_core(
                 wav_b[r], _on(mesh, starts_b[r], torch.int32),
@@ -524,17 +593,25 @@ def data_parallel_pv(mesh: AudioMesh, *, size: int, hop: int, n_frames: int,
     return step
 
 
-def pv_batch_args(plans):
+def pv_dims(plans) -> tuple[int, int, int, int]:
+    """The shapes :func:`pv_batch_args` pads ``plans`` to: (frames, padded
+    output, anchors, block bases)."""
+    return (max(p.n_frames for p in plans), max(p.n_out_pad for p in plans),
+            max(p.anc_args[0].shape[0] for p in plans),
+            max(len(p.base) for p in plans))
+
+
+def pv_batch_args(plans, dims=None):
     """Bucket per-track PVPlans (one (size, hop, sr)) to the shared shapes
     :func:`data_parallel_pv` needs: tracks pad with edge frames masked by
-    f_real.  Returns (builder kwargs, operand arrays)."""
+    f_real.  ``dims`` gives shapes agreed over more plans than these
+    (:func:`pv_dims`, :func:`data_max`).  Returns (builder kwargs, operand
+    arrays)."""
     size, hop, sr = plans[0].size, plans[0].hop, plans[0].sr
     assert all((p.size, p.hop, p.sr) == (size, hop, sr) for p in plans)
-    n_frames = max(p.n_frames for p in plans)
+    n_frames, n_out_pad, n_anc, n_base = (
+        pv_dims(plans) if dims is None else dims)
     stretch_len = (n_frames - 1) * hop + size
-    n_out_pad = max(p.n_out_pad for p in plans)
-    n_anc = max(p.anc_args[0].shape[0] for p in plans)
-    n_base = max(len(p.base) for p in plans)
 
     def pad1(a, n, mode="edge", const=None):
         a = np.asarray(a)
@@ -574,7 +651,8 @@ def seq_parallel_pv(mesh: AudioMesh, *, size: int, hop: int, n_frames: int,
     seq shards; :func:`seq_pv_args`); ``f_real`` masks the live count.
 
     Each seq rank takes n_frames / seq consecutive frames: analysis (B2 at
-    2048 points on CUDA), the formant gain, its left neighbour's last
+    2048 points on CUDA, over whole frame pairs of the global order, so its
+    bins are one call's whatever the split), the formant gain, its left neighbour's last
     analysis phase, the princarg increments (global frame 0 zeroed), a
     local cumsum plus the exclusive carry of the preceding ranks' totals,
     summed in rank order (every rank forms the same value) and in float64,
@@ -607,9 +685,16 @@ def seq_parallel_pv(mesh: AudioMesh, *, size: int, hop: int, n_frames: int,
     synth = kpv.synth_ola if size == kpv.FFT_N else kpv.synth_ola_plain
     step_w = float(np.float32(2.0 * np.pi / size))
 
+    # B2 transforms the frames of a call in pairs (2j, 2j + 1): each shard
+    # analyses whole pairs of the global frame order, one frame more at an
+    # odd edge, so that no frame's bins depend on how the frames are split
+    lo, hi = idx * f_loc, (idx + 1) * f_loc
+    lo2, hi2 = lo - lo % 2, min(hi + hi % 2, n_frames)
+
     def stretch(wav, starts_l, da_l, rho_l, f_real: int, win, wsum_l):
         dev = wav.device
-        re, im = _analysis(wav, starts_l, win, size)
+        re, im = (a[lo - lo2 : lo - lo2 + f_loc]
+                  for a in _analysis(wav, starts_l, win, size))
         mag = torch.sqrt(re * re + im * im)
         phi = torch.atan2(im, re)
         del re, im
@@ -656,10 +741,10 @@ def seq_parallel_pv(mesh: AudioMesh, *, size: int, hop: int, n_frames: int,
         w = _on(mesh, wav, torch.float32)
         win = _on(mesh, window, torch.float32)
         fr = int(f_real)
-        sl = slice(idx * f_loc, (idx + 1) * f_loc)
+        sl = slice(lo, hi)
         wsum = _wsum_masked(win, fr, size, hop, n_frames, span)
         y_l = stretch(
-            w, _on(mesh, np.asarray(starts)[sl], torch.int32),
+            w, _on(mesh, np.asarray(starts)[lo2:hi2], torch.int32),
             _on(mesh, np.asarray(da)[sl], torch.float32),
             _on(mesh, np.asarray(rho)[sl], torch.float32), fr, win,
             wsum[idx * f_loc * hop : (idx + 1) * f_loc * hop])

@@ -64,6 +64,13 @@ def compiler() -> str | None:
     return None
 
 
+def build_library() -> Path | None:
+    """Build the library without loading it (a launcher builds before it
+    starts its ranks); None without a C++ compiler."""
+    cxx = compiler()
+    return None if cxx is None else build(cxx)
+
+
 def build(cxx: str) -> Path:
     """Compile the library unless one of the current hash exists."""
     lib = BUILD_DIR / LIB_NAME

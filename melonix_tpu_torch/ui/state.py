@@ -31,7 +31,7 @@ from ..config import DEFAULT_CONFIG, Config
 from ..engine.grains import GrainTable, build_grain_table
 from ..engine.maps import MapKnots
 from ..engine.pyramid import Pyramid, build_pyramid
-from ..engine.spectral import resolve_device
+from ..engine.spectral import require_device
 from ..io.audio import load_audio
 from ..io.project import Project, load_project, save_project
 from ..markers import Marker, sort_markers
@@ -59,7 +59,7 @@ class EditorState:
                  device=None, warm_up: bool = True):
         self.config = config
         self.viewport = viewport or Viewport()
-        # Checked when a file is loaded (resolve_device), so a server can be
+        # Checked when a file is loaded (require_device), so a server can be
         # built before it knows whether the card is there.
         self.device = torch.device("cuda" if device is None else device)
         # Off a CPU, every open warms the session's paths on a thread
@@ -283,7 +283,7 @@ class EditorState:
         """Extension dispatch (app.cpp:130-138).  A device that is not
         there raises before anything is decoded: the loaded session stays
         as it was."""
-        resolve_device(self.device)
+        require_device(self.device)
         if self.warm_up and self.device.type == "cuda":
             from ..runtime import warmup
 
