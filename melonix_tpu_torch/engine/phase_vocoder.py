@@ -44,10 +44,12 @@ import numpy as np
 import torch
 
 from ..config import DEFAULT_CONFIG, Config
+from ..kernels import _build
 from ..kernels import frames as kframes
 from ..kernels import pv as kpv
 from ..kernels import resample as kres
 from ..kernels.pv import identity_lock  # noqa: F401  (its engine-level name)
+from ..utils import tracing
 from .maps import MapKnots
 from .spectral import hann_window, resolve_device, track_on_device
 
@@ -206,8 +208,15 @@ def build_pv_plan(
     hop: int | None = None,
 ) -> PVPlan | None:
     """Float64 host control plane; None when the render is empty."""
-    size = size or config.stft_size
-    hop = hop or config.stft_hop
+    with tracing.span("pv.plan") as sp:
+        plan = _pv_plan(knots, n_wav, size or config.stft_size,
+                        hop or config.stft_hop)
+        if plan is not None:
+            sp.count(frames=plan.n_frames, anchors=plan.anc_np[4])
+        return plan
+
+
+def _pv_plan(knots: MapKnots, n_wav: int, size: int, hop: int):
     sr = knots.sample_rate
     n_out = int(knots.duration() * sr)
     if n_out <= 0 or n_wav < size:
@@ -224,27 +233,33 @@ def build_pv_plan(
     # float64-differenced frame advances.
     y_m = np.arange(n_frames, dtype=np.float64) * hop / sr
     t_m = _invert_p(table, np.minimum(y_m, p_total))
-    a_m = knots.time_to_sample_float(t_m)
-    rho_m = 2.0 ** (knots.time_to_pitch_bend(t_m).astype(np.float64) / 12.0)
+    with tracing.span("pv.plan.knots", frames=n_frames,
+                      knots=len(knots.times)):
+        a_m = knots.time_to_sample_float(t_m)
+        rho_m = 2.0 ** (knots.time_to_pitch_bend(t_m).astype(np.float64)
+                        / 12.0)
     starts_m = np.floor(np.clip(a_m, 0.0, n_wav - 1.0)).astype(np.int32)
     da_m = np.maximum(
         np.diff(a_m, prepend=a_m[0] - hop), 1e-3
     ).astype(np.float32)
 
     # Resample anchors: block-relative positions (see _anchor_table).
-    anc_j, src_rel64, rho_a, s_a, base = _anchor_table(
-        table, sr, n_out_pad, stretch_len
-    )
-    n_anc = 512 * -(-len(anc_j) // 512)  # same padding as the JAX plan
-    pad_a = n_anc - len(anc_j)
-    anc_j_p = np.pad(anc_j, (0, pad_a), constant_values=n_out_pad)
-    anc_np = (
-        anc_j_p,
-        np.pad(np.asarray(src_rel64, np.float32), (0, pad_a), mode="edge"),
-        np.pad(np.asarray(rho_a, np.float32), (0, pad_a), mode="edge"),
-        np.pad(np.asarray(s_a, np.float32), (0, pad_a), mode="edge"),
-        len(anc_j),
-    )
+    with tracing.span("pv.plan.anchors") as sp:
+        anc_j, src_rel64, rho_a, s_a, base = _anchor_table(
+            table, sr, n_out_pad, stretch_len
+        )
+        n_anc = 512 * -(-len(anc_j) // 512)  # same padding as the JAX plan
+        pad_a = n_anc - len(anc_j)
+        anc_j_p = np.pad(anc_j, (0, pad_a), constant_values=n_out_pad)
+        anc_np = (
+            anc_j_p,
+            np.pad(np.asarray(src_rel64, np.float32), (0, pad_a),
+                   mode="edge"),
+            np.pad(np.asarray(rho_a, np.float32), (0, pad_a), mode="edge"),
+            np.pad(np.asarray(s_a, np.float32), (0, pad_a), mode="edge"),
+            len(anc_j),
+        )
+        sp.count(anchors=len(anc_j))
     rho_max = float(2.0 ** (max(np.max(table[1]), 0.0) / 12.0))
     return PVPlan(
         size=size, hop=hop, sr=sr, n_wav=n_wav, n_out=n_out,
@@ -423,10 +438,11 @@ def _resample_pv_fused(plan: PVPlan, y):
     seven operands go up in one packed upload."""
     anc_j_p, src_f, r_f, s_f, n_real = plan.anc_np
     nb = plan.n_out_pad // kres.BLK
-    a0, cnt, _kmax = kres.pv_anchor_blocks(anc_j_p[:n_real], nb)
-    ops = kres.upload_pv_operands(plan.base, a0, cnt, anc_j_p[:n_real],
-                                  src_f[:n_real], r_f[:n_real], s_f[:n_real],
-                                  y.device)
+    with tracing.span("pv.resample_operands"):
+        a0, cnt, _kmax = kres.pv_anchor_blocks(anc_j_p[:n_real], nb)
+        ops = kres.upload_pv_operands(plan.base, a0, cnt, anc_j_p[:n_real],
+                                      src_f[:n_real], r_f[:n_real],
+                                      s_f[:n_real], y.device)
     return kres.resample_pv(y, *ops, plan.sr, plan.n_out_pad)
 
 
@@ -453,16 +469,17 @@ def render_track_pv(
     ``phase_locking`` locks each bin's phase to its nearest spectral peak
     (Laroche-Dolson identity locking, the cure for phasiness).
     """
-    wav_dev = track_on_device(wav, device)
-    dev = wav_dev.device
-    n_wav = int(wav_dev.shape[0])
-    plan = build_pv_plan(knots, n_wav, config=config, size=size, hop=hop)
-    if plan is None:
-        n_out = max(int(knots.duration() * knots.sample_rate), 0)
-        zeros = torch.zeros(n_out, dtype=torch.float32, device=dev)
-        return zeros if device_out else zeros.cpu().numpy()
-    return _render_with_plan(wav_dev, plan, preserve_formants, phase_locking,
-                             device_out=device_out)
+    with tracing.span("render_track_pv"):
+        wav_dev = track_on_device(wav, device)
+        dev = wav_dev.device
+        n_wav = int(wav_dev.shape[0])
+        plan = build_pv_plan(knots, n_wav, config=config, size=size, hop=hop)
+        if plan is None:
+            n_out = max(int(knots.duration() * knots.sample_rate), 0)
+            zeros = torch.zeros(n_out, dtype=torch.float32, device=dev)
+            return zeros if device_out else zeros.cpu().numpy()
+        return _render_with_plan(wav_dev, plan, preserve_formants,
+                                 phase_locking, device_out=device_out)
 
 
 def _render_with_plan(wav_dev, plan: PVPlan, preserve_formants: bool = False,
@@ -472,7 +489,7 @@ def _render_with_plan(wav_dev, plan: PVPlan, preserve_formants: bool = False,
     dev = wav_dev.device
     size, hop = plan.size, plan.hop
     n_frames, stretch_len = plan.n_frames, plan.stretch_len
-    win = torch.from_numpy(hann_window(size)).to(dev)
+    (win,) = _build.upload(dev, hann_window(size))
 
     # Stretch in chunks with exact phase carry; OLA contributions add
     # linearly; normalize once globally.  Short tracks take one chunk.
@@ -487,20 +504,24 @@ def _render_with_plan(wav_dev, plan: PVPlan, preserve_formants: bool = False,
     phi0 = torch.zeros_like(resid)
     for m0 in range(0, n_frames, ch):
         starts_c, da_c, rho_c, f_real = _chunk_arrays(plan, m0, ch)
+        starts_d, da_d, *rho_d = _build.upload(
+            dev, starts_c, da_c, *([rho_c] if preserve_formants else []))
         y_c, resid, phi_prev, phi0 = _stretch_chunk_core(
-            wav_dev, torch.from_numpy(starts_c).to(dev),
-            torch.from_numpy(da_c).to(dev), win, m0, f_real,
-            phi0, resid, phi_prev, size=size, hop=hop,
-            rho_c=torch.from_numpy(rho_c).to(dev) if preserve_formants
-            else None,
+            wav_dev, starts_d, da_d, win, m0, f_real, phi0, resid, phi_prev,
+            size=size, hop=hop, rho_c=rho_d[0] if rho_d else None,
             formant=preserve_formants, lock=phase_locking,
         )
         y = y_c if one_chunk else _accum_at(y, y_c, m0 * hop)
 
     # In-place normalisation of the stretch (no second stretch-sized buffer).
-    y = y[:stretch_len].div_(_ola_wsum(win, size, hop, n_frames, stretch_len))
+    with tracing.span("pv.normalise"):
+        y = y[:stretch_len].div_(_ola_wsum(win, size, hop, n_frames,
+                                           stretch_len))
     out = _resample_pv_fused(plan, y)[: plan.n_out]
-    return out if device_out else out.cpu().numpy()
+    if device_out:
+        return out
+    with tracing.span("d2h", bytes=out.nbytes):
+        return out.cpu().numpy()
 
 
 def render_channels_pv(
@@ -523,26 +544,29 @@ def render_channels_pv(
     ``parallel.AudioMesh``) the channels, zero-padded to a multiple of its
     ``data`` axis, split over the data ranks, each rendering its own on the
     mesh's device, and are gathered.  Returns (C, n_out) float32."""
-    wav_ch = np.asarray(wav_ch, np.float32)
-    n_ch, n_wav = wav_ch.shape
-    dev = resolve_device(mesh.device if mesh is not None
-                         else "cuda" if device is None else device)
-    plan = build_pv_plan(knots, n_wav, config=config, size=size, hop=hop)
-    if plan is None:
-        n_out = max(int(knots.duration() * knots.sample_rate), 0)
-        return np.zeros((n_ch, n_out), np.float32)
+    with tracing.span("render_channels_pv"):
+        wav_ch = np.asarray(wav_ch, np.float32)
+        n_ch, n_wav = wav_ch.shape
+        dev = resolve_device(mesh.device if mesh is not None
+                             else "cuda" if device is None else device)
+        plan = build_pv_plan(knots, n_wav, config=config, size=size, hop=hop)
+        if plan is None:
+            n_out = max(int(knots.duration() * knots.sample_rate), 0)
+            return np.zeros((n_ch, n_out), np.float32)
 
-    def one(c):
-        return _render_with_plan(track_on_device(wav_ch[c], dev), plan,
-                                 preserve_formants, phase_locking,
-                                 device_out=mesh is not None)
+        def one(c):
+            return _render_with_plan(track_on_device(wav_ch[c], dev), plan,
+                                     preserve_formants, phase_locking,
+                                     device_out=mesh is not None)
 
-    if mesh is None:
-        return np.stack([one(c) for c in range(n_ch)])
-    from ..parallel.sharded import _data_rows, _gather_data
+        if mesh is None:
+            return np.stack([one(c) for c in range(n_ch)])
+        from ..parallel.sharded import _data_rows, _gather_data
 
-    d = mesh.shape["data"]
-    n_b = d * -(-n_ch // d)
-    wav_ch = np.pad(wav_ch, ((0, n_b - n_ch), (0, 0)))
-    mine = torch.stack([one(c) for c in _data_rows(mesh, n_b)])
-    return torch.cat(_gather_data(mesh, mine))[:n_ch].cpu().numpy()
+        d = mesh.shape["data"]
+        n_b = d * -(-n_ch // d)
+        wav_ch = np.pad(wav_ch, ((0, n_b - n_ch), (0, 0)))
+        mine = torch.stack([one(c) for c in _data_rows(mesh, n_b)])
+        out = torch.cat(_gather_data(mesh, mine))[:n_ch]
+        with tracing.span("d2h", bytes=out.nbytes):
+            return out.cpu().numpy()

@@ -28,6 +28,7 @@ import torch
 from ..config import DEFAULT_CONFIG, Config
 from ..kernels import pitch as kpitch
 from ..kernels.pv import hop_frames
+from ..utils import tracing
 from .spectral import track_on_device
 
 
@@ -181,7 +182,8 @@ def _hps_device(wav: torch.Tensor, frame: int, hop: int, n_frames: int,
 
 
 def _host64(t: torch.Tensor) -> np.ndarray:
-    return t.cpu().numpy().astype(np.float64)
+    with tracing.span("d2h", bytes=t.nbytes):
+        return t.cpu().numpy().astype(np.float64)
 
 
 def pitch_curve(
@@ -200,42 +202,46 @@ def pitch_curve(
     is salient.  ``wav`` is a NumPy array or a tensor; the analysis runs on
     ``device``, which defaults to the tensor's own device, or to ``"cuda"``
     for NumPy input (no fallback)."""
-    if method not in ("nsdf", "hps", "hybrid"):
-        raise ValueError(f"unknown pitch method: {method}")
-    wav_dev = track_on_device(wav, device)
-    n = int(wav_dev.shape[0])
-    frame, hop = config.pitch_frame, config.pitch_hop
-    n_frames = max(1, 1 + (n - frame) // hop) if n >= frame else 1
-    lag_min = max(2, int(sample_rate / config.pitch_fmax))
-    lag_max = min(frame - 2, int(sample_rate / config.pitch_fmin))
-    lag, clarity, energy = _pitch_device(wav_dev, frame, hop, n_frames,
-                                         lag_min, lag_max)
-    lag = _host64(lag)
-    if method in ("hps", "hybrid"):
-        hlag, sal = _hps_device(wav_dev, frame, hop, n_frames, lag_min,
-                                lag_max)
-        hlag, sal = _host64(hlag), _host64(sal)
-        if method == "hps":
-            lag = hlag
-        else:
-            octave_low = np.abs(lag - 2.0 * hlag) < 0.04 * 2.0 * hlag
-            octave_high = np.abs(2.0 * lag - hlag) < 0.04 * hlag
-            # sal > 2.0: white noise measures ~1.3; tonal frames 4-8.
-            lag = np.where((octave_low | octave_high) & (sal > 2.0), hlag, lag)
-    clarity = _host64(clarity)
-    energy = _host64(energy)
-    f0 = np.where(lag > 0, sample_rate / np.maximum(lag, 1e-9), 0.0)
-    voiced = (clarity > clarity_threshold) & (energy > energy_threshold)
-    f0 = np.where(voiced, f0, 0.0)
-    with np.errstate(divide="ignore"):
-        note = np.where(f0 > 0,
-                        24.0 + 12.0 * np.log2(np.maximum(f0, 1e-9) / 55.0),
-                        0.0)
-    return PitchCurve(
-        f0=f0.astype(np.float32),
-        voiced=voiced,
-        clarity=clarity.astype(np.float32),
-        note=note.astype(np.float32),
-        hop=hop,
-        sample_rate=int(sample_rate),
-    )
+    with tracing.span("pitch_curve"):
+        if method not in ("nsdf", "hps", "hybrid"):
+            raise ValueError(f"unknown pitch method: {method}")
+        wav_dev = track_on_device(wav, device)
+        n = int(wav_dev.shape[0])
+        frame, hop = config.pitch_frame, config.pitch_hop
+        n_frames = max(1, 1 + (n - frame) // hop) if n >= frame else 1
+        lag_min = max(2, int(sample_rate / config.pitch_fmax))
+        lag_max = min(frame - 2, int(sample_rate / config.pitch_fmin))
+        lag, clarity, energy = _pitch_device(wav_dev, frame, hop, n_frames,
+                                             lag_min, lag_max)
+        lag = _host64(lag)
+        if method in ("hps", "hybrid"):
+            hlag, sal = _hps_device(wav_dev, frame, hop, n_frames, lag_min,
+                                    lag_max)
+            hlag, sal = _host64(hlag), _host64(sal)
+            if method == "hps":
+                lag = hlag
+            else:
+                octave_low = np.abs(lag - 2.0 * hlag) < 0.04 * 2.0 * hlag
+                octave_high = np.abs(2.0 * lag - hlag) < 0.04 * hlag
+                # sal > 2.0: white noise measures ~1.3; tonal frames 4-8.
+                lag = np.where((octave_low | octave_high) & (sal > 2.0),
+                               hlag, lag)
+        clarity = _host64(clarity)
+        energy = _host64(energy)
+        with tracing.span("pitch.voicing", frames=len(lag)):
+            f0 = np.where(lag > 0, sample_rate / np.maximum(lag, 1e-9), 0.0)
+            voiced = ((clarity > clarity_threshold)
+                      & (energy > energy_threshold))
+            f0 = np.where(voiced, f0, 0.0)
+            with np.errstate(divide="ignore"):
+                note = np.where(
+                    f0 > 0,
+                    24.0 + 12.0 * np.log2(np.maximum(f0, 1e-9) / 55.0), 0.0)
+            return PitchCurve(
+                f0=f0.astype(np.float32),
+                voiced=voiced,
+                clarity=clarity.astype(np.float32),
+                note=note.astype(np.float32),
+                hop=hop,
+                sample_rate=int(sample_rate),
+            )

@@ -26,6 +26,7 @@ import numpy as np
 
 from ..config import DEFAULT_CONFIG, Config
 from ..io.audio import downmix_mono
+from ..utils import tracing
 from .grains import build_grain_table
 from .maps import MapKnots
 from .phase_vocoder import render_channels_pv, render_track_pv
@@ -61,8 +62,10 @@ def _render_channels_granular(wav_ch: np.ndarray, plan, mesh) -> np.ndarray:
     oo = np.tile(plan.out_offset.astype(np.int32), (B, 1))
     ss = np.tile(plan.seam_src, (B, 1))
     nv = np.full((B,), int(plan.out_offset[-1]), np.int32)
-    out = data_parallel_render(wav_b, gs, gl, rt, oo, ss, nv, mesh, out_len)
-    return out[:C, :total].cpu().numpy()
+    out = data_parallel_render(wav_b, gs, gl, rt, oo, ss, nv, mesh,
+                               out_len)[:C, :total]
+    with tracing.span("d2h", bytes=out.nbytes):
+        return out.cpu().numpy()
 
 
 def _mono_seq_mesh(mesh):
@@ -108,8 +111,9 @@ def _render_mono_pv_seq(mono, knots, mesh, config, preserve_formants,
         return None  # shard span shorter than the OLA spill
     f = seq_parallel_pv(mesh, **kw, formant=bool(preserve_formants),
                         lock=bool(phase_locking))
-    out = f(mono, *ops[:4], hann_window(kw["size"]), *ops[4:])
-    return out[: plan.n_out].cpu().numpy()
+    out = f(mono, *ops[:4], hann_window(kw["size"]), *ops[4:])[: plan.n_out]
+    with tracing.span("d2h", bytes=out.nbytes):
+        return out.cpu().numpy()
 
 
 def render_session(
@@ -136,9 +140,21 @@ def render_session(
     """
     if engine not in ("granular", "pv"):
         raise ValueError(f"unknown engine {engine!r}")
-    wav = np.asarray(wav, np.float32)
-    multi = wav.ndim == 2
-    mono = downmix_mono(wav) if multi else wav
+    with tracing.span("render_session"):
+        with tracing.span("session.host") as sp:
+            wav = np.asarray(wav, np.float32)
+            multi = wav.ndim == 2
+            mono = downmix_mono(wav) if multi else wav
+            sp.count(bytes=wav.nbytes)
+        return _render_session(wav, mono, multi, markers, sample_rate, engine,
+                               preserve_formants, phase_locking, config, mesh,
+                               device)
+
+
+def _render_session(wav, mono, multi: bool, markers, sample_rate: int,
+                    engine: str, preserve_formants: bool, phase_locking: bool,
+                    config: Config, mesh, device) -> np.ndarray:
+    """:func:`render_session` past its downmix."""
     knots = MapKnots.from_markers(markers, sample_rate, len(mono))
     use_mesh = _session_mesh(mesh, device) if multi else None
     seq_mesh = _mono_seq_mesh(mesh) if not multi else None
@@ -161,7 +177,8 @@ def render_session(
             wav.T, knots, config=config, preserve_formants=preserve_formants,
             phase_locking=phase_locking, mesh=use_mesh, device=device,
         )
-        return np.ascontiguousarray(out.T)
+        with tracing.span("session.host", bytes=out.nbytes):
+            return np.ascontiguousarray(out.T)
 
     table = build_grain_table(mono, config)
     plan = build_render_plan(table, knots, config=config)
@@ -170,8 +187,13 @@ def render_session(
             return _render_mono_granular_seq(mono, plan, seq_mesh)
         return render(mono, plan, device=device)
     if use_mesh is not None:
-        return np.ascontiguousarray(_render_channels_granular(
-            np.ascontiguousarray(wav.T), plan, use_mesh).T)
-    chans = [render(np.ascontiguousarray(wav[:, c]), plan, device=device)
-             for c in range(wav.shape[1])]
-    return np.stack(chans, axis=1)
+        with tracing.span("session.host", bytes=wav.nbytes):
+            wav_ch = np.ascontiguousarray(wav.T)
+        out = _render_channels_granular(wav_ch, plan, use_mesh)
+        with tracing.span("session.host", bytes=out.nbytes):
+            return np.ascontiguousarray(out.T)
+    with tracing.span("session.host", bytes=wav.nbytes):
+        chans = [np.ascontiguousarray(wav[:, c]) for c in range(wav.shape[1])]
+    chans = [render(c, plan, device=device) for c in chans]
+    with tracing.span("session.host", bytes=sum(c.nbytes for c in chans)):
+        return np.stack(chans, axis=1)

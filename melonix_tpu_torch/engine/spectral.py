@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from ..config import DEFAULT_CONFIG, Config
+from ..kernels import _build
 from ..kernels import columns as kcols
 from ..kernels import pv as kpv
 from ..kernels import stft as kstft
@@ -59,7 +60,8 @@ def track_on_device(wav, device=None) -> torch.Tensor:
             raise ValueError(f"wav is on {wav.device}, asked for {dev}")
         return wav.to(torch.float32).contiguous()
     dev = resolve_device("cuda" if device is None else device)
-    return torch.from_numpy(np.ascontiguousarray(wav, np.float32)).to(dev)
+    (t,) = _build.upload(dev, np.ascontiguousarray(wav, np.float32))
+    return t
 
 
 # ----------------------------------------------------------------------

@@ -30,6 +30,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from ..utils import tracing
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 LIB_NAME = "libmelonix_torch_kernels.so"
@@ -219,6 +221,18 @@ def require(t, name: str, dtype, shape: tuple, device) -> None:
         raise ValueError(f"{name}: must be contiguous")
 
 
+def upload(device, *hosts: np.ndarray) -> tuple:
+    """NumPy arrays ``hosts`` as tensors on ``device``, in order: one copy
+    each from pageable memory, under one ``h2d`` span with their bytes,
+    where ``device`` is not the CPU (there each tensor shares its array's
+    memory)."""
+    ts = tuple(torch.from_numpy(h) for h in hosts)
+    if torch.device(device).type == "cpu":
+        return ts
+    with tracing.span("h2d", bytes=sum(h.nbytes for h in hosts), pageable=1):
+        return tuple(t.to(device) for t in ts)
+
+
 def upload_packed(ints, floats, device) -> tuple:
     """A kernel's small operands in one host-to-device copy: the int32
     arrays ``ints`` and the float32 arrays ``floats`` (by their bits),
@@ -227,7 +241,7 @@ def upload_packed(ints, floats, device) -> tuple:
     ints = [np.asarray(a, np.int32) for a in ints]
     floats = [np.ascontiguousarray(a, np.float32).view(np.int32)
               for a in floats]
-    packed = torch.from_numpy(np.concatenate(ints + floats)).to(device)
+    (packed,) = upload(device, np.concatenate(ints + floats))
     views = torch.split(packed, [a.shape[0] for a in ints + floats])
     return views[: len(ints)] + tuple(v.view(torch.float32)
                                       for v in views[len(ints):])

@@ -31,6 +31,7 @@ import torch
 
 import functools
 
+from ..utils import tracing
 from . import _build
 from . import stft  # the FFT routes and tables shared with B12
 from .stft import (MAX_SIZE, four_step_column_table, large_twiddles,
@@ -162,7 +163,8 @@ def spectrogram_columns_fused(wav, starts, ends, kgain, size: int = 32768,
         "tile": (lib.mlx_spectrogram_columns, four_step_column_table),
         "cluster": (lib.mlx_spectrogram_columns_cluster, cluster_table),
     }[way]
-    with torch.cuda.device(dev):
+    with (torch.cuda.device(dev),
+          tracing.span("kernel.spectrogram_columns_fused")):
         err = entry(
             wav.data_ptr(), wav.shape[0], starts.data_ptr(), ends.data_ptr(),
             tw(size, dev).data_ptr(), out.data_ptr(), b, size, -float(decay),

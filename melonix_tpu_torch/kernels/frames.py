@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import tracing
 from . import _build
 
 MAX_FRAMES = 200_000  # the TPU's SMEM bound on the starts array, kept
@@ -59,7 +60,8 @@ def extract_frames(wav, starts, size: int) -> torch.Tensor:
         raise ValueError("wav is empty")
     out = torch.empty((f, size), dtype=torch.float32, device=dev)
     lib = _build.library()
-    with torch.cuda.device(dev):
+    with (torch.cuda.device(dev),
+          tracing.span("kernel.extract_frames")):
         err = lib.mlx_extract_frames(wav.data_ptr(), wav.shape[0],
                                      starts.data_ptr(), out.data_ptr(), f,
                                      size, _build.stream(dev))

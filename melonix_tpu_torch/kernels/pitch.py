@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import tracing
 from . import _build
 from .pv import hop_frames, pair_twiddles
 
@@ -59,7 +60,8 @@ def pitch_ac(wav, frame: int, hop: int, n_frames: int):
     ac = torch.empty((n_frames, frame), dtype=torch.float32, device=dev)
     w = torch.empty_like(ac)
     lib = _build.library()
-    with torch.cuda.device(dev):
+    with (torch.cuda.device(dev),
+          tracing.span("kernel.pitch_ac")):
         err = lib.mlx_pitch_ac(
             wav.data_ptr(), wav.shape[0], pair_twiddles(NFFT, dev).data_ptr(),
             ac.data_ptr(), w.data_ptr(), n_frames, hop, _build.stream(dev),

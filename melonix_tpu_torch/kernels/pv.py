@@ -30,6 +30,7 @@ import functools
 import numpy as np
 import torch
 
+from ..utils import tracing
 from . import _build
 
 FFT_N = 2048  # the only frame size the CUDA kernels take
@@ -112,7 +113,8 @@ def stft_mag(wav, window, size: int, hop: int, n_frames: int,
     _build.require(window, "window", torch.float32, (size,), dev)
     out = torch.empty((n_frames, size // 2), dtype=torch.float32, device=dev)
     lib = _build.library()
-    with torch.cuda.device(dev):
+    with (torch.cuda.device(dev),
+          tracing.span("kernel.stft_mag")):
         err = lib.mlx_stft_mag(
             wav.data_ptr(), wav.shape[0], window.data_ptr(),
             pair_twiddles(FFT_N, dev).data_ptr(), out.data_ptr(), n_frames,
@@ -160,7 +162,8 @@ def analysis(wav, starts, window, size: int):
     re = torch.empty((f, size // 2 + 1), dtype=torch.float32, device=dev)
     im = torch.empty_like(re)
     lib = _build.library()
-    with torch.cuda.device(dev):
+    with (torch.cuda.device(dev),
+          tracing.span("kernel.analysis")):
         err = lib.mlx_pv_analysis(
             wav.data_ptr(), wav.shape[0], starts.data_ptr(),
             window.data_ptr(), pair_twiddles(FFT_N, dev).data_ptr(),
@@ -364,7 +367,8 @@ def phase_scan(a, b, da, m0: int, f_real: int, phi0, resid_in, phi_prev,
     s_re, s_im, s_phi, scratch, resid_last, phi_last, phi0_eff = out
     dev = a.device
     lib = _build.library()
-    with torch.cuda.device(dev):
+    with (torch.cuda.device(dev),
+          tracing.span("kernel.phase_scan")):
         err = lib.mlx_pv_phase_scan(
             *(t.data_ptr() for t in (a, b, da, phi0, resid_in, phi_prev,
                                      scratch, s_re, s_im)),
@@ -433,7 +437,8 @@ def synth_ola_phase(a, b, da, window, m0: int, f_real: int, phi0,
                                             device=dev)  # scratch
     y = torch.empty(((f - 1) * hop + size,), dtype=torch.float32, device=dev)
     lib = _build.library()
-    with torch.cuda.device(dev):
+    with (torch.cuda.device(dev),
+          tracing.span("kernel.synth_ola_phase")):
         err = lib.mlx_pv_synth_ola_phase(
             *(t.data_ptr() for t in (
                 a, b, da, window, pair_twiddles(FFT_N, dev), phi0, resid_in,
@@ -497,7 +502,8 @@ def synth_ola(mag, psi, window, size: int, hop: int,
                                             device=dev)  # scratch
     y = torch.empty(((f - 1) * hop + size,), dtype=f32, device=dev)
     lib = _build.library()
-    with torch.cuda.device(dev):
+    with (torch.cuda.device(dev),
+          tracing.span("kernel.synth_ola")):
         err = lib.mlx_pv_synth_ola(
             mag.data_ptr(), psi.data_ptr(), window.data_ptr(),
             pair_twiddles(FFT_N, dev).data_ptr(),

@@ -32,6 +32,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils import tracing
 from . import _build
 
 CBLK = 2048  # output samples per compact block
@@ -152,7 +153,8 @@ def render_granular(wav, gs, rate, sz, off, a0, cnt, out_len: int,
     _build.require(cnt, "cnt", torch.int32, (nb,), dev)
     out = torch.empty((out_len,), dtype=torch.float32, device=dev)
     lib = _build.library()
-    with torch.cuda.device(dev):
+    with (torch.cuda.device(dev),
+          tracing.span("kernel.render_granular")):
         err = lib.mlx_render_granular(
             wav.data_ptr(), wav.shape[0], gs.data_ptr(), rate.data_ptr(),
             sz.data_ptr(), off.data_ptr(), n_steps, a0.data_ptr(),

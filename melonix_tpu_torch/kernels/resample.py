@@ -21,6 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils import tracing
 from . import _build
 
 BLK = 2048  # output samples per block
@@ -155,7 +156,8 @@ def resample_pv(y, base, a0, cnt, anc_j, anc_src, anc_r, anc_s, sr: int,
         _build.require(t, name, torch.float32, (n_anc,), dev)
     out = torch.empty((n_out,), dtype=torch.float32, device=dev)
     lib = _build.library()
-    with torch.cuda.device(dev):
+    with (torch.cuda.device(dev),
+          tracing.span("kernel.resample_pv")):
         err = lib.mlx_resample_pv(
             y.data_ptr(), y.shape[0], base.data_ptr(), a0.data_ptr(),
             cnt.data_ptr(), anc_j.data_ptr(), anc_src.data_ptr(),
@@ -209,7 +211,8 @@ def resample_lerp(y, pos, base, rows: int) -> torch.Tensor:
     if n_out == 0:
         return out
     lib = _build.library()
-    with torch.cuda.device(dev):
+    with (torch.cuda.device(dev),
+          tracing.span("kernel.resample_lerp")):
         err = lib.mlx_resample_lerp_window(
             y.data_ptr(), y.shape[0], pos.data_ptr(), base.data_ptr(), 0,
             n_out, int(rows), out.data_ptr(), 0, _build.stream(dev))
@@ -280,9 +283,10 @@ class LerpReader:
             with torch.cuda.device(self._index):
                 return self.launch(j, n, wait)
         self._buffer(n)
-        err = self._lib.mlx_resample_lerp_window(
-            *self._args, j, n, self._rows, self._host_ptr, int(wait),
-            _build.stream(self.device))
+        with tracing.span("kernel.resample_lerp"):
+            err = self._lib.mlx_resample_lerp_window(
+                *self._args, j, n, self._rows, self._host_ptr, int(wait),
+                _build.stream(self.device))
         _build.check("resample_lerp_window", err)
         resample_lerp.launches += 1
 

@@ -36,6 +36,7 @@ import functools
 import numpy as np
 import torch
 
+from ..utils import tracing
 from . import _build
 from .pv import PAIR_SIZES, pair_twiddles
 from .pv import stft_mag_plain  # size-generic: the twin of B1 and B12
@@ -467,11 +468,9 @@ def stft_mag(wav, window, size: int, hop: int, n_frames: int,
                 "large": (lib.mlx_stft_mag_large, large_twiddles),
                 "tile": (lib.mlx_stft_mag_sizes, four_step_column_table),
             }[way]
-            err = entry(
-                wav.data_ptr(), wav.shape[0], window.data_ptr(),
-                tw(size, dev).data_ptr(), out.data_ptr(), n_frames, size, hop,
-                float(scale), _build.stream(dev),
-            )
+            args = (wav.data_ptr(), wav.shape[0], window.data_ptr(),
+                    tw(size, dev).data_ptr(), out.data_ptr(), n_frames, size,
+                    hop, float(scale), _build.stream(dev))
         else:
             n1, n2 = four_step_plan(size)
             scratch = four_step_scratch(n_frames, n1, n2, dev)
@@ -481,9 +480,9 @@ def stft_mag(wav, window, size: int, hop: int, n_frames: int,
                     _build.stream(dev))
             if way == "bluestein_scratch":
                 work = bluestein_work(n_frames, n1, n2, dev)
-                err = lib.mlx_stft_mag_bluestein_scratch(
-                    *head, bluestein_scratch_table(n2, dev).data_ptr(),
-                    scratch.data_ptr(), work.data_ptr(), *tail)
+                entry = lib.mlx_stft_mag_bluestein_scratch
+                args = (*head, bluestein_scratch_table(n2, dev).data_ptr(),
+                        scratch.data_ptr(), work.data_ptr(), *tail)
             else:
                 entry, tw2 = {
                     "four_step": (lib.mlx_stft_mag_4step,
@@ -491,8 +490,11 @@ def stft_mag(wav, window, size: int, hop: int, n_frames: int,
                     "bluestein": (lib.mlx_stft_mag_bluestein,
                                   bluestein_table),
                 }[way]
-                err = entry(*head, tw2(n2, dev).data_ptr(),
-                            scratch.data_ptr(), *tail)
+                args = (*head, tw2(n2, dev).data_ptr(), scratch.data_ptr(),
+                        *tail)
+        # scratch and work stay referenced through the launch
+        with tracing.span("kernel.stft_mag"):
+            err = entry(*args)
     _build.check("stft_mag_sizes", err)
     stft_mag.launches += 1
     return out

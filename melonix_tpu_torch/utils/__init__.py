@@ -1,7 +1,7 @@
 """Process-wide metrics, profiling and logging of the port."""
 
 from .metrics import Counter, RateMeter, Timer, registry, snapshot
-from .tracing import annotate, get_logger, trace
+from .tracing import get_logger, trace
 
 __all__ = [
     "Counter",
@@ -9,7 +9,6 @@ __all__ = [
     "Timer",
     "registry",
     "snapshot",
-    "annotate",
     "get_logger",
     "trace",
 ]

@@ -80,6 +80,11 @@ if not all(os.path.exists(t) for t in _targets):
         pass
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "chip: needs an NVIDIA card (skips without one)")
+
+
 @pytest.fixture(scope="session")
 def rng():
     return np.random.default_rng(1234)

@@ -571,7 +571,7 @@ def test_filter_banks_equal_the_reference():
 def test_trace_writes_a_chrome_trace(tmp_path):
     log_dir = str(tmp_path / "tr" / "nested")
     with tracing.trace(log_dir):
-        with tracing.annotate("melonix-region"):
+        with tracing.span("melonix-region"):
             torch.ones(64).cumsum(0)
     (name,) = os.listdir(log_dir)
     with open(os.path.join(log_dir, name)) as f:

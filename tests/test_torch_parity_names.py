@@ -4,7 +4,8 @@ melonix_tpu_torch.
 Reads both packages' sources with ``ast`` (nothing is imported, so no JAX
 either): each public top-level ``def`` or ``class`` of ``melonix_tpu/``
 must be defined at the top level of some module of ``melonix_tpu_torch/``
-under the same name, or with ``_jax`` replaced by ``_torch``.  The
+under the same name, with ``_jax`` replaced by ``_torch``, or under the
+new name ``RENAMED`` gives it.  The
 exceptions are the 12 functions that reach ``pl.pallas_call`` (each has
 its CUDA kernel, held against its plain twin by ``chip_smoke.py`` and
 listed in PERF.md's kernel table) and the TPU-only names of ROADMAP.md's
@@ -47,6 +48,10 @@ NOT_TO_PORT = {
     "stft_supported", "pv_fused_shapes_ok",
 }
 
+# The JAX package's names whose counterpart in the port has another name:
+# utils.tracing's ``annotate`` is the port's ``span``, which also records.
+RENAMED = {"annotate": "span"}
+
 
 def _defs(package: str) -> dict[str, list[str]]:
     """name -> modules defining it at top level, over every ``def`` and
@@ -80,7 +85,7 @@ def test_every_public_name_has_a_counterpart():
         for name, where in jax_defs.items()
         if not name.startswith("_")
         and name not in PALLAS_KERNELS | NOT_TO_PORT
-        and name not in port_defs
+        and RENAMED.get(name, name) not in port_defs
         and name.replace("_jax", "_torch") not in port_defs)
     assert not missing, "no counterpart in melonix_tpu_torch: " + "; ".join(
         missing)
@@ -88,8 +93,11 @@ def test_every_public_name_has_a_counterpart():
 
 def test_the_exceptions_are_what_they_say():
     """The kernel list is exactly the functions that reach pl.pallas_call,
-    and every exception still names something of the JAX package."""
+    every exception still names something of the JAX package, and every
+    renamed counterpart is in the port under its new name alone."""
     assert _pallas_callers() == PALLAS_KERNELS
-    jax_defs = _defs("melonix_tpu")
+    jax_defs, port_defs = _defs("melonix_tpu"), _defs("melonix_tpu_torch")
     assert not sorted(n for n in NOT_TO_PORT if n not in jax_defs)
+    for old, new in RENAMED.items():
+        assert old in jax_defs and new in port_defs and old not in port_defs
 
