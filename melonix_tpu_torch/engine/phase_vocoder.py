@@ -234,10 +234,10 @@ def _pv_plan(knots: MapKnots, n_wav: int, size: int, hop: int):
     y_m = np.arange(n_frames, dtype=np.float64) * hop / sr
     t_m = _invert_p(table, np.minimum(y_m, p_total))
     with tracing.span("pv.plan.knots", frames=n_frames,
-                      knots=len(knots.times)):
-        a_m = knots.time_to_sample_float(t_m)
-        rho_m = 2.0 ** (knots.time_to_pitch_bend(t_m).astype(np.float64)
-                        / 12.0)
+                      knots=len(knots.times)) as sp:
+        a_m, bend_m, sorted_ = knots.time_to_sample_float_and_bend(t_m)
+        sp.count(sorted=int(sorted_))
+        rho_m = 2.0 ** (bend_m.astype(np.float64) / 12.0)
     starts_m = np.floor(np.clip(a_m, 0.0, n_wav - 1.0)).astype(np.int32)
     da_m = np.maximum(
         np.diff(a_m, prepend=a_m[0] - hop), 1e-3

@@ -40,11 +40,16 @@ def _marker_sets():
     samples = np.sort(rng.choice(np.arange(500, N - 500), 9, replace=False))
     nine = [(int(s), 57.0, float(rng.uniform(-0.02, 0.02)),
              float(rng.uniform(-4, 4))) for s in samples]
+    rng = np.random.default_rng(300)
+    samples = np.sort(rng.choice(np.arange(500, N - 500), 300, replace=False))
+    long_edit = [(int(s), 57.0, float(rng.uniform(0.0, 0.002)),
+                  float(rng.uniform(-4, 4))) for s in samples]
     return {
         "none": [],
         "one": [(N // 2, 57.0, 0.03, 3.0)],
         "nine": nine,
         "backward": [(N // 3, 57.0, -0.2, -5.0), (N // 2, 60.0, 0.1, 7.0)],
+        "three_hundred": long_edit,
     }
 
 

@@ -5,7 +5,9 @@
 marker sets, held against ``pad_knots`` and the ``_jax`` twins of
 ``melonix_tpu/engine/maps.py`` and against the float64 host maps
 (``MapKnots``) at ``test_maps.py``'s bars; float64 tensors against
-``MapKnots`` at 1e-9; padding buckets that change no value.
+``MapKnots`` at 1e-9; padding buckets that change no value.  The host
+maps' segment lookup (a sorted search where the knot axis never decreases)
+against the JAX package's first-match masks, bit for bit, on both paths.
 """
 
 import jax.numpy as jnp
@@ -126,3 +128,88 @@ def test_pad_knots_defaults_to_the_card(monkeypatch):
     _jk, pk = _knots(MARKER_SETS[1])
     with pytest.raises(RuntimeError, match="is_available"):
         M.pad_knots(pk)
+
+
+# ----------------------------------------------------------------------
+# The host maps' segment lookup against the JAX package's host maps, which
+# keep the first-match masks: the same results, bit for bit and dtype.
+# ----------------------------------------------------------------------
+
+
+def _lookup_sets():
+    rng = np.random.default_rng(2500)
+    gap = N / 14  # the edit cell's form: benchmark/harness/inputs.py
+    cell = [(int((i + 1) * gap + rng.uniform(-0.25, 0.25) * gap), 57.0,
+             float(rng.uniform(0.005, 0.02) * (1 if i % 2 == 0 else -1)),
+             float(rng.uniform(1, 4) * (-1) ** i)) for i in range(12)]
+    many = [(int(s), 57.0, float(rng.uniform(0.0, 0.01)),
+             float(rng.uniform(-4, 4)))
+            for s in np.sort(rng.choice(np.arange(500, N - 500), 300,
+                                        replace=False))]
+    # name: (markers, times never decrease, samples never decrease)
+    return {
+        "none": ([], True, True),
+        "one": ([(N // 2, 57.0, 0.03, 3.0)], True, True),
+        "cell": (cell, True, True),
+        "three_hundred": (many, True, True),
+        "backward": ([(SR, 60.0, -1.5, 4.0), (2 * SR, 62.0, 0.1, -4.0)],
+                     False, True),
+        "duplicate_samples": ([(N // 4, 57.0, 0.01, 2.0),
+                               (N // 4, 60.0, 0.02, -3.0),
+                               (N // 2, 62.0, 0.0, 1.0)], True, True),
+        "negative_sample": ([(-2000, 57.0, 0.01, 2.0),
+                             (N // 2, 60.0, 0.02, -3.0)], False, False),
+        # times 0.5, 0.5 exactly: an empty time segment
+        "zero_length": ([(SR // 2, 57.0, 0.0, 2.0), (SR, 60.0, -0.5, -3.0),
+                         (2 * SR, 62.0, 0.01, 1.0)], True, True),
+    }
+
+
+LOOKUP_SETS = _lookup_sets()
+
+
+def _lookup_queries(which, axis, end, rng):
+    """Queries of one kind on a knot ``axis`` whose map ends at ``end``."""
+    if which == "random":
+        return rng.uniform(-0.05 * end, 1.1 * end, 1001)
+    if which == "knots":
+        return np.concatenate([axis, np.nextafter(axis, -np.inf),
+                               np.nextafter(axis, np.inf)])
+    if which == "nonpositive":
+        return np.array([0.0, -0.0, -1e-12, -1.0, -end])
+    if which == "beyond":
+        return np.array([end, np.nextafter(end, np.inf), end + 1.0, 2 * end])
+    return float(rng.uniform(0, end))  # a scalar
+
+
+def _same(got, want):
+    assert type(got) is type(want)
+    if isinstance(want, np.ndarray):
+        assert got.dtype == want.dtype and got.shape == want.shape
+        assert np.array_equal(got, want, equal_nan=True)
+    else:
+        assert got == want or (np.isnan(got) and np.isnan(want))
+
+
+@pytest.mark.parametrize("queries",
+                         ["random", "knots", "nonpositive", "beyond", "scalar"])
+@pytest.mark.parametrize("which", sorted(LOOKUP_SETS))
+def test_host_maps_equal_the_first_match_masks(which, queries):
+    markers, times_up, samples_up = LOOKUP_SETS[which]
+    jk, pk = _knots([Marker(*m) for m in markers])
+    assert pk._samples_ascending == samples_up
+    rng = np.random.default_rng(len(which) * 7 + len(queries))
+    dur = pk.duration()
+    _same(dur, jk.duration())
+
+    t = _lookup_queries(queries, pk.times, dur, rng)
+    _same(pk.time_to_sample_float(t), jk.time_to_sample_float(t))
+    _same(pk.time_to_sample(t), jk.time_to_sample(t))
+    _same(pk.time_to_pitch_bend(t), jk.time_to_pitch_bend(t))
+    a, b, sorted_ = pk.time_to_sample_float_and_bend(t)
+    assert sorted_ is times_up
+    _same(a, jk.time_to_sample_float(np.atleast_1d(t)))
+    _same(b, jk.time_to_pitch_bend(np.atleast_1d(t)))
+
+    s = _lookup_queries(queries, pk.samples, float(N), rng)
+    _same(pk.sample_to_time(s), jk.sample_to_time(s))

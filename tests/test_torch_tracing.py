@@ -79,7 +79,7 @@ def test_a_pv_render_is_one_request_with_its_plan_under_it(recorder, take):
     assert recs[p].counts == {"frames": plan.n_frames,
                               "anchors": plan.anc_np[4]}
     assert recs[kn].counts == {"frames": plan.n_frames,
-                               "knots": len(k.times)}
+                               "knots": len(k.times), "sorted": 1}
     assert recs[an].counts == {"anchors": plan.anc_np[4]}
     for name in ("pv.normalise", "pv.resample_operands"):
         assert [recs[i].parent for i in names[name]] == [0]
@@ -88,6 +88,21 @@ def test_a_pv_render_is_one_request_with_its_plan_under_it(recorder, take):
                                           for n in names)
     inner = recs[p]
     assert recs[0].t0_ns <= inner.t0_ns <= inner.t1_ns <= recs[0].t1_ns
+
+
+@pytest.mark.parametrize("markers, sorted_", [
+    (MARKERS, 1),
+    # the first segment runs backwards: times 0, -0.5, 0.1
+    ([(N // 3, 57.0, -1.5, -5.0), (N // 2, 60.0, 0.1, 7.0)], 0)],
+    ids=["forward", "backward"])
+def test_the_knot_span_counts_which_segment_lookup_ran(recorder, markers,
+                                                       sorted_):
+    k = mt.MapKnots.from_markers([mt.Marker(*m) for m in markers], SR, N)
+    plan = phase_vocoder.build_pv_plan(k, N)
+    (kn,) = [r for r in recorder.records() if r.name == "pv.plan.knots"]
+    assert kn.counts == {"frames": plan.n_frames, "knots": len(k.times),
+                         "sorted": sorted_}
+    assert k.time_to_sample_float_and_bend(0.5)[2] is bool(sorted_)
 
 
 def test_a_pitch_curve_downloads_and_voices_under_one_request(recorder, take):
