@@ -23,7 +23,10 @@ Formulation for time-VARYING pitch rate ``rho(t) = 2^(bend(t)/12)``:
     bases + small float32 residuals (full precision at any track length).
 
 The host half (segment table, frame plan, resample anchors) is the JAX
-package's float64 NumPy code, copied.  The device half runs kernels B2, B3
+package's float64 NumPy code, copied, except that an anchor at a rate
+segment's start takes that segment's constants by index
+(:func:`_anchor_table`), where the JAX package searches on a time that can
+round below the segment's start.  The device half runs kernels B2, B3
 and B4 on a CUDA tensor and their plain twins on a CPU tensor, in natural
 bin order with (size // 2 + 1)-bin phase state.  Formant preservation
 (``preserve_formants``) warps the analysis magnitudes by a cepstral
@@ -56,7 +59,7 @@ from .spectral import hann_window, resolve_device, track_on_device
 LN2_12 = np.log(2.0) / 12.0
 
 # ----------------------------------------------------------------------
-# Host control plane (float64 NumPy, identical to the JAX package's)
+# Host control plane (float64 NumPy, the JAX package's; see _anchor_table)
 # ----------------------------------------------------------------------
 
 
@@ -114,15 +117,26 @@ def _invert_p(table, y: np.ndarray) -> np.ndarray:
     return np.where(flat, t0 + dy / r0, t_exp)
 
 
-def _src_eval64(table, t_a: np.ndarray, sr: float) -> tuple[np.ndarray, ...]:
+def _segment_at(t0s: np.ndarray, t_a: np.ndarray) -> np.ndarray:
+    """Index of the segment that holds each time of ``t_a``: the last one
+    starting at or before it."""
+    return np.clip(np.searchsorted(t0s, t_a, side="right") - 1, 0,
+                   len(t0s) - 1)
+
+
+def _src_eval64(table, t_a: np.ndarray, sr: float,
+                seg: np.ndarray | None = None) -> tuple[np.ndarray, ...]:
     """Float64 (src, rho, slope) of the stretched position curve at times t_a.
 
     src(t) = p(t)*sr - rho(t): the "exclusive" convention matching the
     per-sample cumulative-rate positions (sample j sits at p(t_j)*sr with
     t_j = (j+1)/sr, minus its own rate — so src(t_0) = 0 for unit rate).
+    ``seg`` gives each time's segment; by default the one that holds it
+    (:func:`_segment_at`).
     """
     t0s, b0s, slopes, p0s, _ = table
-    seg = np.clip(np.searchsorted(t0s, t_a, side="right") - 1, 0, len(t0s) - 1)
+    if seg is None:
+        seg = _segment_at(t0s, t_a)
     dt = t_a - t0s[seg]
     s = slopes[seg]
     r0 = 2.0 ** (b0s[seg] / 12.0)
@@ -142,10 +156,22 @@ def _anchor_table(table, sr: float, n_out_pad: int, n_src: int):
     no anchor-to-anchor span crosses a segment boundary and every span is
     <= BLK samples (exact int32 offsets, full f32 precision on device).
 
-    Returns (anc_j int32, src_rel f64, rho f64, slope f64, base int32) with
-    ``src_rel = src64(anchor) - base[block(anchor)]`` — small by
-    construction (block span + SLACK), so its f32 image keeps ~1e-3-sample
-    precision regardless of track length.
+    An anchor at output sample j is evaluated at ``t_a = (j + 1) / sr``.  A
+    segment starting at t0 anchors at ``j0 = ceil(t0 sr - 1 - 1e-9)``, the
+    first sample whose time is not before t0, and takes that segment's
+    constants by index: where ``t0 sr`` is a whole number, ``t_a`` can
+    round one ulp below t0, and a search on it would take the previous
+    segment's slope and let up to BLK samples drift.  Where several
+    segments start within one sample, their anchor takes the last of them:
+    each starts at or before ``t_a`` (to 1e-9 samples) and the next segment
+    after it, so the last holds ``t_a``.  Block starts that begin no
+    segment take the segment that holds ``t_a``.
+
+    Returns (anc_j int32, src_rel f64, rho f64, slope f64, base int32,
+    starts) with ``src_rel = src64(anchor) - base[block(anchor)]`` — small
+    by construction (block span + SLACK), so its f32 image keeps
+    ~1e-3-sample precision regardless of track length — and ``starts`` the
+    number of anchors at segment starts.
     """
     blk = kres.BLK
     t0s = table[0]
@@ -156,11 +182,18 @@ def _anchor_table(table, sr: float, n_out_pad: int, n_src: int):
     ).astype(np.int64)
     anc_j = np.union1d(jb, seg_j0)
     t_a = (anc_j + 1.0) / sr
-    src_a, rho_a, s_a = _src_eval64(table, t_a, sr)
+    seg = _segment_at(t0s, t_a)
+    # each segment-start anchor's own segment: the last segment at its sample
+    order = np.argsort(seg_j0, kind="stable")
+    j_sorted = seg_j0[order]
+    last = np.append(j_sorted[1:] != j_sorted[:-1], True)
+    seg[np.searchsorted(anc_j, j_sorted[last])] = order[last]
+    src_a, rho_a, s_a = _src_eval64(table, t_a, sr, seg)
     # Block slab bases from the float64 block-start positions.
     base = kres.block_bases(src_a[np.searchsorted(anc_j, jb)], n_src)
     src_rel = src_a - base[np.minimum(anc_j // blk, nb - 1)].astype(np.float64)
-    return anc_j.astype(np.int32), src_rel, rho_a, s_a, base
+    return (anc_j.astype(np.int32), src_rel, rho_a, s_a, base,
+            int(np.count_nonzero(last)))
 
 
 PV_CHUNK_FRAMES = 49152  # frames per stretch chunk
@@ -245,7 +278,7 @@ def _pv_plan(knots: MapKnots, n_wav: int, size: int, hop: int):
 
     # Resample anchors: block-relative positions (see _anchor_table).
     with tracing.span("pv.plan.anchors") as sp:
-        anc_j, src_rel64, rho_a, s_a, base = _anchor_table(
+        anc_j, src_rel64, rho_a, s_a, base, n_starts = _anchor_table(
             table, sr, n_out_pad, stretch_len
         )
         n_anc = 512 * -(-len(anc_j) // 512)  # same padding as the JAX plan
@@ -259,7 +292,7 @@ def _pv_plan(knots: MapKnots, n_wav: int, size: int, hop: int):
             np.pad(np.asarray(s_a, np.float32), (0, pad_a), mode="edge"),
             len(anc_j),
         )
-        sp.count(anchors=len(anc_j))
+        sp.count(anchors=len(anc_j), starts=n_starts)
     rho_max = float(2.0 ** (max(np.max(table[1]), 0.0) / 12.0))
     return PVPlan(
         size=size, hop=hop, sr=sr, n_wav=n_wav, n_out=n_out,
@@ -337,7 +370,9 @@ def _stretch_chunk_core(wav, starts_c, da_c, window, m0: int, f_real: int,
     mag = torch.sqrt(re * re + im * im)
     phi = torch.atan2(im, re)
     del re, im
-    mag.mul_(_formant_gain(mag, rho_c, size, n_ceps))
+    with tracing.span("pv.formant", device=mag.device if mag.is_cuda else None,
+                      frames=mag.shape[0], bins=size // 2 + 1, ceps=n_ceps):
+        mag.mul_(_formant_gain(mag, rho_c, size, n_ceps))
     return synth(mag, phi, da_c, window, m0, f_real, phi0, resid_in, phi_prev,
                  size, hop, cart=False, lock=lock)
 

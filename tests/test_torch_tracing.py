@@ -42,6 +42,14 @@ def knots():
     return mt.MapKnots.from_markers([mt.Marker(*m) for m in MARKERS], SR, N)
 
 
+def segment_starts(k, plan):
+    """The anchors a plan places at rate-segment starts: the distinct first
+    output samples of its segments."""
+    t0s = phase_vocoder._segment_table(k, plan.n_out / SR)[0]
+    j0 = np.clip(np.ceil(t0s * SR - 1.0 - 1e-9), 0, plan.n_out_pad - 1)
+    return len(np.unique(j0))
+
+
 def by_name(recs):
     out = {}
     for i, r in enumerate(recs):
@@ -80,7 +88,8 @@ def test_a_pv_render_is_one_request_with_its_plan_under_it(recorder, take):
                               "anchors": plan.anc_np[4]}
     assert recs[kn].counts == {"frames": plan.n_frames,
                                "knots": len(k.times), "sorted": 1}
-    assert recs[an].counts == {"anchors": plan.anc_np[4]}
+    assert recs[an].counts == {"anchors": plan.anc_np[4],
+                               "starts": segment_starts(k, plan)}
     for name in ("pv.normalise", "pv.resample_operands"):
         assert [recs[i].parent for i in names[name]] == [0]
     # the CPU render makes no copy between devices and launches nothing
@@ -103,6 +112,53 @@ def test_the_knot_span_counts_which_segment_lookup_ran(recorder, markers,
     assert kn.counts == {"frames": plan.n_frames, "knots": len(k.times),
                          "sorted": sorted_}
     assert k.time_to_sample_float_and_bend(0.5)[2] is bool(sorted_)
+
+
+# one marker a 0.1 s, each on a whole sample with no time shift: every
+# segment after the first starts on an output sample's own time
+AUTOTUNE = [(int((0.05 + 0.1 * i) * SR), 57.0, 0.0, 0.3 * (-1) ** i)
+            for i in range(28)]
+
+
+@pytest.mark.parametrize("markers", [MARKERS, AUTOTUNE],
+                         ids=["shifted", "whole-sample"])
+def test_the_anchor_span_counts_the_anchors_at_segment_starts(recorder,
+                                                              markers):
+    k = mt.MapKnots.from_markers([mt.Marker(*m) for m in markers], SR, N)
+    plan = phase_vocoder.build_pv_plan(k, N)
+    (an,) = [r for r in recorder.records() if r.name == "pv.plan.anchors"]
+    assert an.counts == {"anchors": plan.anc_np[4],
+                         "starts": segment_starts(k, plan)}
+    assert an.counts["starts"] >= len(markers)
+
+
+@pytest.mark.parametrize("chunk", [None, 64])
+def test_a_formant_render_times_its_gain_once_a_chunk_and_channel(
+        recorder, take, monkeypatch, chunk):
+    if chunk is not None:
+        monkeypatch.setattr(phase_vocoder, "PV_CHUNK_FRAMES", chunk)
+    stereo = np.stack([take, 0.5 * take], axis=1)
+    session.render_session(stereo, [mt.Marker(*m) for m in MARKERS], SR,
+                           engine="pv", preserve_formants=True, mesh=None,
+                           device="cpu")
+    plan = phase_vocoder.build_pv_plan(knots(), N)
+    ch = min(phase_vocoder.PV_CHUNK_FRAMES, plan.n_frames)
+    recs = recorder.records()
+    gains = [r for r in recs if r.name == "pv.formant"]
+    assert len(gains) == 2 * (-(-plan.n_frames // ch))
+    assert all(r.counts == {"frames": ch, "bins": 1025, "ceps": 40}
+               for r in gains)
+    # a CPU render passes no device: the span has no device time
+    recorder.resolve()
+    assert all(r.device_ms is None for r in recorder.records()
+               if r.name == "pv.formant")
+
+
+def test_a_render_without_formants_has_no_gain_span(recorder, take):
+    stereo = np.stack([take, 0.5 * take], axis=1)
+    session.render_session(stereo, [mt.Marker(*m) for m in MARKERS], SR,
+                           engine="pv", mesh=None, device="cpu")
+    assert "pv.formant" not in by_name(recorder.records())
 
 
 def test_a_pitch_curve_downloads_and_voices_under_one_request(recorder, take):
@@ -338,6 +394,13 @@ def test_on_the_card_the_take_goes_up_pageable_and_a_device_span_times(
     # the launch spans are the host's alone; a span given the card times
     # its region on the card's current stream
     assert all(r.device_ms is None for r in kernels)
+    tracing.start()
+    phase_vocoder.render_track_pv(take, knots(), device="cuda",
+                                  preserve_formants=True)
+    tracing.stop()
+    tracing.resolve()
+    (gain,) = [r for r in tracing.records() if r.name == "pv.formant"]
+    assert gain.device_ms > 0
     tracing.start()
     x = torch.ones(1 << 24, device="cuda")
     with tracing.span("device", device="cuda"):
