@@ -575,7 +575,10 @@ def render_channels_pv(
     channel-independent, so the host plan is built once and each channel
     runs :func:`_render_with_plan` on ``device`` (default ``"cuda"``; no
     fallback), the JAX package's single-chip route
-    (``phase_vocoder.py:1079-1089``).  With ``mesh`` (a
+    (``phase_vocoder.py:1079-1089``).  There the channels go up in one copy
+    and come down in one (:func:`_render_rows`), and the result is laid out
+    as the input is: the transpose of a C-contiguous (n, C) take comes back
+    as the transpose of a C-contiguous (n_out, C) array.  With ``mesh`` (a
     ``parallel.AudioMesh``) the channels, zero-padded to a multiple of its
     ``data`` axis, split over the data ranks, each rendering its own on the
     mesh's device, and are gathered.  Returns (C, n_out) float32."""
@@ -588,20 +591,48 @@ def render_channels_pv(
         if plan is None:
             n_out = max(int(knots.duration() * knots.sample_rate), 0)
             return np.zeros((n_ch, n_out), np.float32)
-
-        def one(c):
-            return _render_with_plan(track_on_device(wav_ch[c], dev), plan,
-                                     preserve_formants, phase_locking,
-                                     device_out=mesh is not None)
-
         if mesh is None:
-            return np.stack([one(c) for c in range(n_ch)])
+            return _render_rows(wav_ch, plan, preserve_formants,
+                                phase_locking, dev)
         from ..parallel.sharded import _data_rows, _gather_data
 
         d = mesh.shape["data"]
         n_b = d * -(-n_ch // d)
         wav_ch = np.pad(wav_ch, ((0, n_b - n_ch), (0, 0)))
-        mine = torch.stack([one(c) for c in _data_rows(mesh, n_b)])
+        mine = torch.stack([
+            _render_with_plan(track_on_device(wav_ch[c], dev), plan,
+                              preserve_formants, phase_locking,
+                              device_out=True)
+            for c in _data_rows(mesh, n_b)])
         out = torch.cat(_gather_data(mesh, mine))[:n_ch]
         with tracing.span("d2h", bytes=out.nbytes):
             return out.cpu().numpy()
+
+
+def _render_rows(wav_ch: np.ndarray, plan: PVPlan, preserve_formants: bool,
+                 phase_locking: bool, dev) -> np.ndarray:
+    """(C, n) float32 channels through ``plan`` on ``dev`` with one copy
+    each way.  The array goes up as it lies: where it is the transpose of a
+    C-contiguous (n, C) take (``channels_last``), as that take.  Each
+    channel, a row or a column of the upload, is made contiguous on the
+    device, rendered, and written into one output laid out as the input,
+    which comes down in one copy.  Other strides take one host copy first."""
+    channels_last = (not wav_ch.flags.c_contiguous
+                     and wav_ch.flags.f_contiguous)
+    if channels_last:
+        (take,) = _build.upload(dev, wav_ch.T)
+        rows = take.T
+    else:
+        (rows,) = _build.upload(dev, np.ascontiguousarray(wav_ch))
+    n_ch = rows.shape[0]
+    out = torch.empty((plan.n_out, n_ch) if channels_last
+                      else (n_ch, plan.n_out), dtype=torch.float32,
+                      device=dev)
+    out_rows = out.T if channels_last else out
+    for c in range(n_ch):
+        out_rows[c].copy_(_render_with_plan(
+            rows[c].contiguous(), plan, preserve_formants, phase_locking,
+            device_out=True))
+    with tracing.span("d2h", bytes=out.nbytes):
+        host = out.cpu().numpy()
+    return host.T if channels_last else host

@@ -185,11 +185,28 @@ def test_a_session_records_its_host_work_and_its_download(recorder, take):
     recs = recorder.records()
     names = by_name(recs)
     assert recs[0].name == "render_session" and recs[0].parent is None
+    # a C-contiguous float32 take: no downmix, split or transpose
     host = [recs[i] for i in names["session.host"]]
-    assert [h.counts["bytes"] for h in host] == [stereo.nbytes, out.nbytes]
+    assert [h.counts for h in host] == [{"passes": 0, "bytes": 0}]
     assert [recs[i].parent for i in names["render_channels_pv"]] == [0]
     assert len(names["render_channels_pv"]) == 1
-    assert len(names["d2h"]) == 2  # one render a channel
+    # one download of the whole (n_out, 2) render
+    assert [recs[i].counts["bytes"] for i in names["d2h"]] == [out.nbytes]
+    assert all(r.root == 0 for r in recs)
+
+
+def test_a_granular_session_counts_its_downmix_split_and_stack(recorder,
+                                                               take):
+    stereo = np.stack([take, 0.5 * take], axis=1)
+    out = session.render_session(stereo, [mt.Marker(*m) for m in MARKERS],
+                                 SR, engine="granular", mesh=None,
+                                 device="cpu")
+    recs = recorder.records()
+    host = [recs[i].counts for i in by_name(recs)["session.host"]]
+    # each pass counts the bytes it reads and writes
+    assert host == [{"passes": 1, "bytes": stereo.nbytes + take.nbytes},
+                    {"passes": 1, "bytes": 2 * stereo.nbytes},
+                    {"passes": 1, "bytes": 2 * out.nbytes}]
     assert all(r.root == 0 for r in recs)
 
 
