@@ -33,9 +33,10 @@ bin order with (size // 2 + 1)-bin phase state.  Formant preservation
 envelope gain in PyTorch between B2 and B3, and enters B3 with (mag, phi)
 instead of (re, im).  Identity phase locking (``phase_locking``,
 :func:`identity_lock`) runs inside B3's synthesis launch.  Frame sizes other
-than B2/B3's 2048 take the JAX package's unfused natural path: B9's frame
-fetch, ``torch.fft.rfft``, B3's phase formulas in torch and the inverse
-rfft + overlap-add.  A multichannel render (:func:`render_channels_pv`)
+than B2/B3's 2048 take the JAX package's unfused natural path, which the
+same wrappers pick: B9's frame fetch, ``torch.fft.rfft``, B3's phase
+formulas in torch and the inverse rfft + overlap-add.  A multichannel
+render (:func:`render_channels_pv`)
 shares one plan across its channels.
 """
 
@@ -48,7 +49,6 @@ import torch
 
 from ..config import DEFAULT_CONFIG, Config
 from ..kernels import _build
-from ..kernels import frames as kframes
 from ..kernels import pv as kpv
 from ..kernels import resample as kres
 from ..kernels.pv import identity_lock  # noqa: F401  (its engine-level name)
@@ -349,45 +349,32 @@ def _stretch_chunk_core(wav, starts_c, da_c, window, m0: int, f_real: int,
     The phase prefix sum carries across chunks (``resid_in``) and OLA
     overlaps add linearly, so chunking matches a one-shot stretch up to the
     float32 rounding of the running phase sum — no phase resets, no
-    crossfades.  Frame starts are int32 (exact at any track length).  At
-    2048-point frames analysis is B2 and the phase/lock/synthesis/OLA chain
-    B3 on a CUDA tensor, their plain twins on a CPU tensor.  Other sizes take
-    the JAX package's unfused natural path on any device: the frame fetch
-    (B9 for the shapes ``kframes.supported`` takes, a gather otherwise),
-    ``torch.fft.rfft``, and B3's formulas in torch (its plain twin, with an
-    inverse rfft and overlap-add).  With ``formant`` the magnitudes are
+    crossfades.  Frame starts are int32 (exact at any track length).
+    Analysis is ``kpv.analysis`` and the phase/lock/synthesis/OLA chain
+    ``kpv.synth_ola_phase``: B2 and B3 at 2048-point frames on a CUDA
+    tensor, their plain twins on a CPU tensor; other sizes take the JAX
+    package's unfused natural path on any device (the frame fetch, B9 where
+    it takes the shape, ``torch.fft.rfft``, and B3's formulas in torch with
+    an inverse rfft and overlap-add).  With ``formant`` the magnitudes are
     warped by :func:`_formant_gain` at the chunk's per-frame pitch rates
     ``rho_c`` and B3 takes ``(mag, phi)``.  With ``lock`` the synthesis
     phases are identity-locked (:func:`identity_lock`, peaks picked on the
     warped magnitudes): a per-frame transform, no carried state.
     """
-    re, im = _analysis(wav, starts_c, window, size)
-    synth = (kpv.synth_ola_phase if size == kpv.FFT_N
-             else kpv.synth_ola_phase_plain)
+    re, im = kpv.analysis(wav, starts_c, window, size)
     if not formant:
-        return synth(re, im, da_c, window, m0, f_real, phi0, resid_in,
-                     phi_prev, size, hop, cart=True, lock=lock)
+        return kpv.synth_ola_phase(re, im, da_c, window, m0, f_real, phi0,
+                                   resid_in, phi_prev, size, hop, cart=True,
+                                   lock=lock)
     mag = torch.sqrt(re * re + im * im)
     phi = torch.atan2(im, re)
     del re, im
     with tracing.span("pv.formant", device=mag.device if mag.is_cuda else None,
                       frames=mag.shape[0], bins=size // 2 + 1, ceps=n_ceps):
         mag.mul_(_formant_gain(mag, rho_c, size, n_ceps))
-    return synth(mag, phi, da_c, window, m0, f_real, phi0, resid_in, phi_prev,
-                 size, hop, cart=False, lock=lock)
-
-
-def _analysis(wav, starts, window, size: int):
-    """Natural-order (re, im) of the windowed frames at ``starts``: B2 at
-    2048 points, otherwise the frame fetch (B9 for the shapes
-    ``kframes.supported`` takes, a gather otherwise) and ``torch.fft.rfft``;
-    a CPU tensor runs the twins."""
-    if size == kpv.FFT_N:
-        return kpv.analysis(wav, starts, window, size)
-    fetch = (kframes.extract_frames if kframes.supported(size, len(starts))
-             else kframes.extract_frames_plain)
-    spec = torch.fft.rfft(fetch(wav, starts, size) * window[None, :])
-    return spec.real, spec.imag
+    return kpv.synth_ola_phase(mag, phi, da_c, window, m0, f_real, phi0,
+                               resid_in, phi_prev, size, hop, cart=False,
+                               lock=lock)
 
 
 def _formant_gain(mag, rho_m, size: int, n_ceps: int = 40):

@@ -9,8 +9,9 @@ optionally a harmonic-product-spectrum detector and a hybrid of the two.
 
 The autocorrelation of 2048-sample frames at 128-aligned hops is kernel B8
 on a CUDA tensor and its plain twin on a CPU tensor
-(``kernels/pitch.py``); other frame sizes take the plain formulation, as
-the JAX package sends them to XLA.  The rest of the device half is plain
+(``kernels/pitch.py``); other frame sizes take the twin's plain
+formulation on any device, as the JAX package sends them to XLA.  The
+rest of the device half is plain
 PyTorch (XLA in the JAX package); the host half is the JAX package's
 float64 NumPy, copied.
 
@@ -166,13 +167,11 @@ def _centered_frames(wav: torch.Tensor, frame: int, hop: int, n_frames: int):
 
 def _pitch_device(wav: torch.Tensor, frame: int, hop: int, n_frames: int,
                   lag_min: int, lag_max: int):
-    """(lag, clarity, energy) on the device of ``wav``: B8 for the shapes
-    it takes, the plain formulation otherwise."""
-    if kpitch.supported(frame, hop, n_frames):
-        ac, w = kpitch.pitch_ac(wav, frame, hop, n_frames)
-        return pitch_core(w, frame, lag_min, lag_max, ac=ac)
-    return pitch_core(_centered_frames(wav, frame, hop, n_frames), frame,
-                      lag_min, lag_max)
+    """(lag, clarity, energy) on the device of ``wav``: the frames and
+    their autocorrelation from ``kpitch.pitch_ac`` (B8 for the shapes it
+    takes, its twin otherwise), then :func:`pitch_core`."""
+    ac, w = kpitch.pitch_ac(wav, frame, hop, n_frames)
+    return pitch_core(w, frame, lag_min, lag_max, ac=ac)
 
 
 def _hps_device(wav: torch.Tensor, frame: int, hop: int, n_frames: int,

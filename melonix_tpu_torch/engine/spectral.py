@@ -6,10 +6,10 @@ Counterpart of ``melonix_tpu/engine/spectral.py``.
   screen column, anchored at the column's end sample, with an exponential
   decay before its start; batched into one launch of kernel B7
   (:func:`spectrogram_columns_device`) on a CUDA tensor at the sizes the
-  TPU kernel took, its plain twin elsewhere.
-* The Hann |STFT| (:func:`stft_mags_device`): B1 at 2048 points, B12 at the
-  other sizes the TPU kernels took, plain ``torch.fft.rfft`` elsewhere (as
-  the JAX package runs XLA there).
+  TPU kernel took, its plain twin elsewhere (the wrapper picks).
+* The Hann |STFT| (:func:`stft_mags_device`, ``kernels.stft.stft_mags``):
+  B1 at 2048 points, B12 at the other sizes the TPU kernels took, plain
+  ``torch.fft.rfft`` elsewhere (as the JAX package runs XLA there).
 * The plain complex STFT (:func:`stft_device`, its host wrapper
   :func:`stft`, the frame matrix :func:`extract_hop_frames`) and the
   overlap-add inverse (:func:`istft_device`, :func:`ola_device`).
@@ -72,15 +72,14 @@ def track_on_device(wav, device=None) -> torch.Tensor:
 def spectrogram_columns_device(wav, start, end, size: int = DEFAULT_CONFIG.spectr_size,
                                decay: float = DEFAULT_CONFIG.spec_decay):
     """Batched reference-parity columns: (B, size // 2) float32 magnitudes
-    normalized by ``size``, on the device of ``wav``.  The sizes the TPU
-    kernel took (``kcols.supported``) go to B7, the rest to its plain twin
-    (as the JAX package runs XLA there); a CPU tensor runs the twin.
-    ``start``/``end`` are int32 (B,) sample ranges."""
-    fn = (kcols.spectrogram_columns_fused if kcols.supported(size)
-          else kcols.spectrogram_columns_plain)
-    return fn(wav, start.to(torch.int32).contiguous(),
-              end.to(torch.int32).contiguous(), 1.0, size=size, decay=decay,
-              colormap=False)
+    normalized by ``size``, on the device of ``wav``: B7 at the sizes the
+    TPU kernel took (``kcols.supported``), its plain twin at the rest (as
+    the JAX package runs XLA there) and on a CPU tensor.  ``start``/``end``
+    are int32 (B,) sample ranges."""
+    return kcols.spectrogram_columns_fused(
+        wav, start.to(torch.int32).contiguous(),
+        end.to(torch.int32).contiguous(), 1.0, size=size, decay=decay,
+        colormap=False)
 
 
 def spectrogram_columns(wav, starts, ends, config: Config = DEFAULT_CONFIG,
@@ -162,15 +161,10 @@ def stft_mags_device(wav: torch.Tensor, window: torch.Tensor, size: int,
                      hop: int, n_frames: int, scale: float = 1.0
                      ) -> torch.Tensor:
     """Fused ``|STFT|`` of the first size//2 bins: (n_frames, size//2) f32,
-    on the device of ``wav``.  2048 points go to B1, the other shapes the
-    TPU kernels took (``kstft.supported``) to B12, the rest to a plain rfft;
-    a CPU tensor runs the twins."""
-    if size == kpv.FFT_N:
-        return kpv.stft_mag(wav, window, size, hop, n_frames, scale=scale)
-    if kstft.supported(size, hop):
-        return kstft.stft_mag(wav, window, size, hop, n_frames, scale=scale)
-    spec = stft_device(wav, window, size, hop, n_frames)
-    return (spec[:, : size // 2].abs() * scale).to(torch.float32)
+    on the device of ``wav`` (``kstft.stft_mags``): 2048 points go to B1,
+    the other shapes the TPU kernels took (``kstft.supported``) to B12, the
+    rest to a plain rfft; a CPU tensor runs the twins."""
+    return kstft.stft_mags(wav, window, size, hop, n_frames, scale)
 
 
 # ----------------------------------------------------------------------

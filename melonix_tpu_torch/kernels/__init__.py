@@ -7,7 +7,9 @@
 ``columns`` holds B7 (``melonix_tpu/kernels/pallas_columns.py``), ``pitch``
 holds B8 (``melonix_tpu/kernels/pallas_pitch.py``), ``stft`` holds B12
 (``melonix_tpu/kernels/pallas_stft.py``).  A
-wrapper launches its kernel for a CUDA tensor, runs its plain twin for a CPU
-tensor, and raises for anything else; ``launches`` on each wrapper counts
-its kernel launches.
+wrapper alone picks kernel or twin: it launches its kernel for a CUDA tensor
+at a shape the kernel takes, runs its plain twin on the tensor's device
+for a CPU tensor or another shape, and raises for any other device.  Every
+launch goes through ``_build.launch``, which counts it in ``launches`` on
+the wrapper.
 """

@@ -14,7 +14,12 @@ server's worker and the caller) build once.  A launcher calls :func:`build`
 they find the library built.
 
 Each C entry point launches on the stream it is given and returns
-``cudaGetLastError()``; :func:`check` turns a non-zero code into an error.
+``cudaGetLastError()``.  :func:`launch` is the one place a wrapper of
+``kernels/`` launches one: it makes the operands' card current, opens the
+span ``kernel.<name>``, calls the entry on PyTorch's current stream, raises
+on a non-zero code (:func:`check`) and counts the launch on the wrapper
+(:func:`counted`).  A wrapper asks :func:`on_card` whether its tensor is on
+a card at all; it alone then picks its kernel or its plain twin.
 """
 
 from __future__ import annotations
@@ -264,7 +269,7 @@ def stream(device) -> int:
     its raw handle, read without building a ``torch.cuda.Stream`` object
     (which costs a short kernel's launch several microseconds more).  It
     reads the handle through ``torch._C._cuda_getCurrentRawStream``, a
-    private API of PyTorch that every wrapper relies on here; should it go,
+    private API of PyTorch that every launch relies on here; should it go,
     ``torch.cuda.current_stream(device).cuda_stream`` gives the same handle."""
     index = device.index
     if index is None:
@@ -272,15 +277,44 @@ def stream(device) -> int:
     return torch._C._cuda_getCurrentRawStream(index)
 
 
-def cuda_device(t):
-    """The CUDA device of ``t``; raises for any device but CUDA (CPU
-    tensors never reach here: the wrappers send them to the plain twins).
-    The C entry points launch on the calling thread's current device, so
-    every wrapper makes this one current around its call
-    (``torch.cuda.device``): a tensor on any card launches on its own."""
-    if t.device.type != "cuda":
-        raise ValueError(
-            f"no kernel for a tensor on {t.device}: CUDA launches the "
-            "kernel, CPU runs the plain twin"
-        )
-    return t.device
+def on_card(t) -> bool:
+    """Whether ``t`` is on a CUDA card, where a wrapper launches its kernel
+    (at the shapes the kernel takes); False on the CPU, where it runs its
+    plain twin.  Raises for any other device: no kernel and no twin runs
+    there in a wrapper's stead."""
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(
+        f"no kernel for a tensor on {t.device}: CUDA launches the "
+        "kernel, CPU runs the plain twin"
+    )
+
+
+COUNTED: list = []  # every wrapper that counts its launches
+
+
+def counted(fn):
+    """Give the wrapper ``fn`` its launch count, ``fn.launches`` (0 here;
+    :func:`launch` adds to it), and list it in :data:`COUNTED`."""
+    fn.launches = 0
+    COUNTED.append(fn)
+    return fn
+
+
+def launch(wrapper, name: str, entry: str, device, *args) -> None:
+    """Launch the C entry point ``entry`` on ``device``'s current stream:
+    ``device`` made the current card (the C side launches on the calling
+    thread's current card, so a tensor on any card launches on its own),
+    under the span ``kernel.<name>``, with ``args`` (a tensor by its data
+    pointer, held until the call returns) and the stream last; raises if
+    the entry reports an error (named ``name``), then adds one to
+    ``wrapper.launches``.  ``wrapper`` is the calling wrapper as its module
+    names it at the call, so that whatever holds that name meanwhile (a
+    benchmark's timer) keeps the count."""
+    ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    with torch.cuda.device(device), tracing.span("kernel." + name):
+        err = getattr(library(), entry)(*ptrs, stream(device))
+    check(name, err)
+    wrapper.launches += 1

@@ -19,9 +19,11 @@ other sizes up to ``kernels.stft.MAX_SIZE`` the frame tile of
 most as many as leave a CTA for each SM); above it (1024 * j, j = 49 .. 63)
 one 2-CTA cluster per column holding the frame in both CTAs' shared memory
 (``csrc/fft_mixed.cuh``, table :func:`cluster_table`).  Every route is one
-launch.  ``spectrogram_columns_fused`` launches it for a CUDA tensor,
-runs :func:`spectrogram_columns_plain` for a CPU tensor, and raises for
-anything else; ``spectrogram_columns_fused.launches`` counts its launches.
+launch.  ``spectrogram_columns_fused`` launches it for a CUDA tensor at
+the sizes :func:`supported` takes, runs :func:`spectrogram_columns_plain`
+on the tensor's device otherwise (a CPU tensor, or another size), and
+raises for any other device; ``spectrogram_columns_fused.launches`` counts
+its launches.
 """
 
 from __future__ import annotations
@@ -31,7 +33,6 @@ import torch
 
 import functools
 
-from ..utils import tracing
 from . import _build
 from . import stft  # the FFT routes and tables shared with B12
 from .stft import (MAX_SIZE, four_step_column_table, large_twiddles,
@@ -137,18 +138,18 @@ def spectrogram_columns_plain(wav, starts, ends, kgain, size: int = 32768,
     return _pack_rgb(mags, float(kgain)) if colormap else mags
 
 
+@_build.counted
 def spectrogram_columns_fused(wav, starts, ends, kgain, size: int = 32768,
                               decay: float = 2.5e-4,
                               colormap: bool = True) -> torch.Tensor:
-    """B7 (``csrc/spectrogram_columns.cu``); contract of
+    """B7 (``csrc/spectrogram_columns.cu``) at the sizes :func:`supported`
+    takes, :func:`spectrogram_columns_plain` at the rest; contract of
     :func:`spectrogram_columns_plain`.  ``starts``/``ends`` are int32 (B,)
     sample ranges; ``kgain`` a float (used with ``colormap`` only)."""
-    if wav.device.type == "cpu":
+    if not supported(size) or not _build.on_card(wav):
         return spectrogram_columns_plain(wav, starts, ends, kgain, size,
                                          decay, colormap)
-    dev = _build.cuda_device(wav)
-    if not supported(size):
-        raise ValueError(f"B7 takes no size {size}")
+    dev = wav.device
     way = route(size)
     b = starts.shape[0]
     _build.require(wav, "wav", torch.float32, (wav.shape[0],), dev)
@@ -157,25 +158,16 @@ def spectrogram_columns_fused(wav, starts, ends, kgain, size: int = 32768,
     out = torch.empty((b, size // 2),
                       dtype=torch.int32 if colormap else torch.float32,
                       device=dev)
-    lib = _build.library()
     entry, tw = {
-        "large": (lib.mlx_spectrogram_columns_large, large_twiddles),
-        "tile": (lib.mlx_spectrogram_columns, four_step_column_table),
-        "cluster": (lib.mlx_spectrogram_columns_cluster, cluster_table),
+        "large": ("mlx_spectrogram_columns_large", large_twiddles),
+        "tile": ("mlx_spectrogram_columns", four_step_column_table),
+        "cluster": ("mlx_spectrogram_columns_cluster", cluster_table),
     }[way]
-    with (torch.cuda.device(dev),
-          tracing.span("kernel.spectrogram_columns_fused")):
-        err = entry(
-            wav.data_ptr(), wav.shape[0], starts.data_ptr(), ends.data_ptr(),
-            tw(size, dev).data_ptr(), out.data_ptr(), b, size, -float(decay),
-            1.0 / size, float(kgain), int(colormap), _build.stream(dev),
-        )
-    _build.check("spectrogram_columns", err)
-    spectrogram_columns_fused.launches += 1
+    _build.launch(spectrogram_columns_fused, "spectrogram_columns_fused",
+                  entry, dev, wav, wav.shape[0], starts, ends, tw(size, dev),
+                  out, b, size, -float(decay), 1.0 / size, float(kgain),
+                  int(colormap))
     return out
-
-
-spectrogram_columns_fused.launches = 0
 
 
 def unpack_rgb(packed) -> np.ndarray:

@@ -9,18 +9,17 @@ copy of the track and realigned it with lane rolls; the port's kernel
 read past-the-end samples as 0, with no padded copy.  It is a pure copy, so
 it equals its twin bit for bit.
 
-:func:`supported` is the TPU kernel's predicate: the PV path sends the
-shapes it takes to :func:`extract_frames` and the rest to
-:func:`extract_frames_plain`, as the JAX package sends them to an XLA
-gather (``phase_vocoder.py:360-364``).  ``extract_frames.launches`` counts
-the kernel's launches.
+:func:`supported` is the TPU kernel's predicate: :func:`extract_frames`
+launches the kernel for a CUDA tensor at the shapes it takes and runs
+:func:`extract_frames_plain` on the tensor's device at the rest, as the JAX
+package sends them to an XLA gather (``phase_vocoder.py:360-364``).
+``extract_frames.launches`` counts the kernel's launches.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..utils import tracing
 from . import _build
 
 MAX_FRAMES = 200_000  # the TPU's SMEM bound on the starts array, kept
@@ -44,30 +43,20 @@ def extract_frames_plain(wav, starts, size: int) -> torch.Tensor:
     return torch.where(idx < n, wav[idx.clamp_max(max(n - 1, 0))], 0.0)
 
 
+@_build.counted
 def extract_frames(wav, starts, size: int) -> torch.Tensor:
-    """B9 (``csrc/extract_frames.cu``); contract of
-    :func:`extract_frames_plain` for the shapes :func:`supported` takes."""
-    if wav.device.type == "cpu":
-        return extract_frames_plain(wav, starts, size)
-    dev = _build.cuda_device(wav)
+    """B9 (``csrc/extract_frames.cu``) for the shapes :func:`supported`
+    takes, :func:`extract_frames_plain` at the rest; contract of
+    :func:`extract_frames_plain`."""
     f = starts.shape[0]
-    if not supported(size, f):
-        raise ValueError(f"B9 takes sizes that are multiples of 128 from 1024 "
-                         f"and up to {MAX_FRAMES} frames: got {size}, {f}")
+    if not supported(size, f) or not _build.on_card(wav):
+        return extract_frames_plain(wav, starts, size)
+    dev = wav.device
     _build.require(wav, "wav", torch.float32, (wav.shape[0],), dev)
     _build.require(starts, "starts", torch.int32, (f,), dev)
     if wav.shape[0] == 0:
         raise ValueError("wav is empty")
     out = torch.empty((f, size), dtype=torch.float32, device=dev)
-    lib = _build.library()
-    with (torch.cuda.device(dev),
-          tracing.span("kernel.extract_frames")):
-        err = lib.mlx_extract_frames(wav.data_ptr(), wav.shape[0],
-                                     starts.data_ptr(), out.data_ptr(), f,
-                                     size, _build.stream(dev))
-    _build.check("extract_frames", err)
-    extract_frames.launches += 1
+    _build.launch(extract_frames, "extract_frames", "mlx_extract_frames", dev,
+                  wav, wav.shape[0], starts, out, f, size)
     return out
-
-
-extract_frames.launches = 0

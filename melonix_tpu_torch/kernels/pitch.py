@@ -12,16 +12,16 @@ into a quiet partner; the scale is exact and undone on the output.  The
 kernel reads each frame once and writes ``w`` and ``ac``: device memory
 bounds it.
 
-``pitch_ac`` launches the kernel for a CUDA tensor, runs
-:func:`pitch_ac_plain` for a CPU tensor, and raises for anything else;
-``pitch_ac.launches`` counts its launches.
+``pitch_ac`` launches the kernel for a CUDA tensor at the shapes
+:func:`supported` takes, runs :func:`pitch_ac_plain` on the tensor's device
+otherwise (a CPU tensor, or a shape the kernel does not take), and raises
+for any other device; ``pitch_ac.launches`` counts its launches.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..utils import tracing
 from . import _build
 from .pv import hop_frames, pair_twiddles
 
@@ -47,28 +47,16 @@ def pitch_ac_plain(wav, frame: int, hop: int, n_frames: int):
     return ac.contiguous(), w.contiguous()
 
 
+@_build.counted
 def pitch_ac(wav, frame: int, hop: int, n_frames: int):
-    """B8 (``csrc/pitch_ac.cu``); contract of :func:`pitch_ac_plain`, for the
-    shapes :func:`supported` takes."""
-    if wav.device.type == "cpu":
+    """B8 (``csrc/pitch_ac.cu``) for the shapes :func:`supported` takes,
+    :func:`pitch_ac_plain` at the rest; contract of :func:`pitch_ac_plain`."""
+    if not supported(frame, hop, n_frames) or not _build.on_card(wav):
         return pitch_ac_plain(wav, frame, hop, n_frames)
-    dev = _build.cuda_device(wav)
-    if not supported(frame, hop, n_frames):
-        raise ValueError(f"B8 takes no (frame {frame}, hop {hop}, "
-                         f"{n_frames} frames)")
+    dev = wav.device
     _build.require(wav, "wav", torch.float32, (wav.shape[0],), dev)
     ac = torch.empty((n_frames, frame), dtype=torch.float32, device=dev)
     w = torch.empty_like(ac)
-    lib = _build.library()
-    with (torch.cuda.device(dev),
-          tracing.span("kernel.pitch_ac")):
-        err = lib.mlx_pitch_ac(
-            wav.data_ptr(), wav.shape[0], pair_twiddles(NFFT, dev).data_ptr(),
-            ac.data_ptr(), w.data_ptr(), n_frames, hop, _build.stream(dev),
-        )
-    _build.check("pitch_ac", err)
-    pitch_ac.launches += 1
+    _build.launch(pitch_ac, "pitch_ac", "mlx_pitch_ac", dev, wav, wav.shape[0],
+                  pair_twiddles(NFFT, dev), ac, w, n_frames, hop)
     return ac, w
-
-
-pitch_ac.launches = 0

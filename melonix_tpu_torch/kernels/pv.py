@@ -13,14 +13,16 @@ overlap-add carried in each CTA at the hops :func:`ola_route` names
 "fused".  B3's phase scan is blocked over frames and sums in float64
 (:func:`phase_scan`).
 
-Each wrapper takes the device of its input: a CUDA tensor launches the
-kernel (or raises), a CPU tensor runs the ``*_plain`` twin, anything else
+Each wrapper picks by its input's device and shape: a CUDA tensor at a
+shape its kernel takes launches the kernel, anything else on a CUDA or CPU
+tensor runs the ``*_plain`` twin on that tensor's device (as the JAX
+package runs XLA where its kernels take no shape), and any other device
 raises.  The twins are the CPU path and the reference the kernels are held
-to on the card.  B1-B3 and B10 take 2048-point frames only; the phase
-vocoder at other frame sizes runs the natural-order formulas of
-:func:`synth_ola_phase_plain` (and :func:`synth_ola_plain`) on any device
-(as the JAX package runs XLA there,
-``engine.phase_vocoder._stretch_chunk_core``).
+to on the card.  B1-B3 and B10 take 2048-point frames only: at other sizes
+:func:`analysis` fetches the frames through ``kernels.frames`` (B9) and
+runs ``torch.fft.rfft``, and :func:`synth_ola_phase` and :func:`synth_ola`
+run their twins' natural-order formulas.  B1 and the standalone
+:func:`phase_scan`, which no entry point calls at other sizes, raise there.
 """
 
 from __future__ import annotations
@@ -30,8 +32,8 @@ import functools
 import numpy as np
 import torch
 
-from ..utils import tracing
 from . import _build
+from . import frames as kframes
 
 FFT_N = 2048  # the only frame size the CUDA kernels take
 # float32 constants of the JAX formulas, as Python floats holding f32 values
@@ -41,11 +43,9 @@ TWO_PI = float(np.float32(2.0 * np.pi))
 
 def _no_size(size: int) -> NotImplementedError:
     return NotImplementedError(
-        f"B1-B3 (B3's (re, im) and (mag, phi) entries alike) take size "
-        f"{FFT_N}, got {size}: for the |STFT| at other sizes use "
-        "engine.spectral.stft_mags_device (B12); the phase vocoder takes "
-        "other sizes through engine.phase_vocoder (B9 and the natural-order "
-        "formulas of synth_ola_phase_plain)"
+        f"B1 and B3's phase scan take size {FFT_N}, got {size}: "
+        "kernels.stft.stft_mags takes the |STFT| at any size, analysis and "
+        "synth_ola_phase the phase vocoder's frames"
     )
 
 
@@ -98,34 +98,25 @@ def stft_mag_plain(wav, window, size: int, hop: int, n_frames: int,
     return (spec[:, : size // 2].abs() * scale).to(torch.float32)
 
 
+@_build.counted
 def stft_mag(wav, window, size: int, hop: int, n_frames: int,
              scale: float = 1.0) -> torch.Tensor:
     """B1 (``csrc/stft_mag.cu``: two frames per complex transform on
     ``fft_pair.cuh``); contract of :func:`stft_mag_plain`."""
-    if wav.device.type == "cpu":
+    if not _build.on_card(wav):
         return stft_mag_plain(wav, window, size, hop, n_frames, scale)
-    dev = _build.cuda_device(wav)
     if size != FFT_N:
         raise _no_size(size)
     if hop <= 0 or n_frames < 0:
         raise ValueError(f"hop {hop}, n_frames {n_frames}")
+    dev = wav.device
     _build.require(wav, "wav", torch.float32, (wav.shape[0],), dev)
     _build.require(window, "window", torch.float32, (size,), dev)
     out = torch.empty((n_frames, size // 2), dtype=torch.float32, device=dev)
-    lib = _build.library()
-    with (torch.cuda.device(dev),
-          tracing.span("kernel.stft_mag")):
-        err = lib.mlx_stft_mag(
-            wav.data_ptr(), wav.shape[0], window.data_ptr(),
-            pair_twiddles(FFT_N, dev).data_ptr(), out.data_ptr(), n_frames,
-            hop, float(scale), _build.stream(dev),
-        )
-    _build.check("stft_mag", err)
-    stft_mag.launches += 1
+    _build.launch(stft_mag, "stft_mag", "mlx_stft_mag", dev, wav,
+                  wav.shape[0], window, pair_twiddles(FFT_N, dev), out,
+                  n_frames, hop, float(scale))
     return out
-
-
-stft_mag.launches = 0
 
 
 # ----------------------------------------------------------------------
@@ -145,14 +136,20 @@ def analysis_plain(wav, starts, window, size: int):
     return spec.real.contiguous(), spec.imag.contiguous()
 
 
+@_build.counted
 def analysis(wav, starts, window, size: int):
     """B2 (``csrc/pv_analysis.cu``: two frames per complex transform on
-    ``fft_pair.cuh``); contract of :func:`analysis_plain`."""
-    if wav.device.type == "cpu":
-        return analysis_plain(wav, starts, window, size)
-    dev = _build.cuda_device(wav)
+    ``fft_pair.cuh``); contract of :func:`analysis_plain`.  At sizes other
+    than 2048 on any device: the frame fetch of
+    ``kernels.frames.extract_frames`` (B9 where it takes the shape) and
+    ``torch.fft.rfft``, as the JAX package runs them."""
     if size != FFT_N:
-        raise _no_size(size)
+        frames = kframes.extract_frames(wav, starts, size)
+        spec = torch.fft.rfft(frames * window[None, :])
+        return spec.real, spec.imag
+    if not _build.on_card(wav):
+        return analysis_plain(wav, starts, window, size)
+    dev = wav.device
     f = starts.shape[0]
     _build.require(wav, "wav", torch.float32, (wav.shape[0],), dev)
     _build.require(starts, "starts", torch.int32, (f,), dev)
@@ -161,20 +158,10 @@ def analysis(wav, starts, window, size: int):
         raise ValueError("wav is empty")
     re = torch.empty((f, size // 2 + 1), dtype=torch.float32, device=dev)
     im = torch.empty_like(re)
-    lib = _build.library()
-    with (torch.cuda.device(dev),
-          tracing.span("kernel.analysis")):
-        err = lib.mlx_pv_analysis(
-            wav.data_ptr(), wav.shape[0], starts.data_ptr(),
-            window.data_ptr(), pair_twiddles(FFT_N, dev).data_ptr(),
-            re.data_ptr(), im.data_ptr(), f, _build.stream(dev),
-        )
-    _build.check("analysis", err)
-    analysis.launches += 1
+    _build.launch(analysis, "analysis", "mlx_pv_analysis", dev, wav,
+                  wav.shape[0], starts, window, pair_twiddles(FFT_N, dev), re,
+                  im, f)
     return re, im
-
-
-analysis.launches = 0
 
 
 # ----------------------------------------------------------------------
@@ -330,9 +317,7 @@ def _scan_operands(a, b, da, phi0, resid_in, phi_prev, size: int, hop: int,
     """Check B3's operands on CUDA; allocate the scan's outputs and scratch:
     (s_re, s_im, s_phi or None, float64 tile scratch, resid_last, phi_last,
     phi0_eff)."""
-    dev = _build.cuda_device(a)
-    if size != FFT_N:
-        raise _no_size(size)
+    dev = a.device
     f = a.shape[0]
     nb = size // 2 + 1
     if f == 0 or hop <= 0:
@@ -353,36 +338,26 @@ def _scan_operands(a, b, da, phi0, resid_in, phi_prev, size: int, hop: int,
     return (s_re, s_im, s_phi, scratch, *carries)
 
 
+@_build.counted
 def phase_scan(a, b, da, m0: int, f_real: int, phi0, resid_in, phi_prev,
                size: int, hop: int, cart: bool = True, lock: bool = False):
     """B3's phase scan launches alone (``mlx_pv_phase_scan``), for timing
     and checking the scan apart from the synthesis; contract of
     :func:`phase_scan_plain`.  The render path runs the same launches inside
     :func:`synth_ola_phase`."""
-    if a.device.type == "cpu":
+    if not _build.on_card(a):
         return phase_scan_plain(a, b, da, m0, f_real, phi0, resid_in,
                                 phi_prev, size, hop, cart, lock)
+    if size != FFT_N:
+        raise _no_size(size)
     out = _scan_operands(a, b, da, phi0, resid_in, phi_prev, size, hop, cart,
                          lock)
     s_re, s_im, s_phi, scratch, resid_last, phi_last, phi0_eff = out
-    dev = a.device
-    lib = _build.library()
-    with (torch.cuda.device(dev),
-          tracing.span("kernel.phase_scan")):
-        err = lib.mlx_pv_phase_scan(
-            *(t.data_ptr() for t in (a, b, da, phi0, resid_in, phi_prev,
-                                     scratch, s_re, s_im)),
-            s_phi.data_ptr() if lock else None,
-            *(t.data_ptr() for t in (resid_last, phi_last, phi0_eff)),
-            a.shape[0], int(m0), int(f_real), hop, int(bool(cart)),
-            int(bool(lock)), _build.stream(dev),
-        )
-    _build.check("phase_scan", err)
-    phase_scan.launches += 1
+    _build.launch(phase_scan, "phase_scan", "mlx_pv_phase_scan", a.device, a,
+                  b, da, phi0, resid_in, phi_prev, scratch, s_re, s_im, s_phi,
+                  resid_last, phi_last, phi0_eff, a.shape[0], int(m0),
+                  int(f_real), hop, int(bool(cart)), int(bool(lock)))
     return s_re, s_im, s_phi, resid_last, phi_last, phi0_eff
-
-
-phase_scan.launches = 0
 
 
 # The overlap-add routes of B3's and B10's synthesis (csrc/pv_synth.cuh
@@ -413,6 +388,7 @@ def _fused(hop: int, route: str | None) -> bool:
     return want == "fused"
 
 
+@_build.counted
 def synth_ola_phase(a, b, da, window, m0: int, f_real: int, phi0,
                     resid_in, phi_prev, size: int, hop: int, cart: bool = True,
                     lock: bool = False, route: str | None = None):
@@ -422,9 +398,9 @@ def synth_ola_phase(a, b, da, window, m0: int, f_real: int, phi0,
     two); contract of :func:`synth_ola_phase_plain`.  ``cart`` picks the
     phase scan's entry, ``(re, im)`` or ``(mag, phi)``, and ``lock`` adds
     identity locking to the synthesis launch; one wrapper call, one count,
-    either way."""
+    either way.  At sizes other than 2048 on any device: the twin."""
     fused = _fused(hop, route)
-    if a.device.type == "cpu":
+    if size != FFT_N or not _build.on_card(a):
         return synth_ola_phase_plain(a, b, da, window, m0, f_real, phi0,
                                      resid_in, phi_prev, size, hop, cart, lock)
     out = _scan_operands(a, b, da, phi0, resid_in, phi_prev, size, hop, cart,
@@ -436,25 +412,12 @@ def synth_ola_phase(a, b, da, window, m0: int, f_real: int, phi0,
     frames = None if fused else torch.empty((f, size), dtype=torch.float32,
                                             device=dev)  # scratch
     y = torch.empty(((f - 1) * hop + size,), dtype=torch.float32, device=dev)
-    lib = _build.library()
-    with (torch.cuda.device(dev),
-          tracing.span("kernel.synth_ola_phase")):
-        err = lib.mlx_pv_synth_ola_phase(
-            *(t.data_ptr() for t in (
-                a, b, da, window, pair_twiddles(FFT_N, dev), phi0, resid_in,
-                phi_prev, scratch, s_re, s_im)),
-            s_phi.data_ptr() if lock else None,
-            None if fused else frames.data_ptr(),
-            *(t.data_ptr() for t in (y, resid_last, phi_last, phi0_eff)),
-            f, int(m0), int(f_real), hop, int(bool(cart)), int(bool(lock)),
-            int(fused), _build.stream(dev),
-        )
-    _build.check("synth_ola_phase", err)
-    synth_ola_phase.launches += 1
+    _build.launch(synth_ola_phase, "synth_ola_phase", "mlx_pv_synth_ola_phase",
+                  dev, a, b, da, window, pair_twiddles(FFT_N, dev), phi0,
+                  resid_in, phi_prev, scratch, s_re, s_im, s_phi, frames, y,
+                  resid_last, phi_last, phi0_eff, f, int(m0), int(f_real),
+                  hop, int(bool(cart)), int(bool(lock)), int(fused))
     return y, resid_last, phi_last, phi0_eff
-
-
-synth_ola_phase.launches = 0
 
 
 # ----------------------------------------------------------------------
@@ -478,18 +441,18 @@ def synth_ola_plain(mag, psi, window, size: int, hop: int) -> torch.Tensor:
     ).reshape(out_len)
 
 
+@_build.counted
 def synth_ola(mag, psi, window, size: int, hop: int,
               route: str | None = None) -> torch.Tensor:
     """B10 (``csrc/pv_synth_ola.cu``: B3's pair synthesis in its polar
     mode, the overlap-add on the route :func:`ola_route` picks, or
     ``route`` where given); contract of :func:`synth_ola_plain`.  ``mag``
-    is already masked to the live frames; size 2048, any hop >= 1."""
+    is already masked to the live frames; the kernel at size 2048, any hop
+    >= 1, the twin at other sizes on any device."""
     fused = _fused(hop, route)
-    if mag.device.type == "cpu":
+    if size != FFT_N or not _build.on_card(mag):
         return synth_ola_plain(mag, psi, window, size, hop)
-    dev = _build.cuda_device(mag)
-    if size != FFT_N:
-        raise _no_size(size)
+    dev = mag.device
     f = mag.shape[0]
     if f == 0 or hop <= 0:
         raise ValueError(f"{f} frames, hop {hop}")
@@ -501,18 +464,7 @@ def synth_ola(mag, psi, window, size: int, hop: int,
     frames = None if fused else torch.empty((f, size), dtype=f32,
                                             device=dev)  # scratch
     y = torch.empty(((f - 1) * hop + size,), dtype=f32, device=dev)
-    lib = _build.library()
-    with (torch.cuda.device(dev),
-          tracing.span("kernel.synth_ola")):
-        err = lib.mlx_pv_synth_ola(
-            mag.data_ptr(), psi.data_ptr(), window.data_ptr(),
-            pair_twiddles(FFT_N, dev).data_ptr(),
-            None if fused else frames.data_ptr(), y.data_ptr(), f, hop,
-            int(fused), _build.stream(dev),
-        )
-    _build.check("synth_ola", err)
-    synth_ola.launches += 1
+    _build.launch(synth_ola, "synth_ola", "mlx_pv_synth_ola", dev, mag, psi,
+                  window, pair_twiddles(FFT_N, dev), frames, y, f, hop,
+                  int(fused))
     return y
-
-
-synth_ola.launches = 0

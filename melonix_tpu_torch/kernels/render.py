@@ -32,7 +32,6 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..utils import tracing
 from . import _build
 
 CBLK = 2048  # output samples per compact block
@@ -128,15 +127,16 @@ def render_granular_plain(wav, gs, rate, sz, off, out_len: int,
     return torch.where(live, val, 0.0)
 
 
+@_build.counted
 def render_granular(wav, gs, rate, sz, off, a0, cnt, out_len: int,
                     szmax: int) -> torch.Tensor:
     """B5 + B6 (``csrc/render_granular.cu``): contract of
     :func:`render_granular_plain` for int32 plans and ``out_len < 2^31``;
     ``a0``/``cnt`` (from :func:`compact_blocks`) give each 2048-sample
     block's candidate steps, which its CTA stages in shared memory."""
-    if wav.device.type == "cpu":
+    if not _build.on_card(wav):
         return render_granular_plain(wav, gs, rate, sz, off, out_len, szmax)
-    dev = _build.cuda_device(wav)
+    dev = wav.device
     n_steps = gs.shape[0]
     if n_steps == 0 or szmax <= 0 or wav.shape[0] == 0:
         raise ValueError(f"empty render: {n_steps} steps, szmax {szmax}, "
@@ -152,21 +152,10 @@ def render_granular(wav, gs, rate, sz, off, a0, cnt, out_len: int,
     _build.require(a0, "a0", torch.int32, (nb,), dev)
     _build.require(cnt, "cnt", torch.int32, (nb,), dev)
     out = torch.empty((out_len,), dtype=torch.float32, device=dev)
-    lib = _build.library()
-    with (torch.cuda.device(dev),
-          tracing.span("kernel.render_granular")):
-        err = lib.mlx_render_granular(
-            wav.data_ptr(), wav.shape[0], gs.data_ptr(), rate.data_ptr(),
-            sz.data_ptr(), off.data_ptr(), n_steps, a0.data_ptr(),
-            cnt.data_ptr(), szmax, out.data_ptr(), out_len,
-            _build.stream(dev),
-        )
-    _build.check("render_granular", err)
-    render_granular.launches += 1
+    _build.launch(render_granular, "render_granular", "mlx_render_granular",
+                  dev, wav, wav.shape[0], gs, rate, sz, off, n_steps, a0, cnt,
+                  szmax, out, out_len)
     return out
-
-
-render_granular.launches = 0
 
 
 def render_full(wav, grain_start, rate, sz, offsets, out_len: int, fix_idx,

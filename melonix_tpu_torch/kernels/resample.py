@@ -21,7 +21,6 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..utils import tracing
 from . import _build
 
 BLK = 2048  # output samples per block
@@ -131,16 +130,17 @@ def upload_pv_operands(base, a0, cnt, anc_j, anc_src, anc_r, anc_s,
                                 (anc_src, anc_r, anc_s), device)
 
 
+@_build.counted
 def resample_pv(y, base, a0, cnt, anc_j, anc_src, anc_r, anc_s, sr: int,
                 n_out: int) -> torch.Tensor:
     """B4 (``csrc/resample_pv.cu``): contract of :func:`resample_pv_plain`
     for sources under 2^31 samples with ``base`` from :func:`block_bases`;
     ``a0``/``cnt`` (from :func:`pv_anchor_blocks`) give each block's anchor
     range, which its CTA stages once in shared memory."""
-    if y.device.type == "cpu":
+    if not _build.on_card(y):
         return resample_pv_plain(y, base, anc_j, anc_src, anc_r, anc_s, sr,
                                  n_out)
-    dev = _build.cuda_device(y)
+    dev = y.device
     if n_out % BLK != 0:
         raise ValueError(f"n_out {n_out} is not a multiple of {BLK}")
     nb = n_out // BLK
@@ -155,21 +155,10 @@ def resample_pv(y, base, a0, cnt, anc_j, anc_src, anc_r, anc_s, sr: int,
     for name, t in (("anc_src", anc_src), ("anc_r", anc_r), ("anc_s", anc_s)):
         _build.require(t, name, torch.float32, (n_anc,), dev)
     out = torch.empty((n_out,), dtype=torch.float32, device=dev)
-    lib = _build.library()
-    with (torch.cuda.device(dev),
-          tracing.span("kernel.resample_pv")):
-        err = lib.mlx_resample_pv(
-            y.data_ptr(), y.shape[0], base.data_ptr(), a0.data_ptr(),
-            cnt.data_ptr(), anc_j.data_ptr(), anc_src.data_ptr(),
-            anc_r.data_ptr(), anc_s.data_ptr(), n_anc, out.data_ptr(), n_out,
-            int(sr), _build.stream(dev),
-        )
-    _build.check("resample_pv", err)
-    resample_pv.launches += 1
+    _build.launch(resample_pv, "resample_pv", "mlx_resample_pv", dev, y,
+                  y.shape[0], base, a0, cnt, anc_j, anc_src, anc_r, anc_s,
+                  n_anc, out, n_out, int(sr))
     return out
-
-
-resample_pv.launches = 0
 
 
 def resample_lerp_plain(y, pos, base, rows: int) -> torch.Tensor:
@@ -189,15 +178,16 @@ def resample_lerp_plain(y, pos, base, rows: int) -> torch.Tensor:
     return lerp(frac, tap(i0), tap(i0 + 1))
 
 
+@_build.counted
 def resample_lerp(y, pos, base, rows: int) -> torch.Tensor:
     """B11 (``csrc/resample_lerp.cu``): contract of
     :func:`resample_lerp_plain`; ``len(pos)`` is a multiple of BLK and
     ``base`` holds one int32 per block.  On the card: the window entry that
     :class:`LerpReader` reads through, over the whole output into device
     memory."""
-    if y.device.type == "cpu":
+    if not _build.on_card(y):
         return resample_lerp_plain(y, pos, base, rows)
-    dev = _build.cuda_device(y)
+    dev = y.device
     n_out = pos.shape[0]
     if n_out % BLK != 0 or n_out >= 1 << 31 or rows < 1:
         raise ValueError(f"n_out {n_out} (a multiple of {BLK} under 2^31), "
@@ -210,18 +200,9 @@ def resample_lerp(y, pos, base, rows: int) -> torch.Tensor:
     out = torch.empty((n_out,), dtype=torch.float32, device=dev)
     if n_out == 0:
         return out
-    lib = _build.library()
-    with (torch.cuda.device(dev),
-          tracing.span("kernel.resample_lerp")):
-        err = lib.mlx_resample_lerp_window(
-            y.data_ptr(), y.shape[0], pos.data_ptr(), base.data_ptr(), 0,
-            n_out, int(rows), out.data_ptr(), 0, _build.stream(dev))
-    _build.check("resample_lerp", err)
-    resample_lerp.launches += 1
+    _build.launch(resample_lerp, "resample_lerp", "mlx_resample_lerp_window",
+                  dev, y, y.shape[0], pos, base, 0, n_out, int(rows), out, 0)
     return out
-
-
-resample_lerp.launches = 0
 
 
 def _pinned(n: int) -> torch.Tensor:
@@ -236,9 +217,9 @@ class LerpReader:
     mapped into the card's address space, waits for it, and returns them;
     each sample is :func:`resample_lerp_plain`'s over the covering blocks,
     bit for bit.  The launch goes on the device's current stream, so it
-    follows whatever the caller queued there; where another card is current,
-    the read makes the reader's card current for its launch.  Launches count
-    on ``resample_lerp.launches``.  CUDA only: other tensors raise.
+    follows whatever the caller queued there, with the reader's card made
+    current for it.  Launches count on ``resample_lerp.launches``.  CUDA
+    only: other tensors raise.
     """
 
     def __init__(self, y, pos, base, rows: int):
@@ -251,15 +232,15 @@ class LerpReader:
         _build.require(y, "y", torch.float32, (y.shape[0],), y.device)
         _build.require(pos, "pos", torch.float32, (n_out,), y.device)
         _build.require(base, "base", torch.int32, (n_out // BLK,), y.device)
-        self.device = _build.cuda_device(y)
-        self._index = (torch.cuda.current_device() if self.device.index is None
-                       else self.device.index)
+        if not _build.on_card(y):
+            raise ValueError(f"no kernel for a tensor on {y.device}: a "
+                             "LerpReader reads from a card")
+        self.device = y.device
         self.n_out = n_out
         self._ops = (y, pos, base)  # keeps the addresses alive
         self._args = (y.data_ptr(), y.shape[0], pos.data_ptr(),
                       base.data_ptr())
         self._rows = int(rows)
-        self._lib = _build.library()
         self._host = self._host_np = None
         self._host_ptr = 0
 
@@ -279,16 +260,10 @@ class LerpReader:
         if not (0 <= j and 0 < n and j + n <= self.n_out):
             raise ValueError(f"window [{j}, {j + n}) outside [0, "
                              f"{self.n_out})")
-        if torch.cuda.current_device() != self._index:
-            with torch.cuda.device(self._index):
-                return self.launch(j, n, wait)
         self._buffer(n)
-        with tracing.span("kernel.resample_lerp"):
-            err = self._lib.mlx_resample_lerp_window(
-                *self._args, j, n, self._rows, self._host_ptr, int(wait),
-                _build.stream(self.device))
-        _build.check("resample_lerp_window", err)
-        resample_lerp.launches += 1
+        _build.launch(resample_lerp, "resample_lerp",
+                      "mlx_resample_lerp_window", self.device, *self._args, j,
+                      n, self._rows, self._host_ptr, int(wait))
 
     def read(self, j: int, n: int) -> np.ndarray:
         """Samples [j, j + n) as a view of the host buffer, valid until the

@@ -22,9 +22,12 @@ fit a tile, are Bluestein convolutions: on the cluster transform up to
 through device scratch above (:func:`bluestein_scratch_plan`, at most
 :data:`BLUESTEIN_WORK` bytes of work space).
 
-``stft_mag`` launches the kernel for a CUDA tensor, runs
-:func:`stft_mag_plain` for a CPU tensor, and raises for anything else;
-``stft_mag.launches`` counts its launches, one a call whatever the route.
+``stft_mag`` launches the kernel for a CUDA tensor at the shapes
+:func:`supported` takes, runs :func:`stft_mag_plain` on the tensor's device
+otherwise (a CPU tensor, or another shape), and raises for any other
+device; ``stft_mag.launches`` counts its launches, one a call whatever the
+route.  :func:`stft_mags` is the |STFT| at any shape: B1 at 2048 points,
+``stft_mag`` at the others.
 The tables are shared with B7 (``kernels/columns.py``): :func:`unit_roots`,
 :func:`twiddles`, :func:`large_twiddles`, :func:`four_step_column_table`.
 """
@@ -36,13 +39,14 @@ import functools
 import numpy as np
 import torch
 
-from ..utils import tracing
 from . import _build
+from . import pv as kpv
 from .pv import PAIR_SIZES, pair_twiddles
 from .pv import stft_mag_plain  # size-generic: the twin of B1 and B12
 
 __all__ = ["MAX_SIZE", "LARGE_SIZES", "BLUESTEIN_MAX", "BLUESTEIN_WORK",
-           "supported", "route", "stft_mag", "stft_mag_plain", "twiddles",
+           "supported", "route", "stft_mag", "stft_mag_plain", "stft_mags",
+           "twiddles",
            "unit_roots", "large_pass_table", "large_twiddles",
            "bluestein_cluster", "bluestein_table", "bluestein_scratch_plan",
            "bluestein_scratch_table", "four_step_plan", "four_step_plain",
@@ -444,63 +448,58 @@ def route(size: int) -> str:
     return "bluestein" if plan[1] <= BLUESTEIN_MAX else "bluestein_scratch"
 
 
+@_build.counted
 def stft_mag(wav, window, size: int, hop: int, n_frames: int,
              scale: float = 1.0) -> torch.Tensor:
-    """B12 (``csrc/stft_mag_sizes.cu``); contract of :func:`stft_mag_plain`:
-    ``(n_frames, size // 2)`` float32 ``|DFT(frame * window)| * scale``,
-    frame f covering ``wav[f*hop : f*hop + size)``, zeros past the end."""
-    if wav.device.type == "cpu":
+    """B12 (``csrc/stft_mag_sizes.cu``) at the shapes :func:`supported`
+    takes, :func:`stft_mag_plain` at the rest; contract of
+    :func:`stft_mag_plain`: ``(n_frames, size // 2)`` float32
+    ``|DFT(frame * window)| * scale``, frame f covering ``wav[f*hop : f*hop
+    + size)``, zeros past the end."""
+    if not supported(size, hop) or not _build.on_card(wav):
         return stft_mag_plain(wav, window, size, hop, n_frames, scale)
-    dev = _build.cuda_device(wav)
-    if not supported(size, hop):
-        raise ValueError(f"B12 takes no (size {size}, hop {hop}) frames")
+    dev = wav.device
     way = route(size)
     if n_frames < 0:
         raise ValueError(f"n_frames {n_frames}")
     _build.require(wav, "wav", torch.float32, (wav.shape[0],), dev)
     _build.require(window, "window", torch.float32, (size,), dev)
     out = torch.empty((n_frames, size // 2), dtype=torch.float32, device=dev)
-    lib = _build.library()
-    with torch.cuda.device(dev):
-        if way in ("pair", "large", "tile"):
-            entry, tw = {
-                "pair": (lib.mlx_stft_mag_pair, pair_twiddles),
-                "large": (lib.mlx_stft_mag_large, large_twiddles),
-                "tile": (lib.mlx_stft_mag_sizes, four_step_column_table),
-            }[way]
-            args = (wav.data_ptr(), wav.shape[0], window.data_ptr(),
-                    tw(size, dev).data_ptr(), out.data_ptr(), n_frames, size,
-                    hop, float(scale), _build.stream(dev))
+    if way in ("pair", "large", "tile"):
+        entry, tw = {
+            "pair": ("mlx_stft_mag_pair", pair_twiddles),
+            "large": ("mlx_stft_mag_large", large_twiddles),
+            "tile": ("mlx_stft_mag_sizes", four_step_column_table),
+        }[way]
+        args = (wav, wav.shape[0], window, tw(size, dev), out, n_frames, size,
+                hop, float(scale))
+    else:
+        n1, n2 = four_step_plan(size)
+        scratch = four_step_scratch(n_frames, n1, n2, dev)
+        head = (wav, wav.shape[0], window, four_step_twiddles(size, n1, dev))
+        tail = (out, n_frames, size, n1, hop, float(scale))
+        if way == "bluestein_scratch":
+            entry = "mlx_stft_mag_bluestein_scratch"
+            args = (*head, bluestein_scratch_table(n2, dev), scratch,
+                    bluestein_work(n_frames, n1, n2, dev), *tail)
         else:
-            n1, n2 = four_step_plan(size)
-            scratch = four_step_scratch(n_frames, n1, n2, dev)
-            head = (wav.data_ptr(), wav.shape[0], window.data_ptr(),
-                    four_step_twiddles(size, n1, dev).data_ptr())
-            tail = (out.data_ptr(), n_frames, size, n1, hop, float(scale),
-                    _build.stream(dev))
-            if way == "bluestein_scratch":
-                work = bluestein_work(n_frames, n1, n2, dev)
-                entry = lib.mlx_stft_mag_bluestein_scratch
-                args = (*head, bluestein_scratch_table(n2, dev).data_ptr(),
-                        scratch.data_ptr(), work.data_ptr(), *tail)
-            else:
-                entry, tw2 = {
-                    "four_step": (lib.mlx_stft_mag_4step,
-                                  four_step_column_table),
-                    "bluestein": (lib.mlx_stft_mag_bluestein,
-                                  bluestein_table),
-                }[way]
-                args = (*head, tw2(n2, dev).data_ptr(), scratch.data_ptr(),
-                        *tail)
-        # scratch and work stay referenced through the launch
-        with tracing.span("kernel.stft_mag"):
-            err = entry(*args)
-    _build.check("stft_mag_sizes", err)
-    stft_mag.launches += 1
+            entry, tw2 = {
+                "four_step": ("mlx_stft_mag_4step", four_step_column_table),
+                "bluestein": ("mlx_stft_mag_bluestein", bluestein_table),
+            }[way]
+            args = (*head, tw2(n2, dev), scratch, *tail)
+    _build.launch(stft_mag, "stft_mag_sizes", entry, dev, *args)
     return out
 
 
-stft_mag.launches = 0
+def stft_mags(wav, window, size: int, hop: int, n_frames: int,
+              scale: float = 1.0) -> torch.Tensor:
+    """The |STFT| at any shape, contract of :func:`stft_mag_plain`: B1
+    (``kernels.pv.stft_mag``) at 2048 points, :func:`stft_mag` (B12 where
+    it takes the shape, the twin elsewhere) at the other sizes."""
+    if size == kpv.FFT_N:
+        return kpv.stft_mag(wav, window, size, hop, n_frames, scale)
+    return stft_mag(wav, window, size, hop, n_frames, scale)
 
 
 def four_step_scratch(n_frames: int, n1: int, n2: int, device):

@@ -669,7 +669,7 @@ def seq_parallel_pv(mesh: AudioMesh, *, size: int, hop: int, n_frames: int,
     the stretch: each rank's last analysis phase, its (first analysis
     phase, phase-sum total) pair, its OLA spill and its normalised span;
     and one of the output."""
-    from ..engine.phase_vocoder import _analysis, _formant_gain, identity_lock
+    from ..engine.phase_vocoder import _formant_gain, identity_lock
 
     n_seq, idx = mesh.shape["seq"], mesh.seq_index
     if n_frames % n_seq:
@@ -682,7 +682,6 @@ def seq_parallel_pv(mesh: AudioMesh, *, size: int, hop: int, n_frames: int,
     n_bins = size // 2 + 1
     span = n_frames * hop  # the fully covered stretched span
     n_loc = n_out_pad // n_seq
-    synth = kpv.synth_ola if size == kpv.FFT_N else kpv.synth_ola_plain
     step_w = float(np.float32(2.0 * np.pi / size))
 
     # B2 transforms the frames of a call in pairs (2j, 2j + 1): each shard
@@ -694,7 +693,7 @@ def seq_parallel_pv(mesh: AudioMesh, *, size: int, hop: int, n_frames: int,
     def stretch(wav, starts_l, da_l, rho_l, f_real: int, win, wsum_l):
         dev = wav.device
         re, im = (a[lo - lo2 : lo - lo2 + f_loc]
-                  for a in _analysis(wav, starts_l, win, size))
+                  for a in kpv.analysis(wav, starts_l, win, size))
         mag = torch.sqrt(re * re + im * im)
         phi = torch.atan2(im, re)
         del re, im
@@ -727,7 +726,8 @@ def seq_parallel_pv(mesh: AudioMesh, *, size: int, hop: int, n_frames: int,
             psis = identity_lock(psis, phi, mag)
         live = (m_global < f_real)[:, None]
         mag_live = torch.where(live, mag, torch.zeros((), device=dev))
-        buf = synth(mag_live.contiguous(), psis.contiguous(), win, size, hop)
+        buf = kpv.synth_ola(mag_live.contiguous(), psis.contiguous(), win,
+                            size, hop)
         # OLA seam: my tail overlaps the right neighbour's head
         spill = buf[f_loc * hop :]
         recv = _gather_seq(mesh, spill)[(idx - 1) % n_seq]

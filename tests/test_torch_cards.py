@@ -1,7 +1,7 @@
 """One process per card: the port's rank-to-card mapping, its device
 checks and its launcher, on the CPU.
 
-* ``resolve_device``, ``rank_device``, ``_build.cuda_device`` /
+* ``resolve_device``, ``rank_device``, ``_build.on_card`` /
   ``require`` and the NCCL operand check of ``_gather``, with the card
   count, the current card and the group's backend patched; a gloo group
   formed through ``join_group``.
@@ -19,7 +19,8 @@ checks and its launcher, on the CPU.
   past the timeout make it return 124; no rank is left running either way.
 * The parent builds the kernels once before any rank starts, and never for
   ``--device cpu``; the CLI's ``batch`` started alone launches no ranks.
-* Every wrapper of ``kernels/`` launches under ``torch.cuda.device``.
+* Every wrapper of ``kernels/`` launches through ``_build.launch``, which
+  makes the operands' card current with ``torch.cuda.device``.
 """
 
 import ast
@@ -145,42 +146,64 @@ def _fake_tensor(device):
 
 
 def test_cuda_device_takes_a_tensor_on_any_card(cards):
-    """A tensor on another card than the current one is taken as it is
-    (its wrapper launches on its card), and checking it never moves the
-    current card; a CPU tensor is refused."""
-    assert _build.cuda_device(_fake_tensor("cuda:1")) == torch.device("cuda:1")
+    """A tensor on another card than the current one is on a card as it
+    is (its wrapper launches on its card), and checking it never moves the
+    current card; a CPU tensor is not on one (its wrapper runs the twin),
+    and any other device is refused."""
+    assert _build.on_card(_fake_tensor("cuda:1")) is True
     assert cards["current"] == 0 and cards["set"] == []
+    assert _build.on_card(_fake_tensor("cpu")) is False
     with pytest.raises(ValueError, match="plain twin"):
-        _build.cuda_device(_fake_tensor("cpu"))
+        _build.on_card(_fake_tensor("meta"))
 
 
 def _is_cuda_device(node) -> bool:
     return ast.unparse(node).startswith("torch.cuda.device(")
 
 
+def _functions(tree):
+    return [fn for fn in ast.walk(tree)
+            if isinstance(fn, (ast.FunctionDef, ast.AsyncFunctionDef))]
+
+
+def _names_entry(node) -> bool:
+    """Whether ``node`` names a C entry point: ``lib.mlx_*`` or the
+    string ``"mlx_*"``."""
+    return ((isinstance(node, ast.Attribute) and node.attr.startswith("mlx_"))
+            or (isinstance(node, ast.Constant) and isinstance(node.value, str)
+                and node.value.startswith("mlx_")))
+
+
 @pytest.mark.parametrize("module", sorted(
     m for m in os.listdir(os.path.dirname(_build.__file__))
     if m.endswith(".py") and m != "_build.py"))
 def test_every_launch_runs_on_its_operands_card(module):
-    """Every function of ``kernels/`` that names a C entry point
-    (``lib.mlx_*``) makes a card current with ``torch.cuda.device`` around
-    its launch: the C side launches on the calling thread's current card,
-    so a tensor on another card still launches on its own."""
+    """Every function of ``kernels/`` that names a C entry point launches
+    it through ``_build.launch``, and no module of ``kernels/`` but
+    ``_build.py`` switches cards, calls an entry itself or counts a
+    launch; ``_build.launch`` makes a card current with
+    ``torch.cuda.device`` around the call: the C side launches on the
+    calling thread's current card, so a tensor on another card still
+    launches on its own."""
     path = os.path.join(os.path.dirname(_build.__file__), module)
     with open(path) as f:
-        tree = ast.parse(f.read())
-    for fn in ast.walk(tree):
-        if not isinstance(fn, (ast.FunctionDef, ast.AsyncFunctionDef)):
-            continue
-        entries = [n.lineno for n in ast.walk(fn)
-                   if isinstance(n, ast.Attribute)
-                   and n.attr.startswith("mlx_")]
-        switched = any(isinstance(w, ast.With) and any(
-            _is_cuda_device(i.context_expr) for i in w.items)
-            for w in ast.walk(fn))
-        assert switched or not entries, (
+        text = f.read()
+    for fn in _functions(ast.parse(text)):
+        entries = [n.lineno for n in ast.walk(fn) if _names_entry(n)]
+        launches = [c for c in ast.walk(fn) if isinstance(c, ast.Call)
+                    and ast.unparse(c.func) == "_build.launch"]
+        assert launches or not entries, (
             f"{module}:{entries[0] if entries else fn.lineno}: {fn.name} "
-            "launches without torch.cuda.device")
+            "names an entry without _build.launch")
+    for own in ("torch.cuda.device(", "lib.mlx_", "launches += 1",
+                'span("kernel.'):
+        assert own not in text, f"{module}: {own}"
+    with open(_build.__file__) as f:
+        (launch,) = [fn for fn in _functions(ast.parse(f.read()))
+                     if fn.name == "launch"]
+    assert any(isinstance(w, ast.With) and any(
+        _is_cuda_device(i.context_expr) for i in w.items)
+        for w in ast.walk(launch))
 
 
 def test_require_takes_a_bare_cuda_as_the_current_card(cards):

@@ -21,7 +21,6 @@ at all 15 sizes:
   wrapper calls: one call, no scratch, a refused launch raising.
 """
 
-import contextlib
 import os
 
 import numpy as np
@@ -31,6 +30,7 @@ import torch
 from melonix_tpu_torch.kernels import _build
 from melonix_tpu_torch.kernels import columns as kcols
 from test_torch_scan import _dft_regs, _snr, _ulps
+from torch_fake_card import fake_card
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "melonix_tpu_torch", "csrc")
@@ -290,33 +290,10 @@ def test_cluster_table_within_one_ulp_of_float64(size):
             kcols.cluster_table(bad, CPU)
 
 
-class _Recorder:
-    """Stands in for the kernel library: records each entry's call and
-    returns ``code``."""
-
-    def __init__(self):
-        self.calls = []
-        self.code = 0
-
-    def __getattr__(self, name):
-        if name == "mlx_error_string":  # what _build.check reads
-            return lambda err: b"refused"
-        return lambda *args: self.calls.append((name, args)) or self.code
-
-
 @pytest.fixture
 def fake_cuda(monkeypatch):
-    """The wrapper's CUDA branch on ``meta`` tensors with a recording
-    library, its allocations counted."""
-    rec = _Recorder()
-    monkeypatch.setattr(kcols.spectrogram_columns_fused, "launches",
-                        kcols.spectrogram_columns_fused.launches)
-    monkeypatch.setattr(_build, "cuda_device", lambda t: t.device)
-    monkeypatch.setattr(_build, "library", lambda: rec)
-    monkeypatch.setattr(_build, "stream", lambda dev: 0)
-    monkeypatch.setattr(torch.cuda, "device",
-                        lambda dev: contextlib.nullcontext())
-    return rec
+    """The wrapper's CUDA branch on the fake card."""
+    return fake_card(monkeypatch)
 
 
 @pytest.mark.parametrize("size", SIZES)

@@ -21,7 +21,6 @@ template takes (``kpv.PAIR_SIZES``):
 * the routes of ``kstft.route`` and the entry points the wrappers call.
 """
 
-import contextlib
 import os
 import re
 
@@ -30,10 +29,10 @@ import pytest
 import torch
 
 from melonix_tpu_torch.engine.spectral import hann_window
-from melonix_tpu_torch.kernels import _build
 from melonix_tpu_torch.kernels import pv as kpv
 from melonix_tpu_torch.kernels import stft as kstft
 from test_torch_scan import _ROT16, _dft_regs, _snr, _ulps, pair_fft_model
+from torch_fake_card import fake_card
 
 torch.set_num_threads(2)
 
@@ -276,29 +275,11 @@ def test_route_refuses_sizes_beyond_int32():
         kstft.route(1 << 31)
 
 
-class _Recorder:
-    """Stands in for the kernel library: records each entry point's call."""
-
-    def __init__(self):
-        self.calls = []
-
-    def __getattr__(self, name):
-        return lambda *args: self.calls.append((name, args)) or 0
-
-
 @pytest.fixture
 def fake_cuda(monkeypatch):
-    """The wrappers' CUDA branch on ``meta`` tensors with a recording
-    library: which entry would launch, with which sizes, without a card."""
-    rec = _Recorder()
-    for fn in (kpv.stft_mag, kstft.stft_mag):
-        monkeypatch.setattr(fn, "launches", fn.launches)  # restored after
-    monkeypatch.setattr(_build, "cuda_device", lambda t: t.device)
-    monkeypatch.setattr(_build, "library", lambda: rec)
-    monkeypatch.setattr(_build, "stream", lambda dev: 0)
-    monkeypatch.setattr(torch.cuda, "device",
-                        lambda dev: contextlib.nullcontext())
-    return rec
+    """The wrappers' CUDA branch on the fake card: which entry would
+    launch, with which sizes, without a card."""
+    return fake_card(monkeypatch)
 
 
 @pytest.mark.parametrize("size,hop,entry", [

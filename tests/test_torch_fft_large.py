@@ -25,7 +25,6 @@ against their twins there).  These tests hold what the design rests on:
   the table offsets the headers read, and the C entry each wrapper calls.
 """
 
-import contextlib
 import os
 
 import numpy as np
@@ -37,6 +36,7 @@ from melonix_tpu_torch.kernels import columns as kcols
 from melonix_tpu_torch.kernels import stft as kstft
 from test_torch_fft import pair_model
 from test_torch_scan import _dft_regs, _snr, _ulps
+from torch_fake_card import fake_card
 
 torch.set_num_threads(2)
 
@@ -545,32 +545,10 @@ def test_routes_by_size(size, b12, b7):
             assert sp["l"] >= 2 * n2 - 1 and 8 <= sp["c"] <= 512
 
 
-class _Recorder:
-    """Stands in for the kernel library: records each entry point's call."""
-
-    def __init__(self):
-        self.calls = []
-        self.code = 0  # what every entry returns
-
-    def __getattr__(self, name):
-        if name == "mlx_error_string":  # what _build.check reads, unrecorded
-            return lambda err: b"refused"
-        return lambda *args: self.calls.append((name, args)) or self.code
-
-
 @pytest.fixture
 def fake_cuda(monkeypatch):
-    """The wrappers' CUDA branch on ``meta`` tensors with a recording
-    library."""
-    rec = _Recorder()
-    for fn in (kstft.stft_mag, kcols.spectrogram_columns_fused):
-        monkeypatch.setattr(fn, "launches", fn.launches)
-    monkeypatch.setattr(_build, "cuda_device", lambda t: t.device)
-    monkeypatch.setattr(_build, "library", lambda: rec)
-    monkeypatch.setattr(_build, "stream", lambda dev: 0)
-    monkeypatch.setattr(torch.cuda, "device",
-                        lambda dev: contextlib.nullcontext())
-    return rec
+    """The wrappers' CUDA branch on the fake card."""
+    return fake_card(monkeypatch)
 
 
 @pytest.mark.parametrize("size", kstft.LARGE_SIZES)

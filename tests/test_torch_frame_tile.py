@@ -21,19 +21,18 @@ there).  These tests hold what the design rests on, without a kernel:
   ``meta`` tensors), and that no source includes ``fft_real.cuh`` any more.
 """
 
-import contextlib
 import os
 
 import numpy as np
 import pytest
 import torch
 
-from melonix_tpu_torch.kernels import _build
 from melonix_tpu_torch.kernels import columns as kcols
 from melonix_tpu_torch.kernels import stft as kstft
 from test_torch_fourstep import (_banks_distinct, _sectors_whole,
                                  batch_fft_model, column_model)
 from test_torch_scan import _snr
+from torch_fake_card import fake_card
 
 torch.set_num_threads(2)
 
@@ -266,24 +265,11 @@ def test_small_large_tables_and_plan(size):
     assert f"case {size}:\n      return launch_columns_large<{size}>(" in cu
 
 
-class _Recorder:
-    """Stands in for the kernel library: records each entry point's call."""
-
-    def __init__(self):
-        self.calls = []
-        self.code = 0  # what every entry returns
-
-    def __getattr__(self, name):
-        if name == "mlx_error_string":  # what _build.check reads
-            return lambda err: b"refused"
-        return lambda *args: self.calls.append((name, args)) or self.code
-
-
 @pytest.fixture
 def fake_cuda(monkeypatch):
-    """The wrappers' CUDA branch on ``meta`` tensors with a recording
-    library; the tables are CPU tensors whose pointers name them."""
-    rec = _Recorder()
+    """The wrappers' CUDA branch on the fake card; the tables are CPU
+    tensors whose pointers name them."""
+    rec = fake_card(monkeypatch)
     rec.tables = {}
 
     def table(kind):
@@ -293,16 +279,9 @@ def fake_cuda(monkeypatch):
             return t
         return make
 
-    for fn in (kstft.stft_mag, kcols.spectrogram_columns_fused):
-        monkeypatch.setattr(fn, "launches", fn.launches)
     monkeypatch.setattr(kstft, "four_step_column_table", table("tile"))
     monkeypatch.setattr(kcols, "four_step_column_table", table("tile"))
     monkeypatch.setattr(kcols, "large_twiddles", table("large"))
-    monkeypatch.setattr(_build, "cuda_device", lambda t: t.device)
-    monkeypatch.setattr(_build, "library", lambda: rec)
-    monkeypatch.setattr(_build, "stream", lambda dev: 0)
-    monkeypatch.setattr(torch.cuda, "device",
-                        lambda dev: contextlib.nullcontext())
     return rec
 
 

@@ -25,9 +25,16 @@ from melonix_tpu.markers import markers_to_json as j_markers_to_json
 
 import melonix_tpu_torch as mt
 from melonix_tpu_torch.engine import phase_vocoder as tpv
+from melonix_tpu_torch.engine import pitch as tpitch
 from melonix_tpu_torch.kernels import _build
+from melonix_tpu_torch.kernels import columns as kcols
+from melonix_tpu_torch.kernels import frames as kframes
+from melonix_tpu_torch.kernels import pitch as kpitch
 from melonix_tpu_torch.kernels import pv as kpv
 from melonix_tpu_torch.kernels import resample as kres
+from melonix_tpu_torch.kernels import stft as kstft
+from melonix_tpu_torch.utils import tracing
+from torch_fake_card import fake_card
 
 torch.set_num_threads(2)
 
@@ -282,6 +289,141 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(ValueError, match="no kernel"):
         kres.resample_pv(meta, *[None] * 7, 8000, 2048)
     assert kpv.stft_mag.launches == kpv.analysis.launches == 0
+
+
+def _m(*shape, dtype=torch.float32):
+    return torch.zeros(shape, dtype=dtype).to("meta")
+
+
+def _wrapper_cases():
+    """(wrapper, its arguments with tensors from ``t``, the entries it
+    launches and their spans, the output's shape) at a shape its kernel
+    takes and one it does not, for every wrapper whose caller once picked
+    between the kernel and the twin itself."""
+    f, i32 = 6, torch.int32
+
+    def pv(size, hop):
+        nb = size // 2 + 1
+        return lambda t: (t(f, nb), t(f, nb), t(f), t(size), 0, f - 1,
+                          t(nb), t(nb), t(nb), size, hop)
+
+    return {
+        "synth_ola_phase-2048": (
+            kpv.synth_ola_phase, pv(2048, 512),
+            [("mlx_pv_synth_ola_phase", "synth_ola_phase")],
+            ((f - 1) * 512 + 2048,)),
+        "synth_ola_phase-4096": (kpv.synth_ola_phase, pv(4096, 1024), [],
+                                 ((f - 1) * 1024 + 4096,)),
+        "analysis-2048": (
+            kpv.analysis, lambda t: (t(9000), t(f, dtype=i32), t(2048), 2048),
+            [("mlx_pv_analysis", "analysis")], (f, 1025)),
+        "analysis-4096": (
+            kpv.analysis, lambda t: (t(9000), t(f, dtype=i32), t(4096), 4096),
+            [("mlx_extract_frames", "extract_frames")], (f, 2049)),
+        "analysis-1000": (
+            kpv.analysis, lambda t: (t(9000), t(f, dtype=i32), t(1000), 1000),
+            [], (f, 501)),
+        "extract_frames-4096": (
+            kframes.extract_frames, lambda t: (t(9000), t(f, dtype=i32), 4096),
+            [("mlx_extract_frames", "extract_frames")], (f, 4096)),
+        "extract_frames-1000": (
+            kframes.extract_frames, lambda t: (t(9000), t(f, dtype=i32), 1000),
+            [], (f, 1000)),
+        "synth_ola-2048": (
+            kpv.synth_ola, lambda t: (t(f, 1025), t(f, 1025), t(2048), 2048,
+                                      512),
+            [("mlx_pv_synth_ola", "synth_ola")], ((f - 1) * 512 + 2048,)),
+        "synth_ola-4096": (
+            kpv.synth_ola, lambda t: (t(f, 2049), t(f, 2049), t(4096), 4096,
+                                      1024),
+            [], ((f - 1) * 1024 + 4096,)),
+        "columns-4096": (
+            kcols.spectrogram_columns_fused,
+            lambda t: (t(9000), t(f, dtype=i32), t(f, dtype=i32), 1.0, 4096),
+            [("mlx_spectrogram_columns_large", "spectrogram_columns_fused")],
+            (f, 2048)),
+        "columns-3000": (
+            kcols.spectrogram_columns_fused,
+            lambda t: (t(9000), t(f, dtype=i32), t(f, dtype=i32), 1.0, 3000),
+            [], (f, 1500)),
+        "stft_mags-2048": (
+            kstft.stft_mags, lambda t: (t(9000), t(2048), 2048, 441, f),
+            [("mlx_stft_mag", "stft_mag")], (f, 1024)),
+        "stft_mags-1536": (
+            kstft.stft_mags, lambda t: (t(9000), t(1536), 1536, 384, f),
+            [("mlx_stft_mag_sizes", "stft_mag_sizes")], (f, 768)),
+        "stft_mags-1000": (
+            kstft.stft_mags, lambda t: (t(9000), t(1000), 1000, 250, f),
+            [], (f, 500)),
+        "pitch_ac-512": (
+            kpitch.pitch_ac, lambda t: (t(9000), 2048, 512, f),
+            [("mlx_pitch_ac", "pitch_ac")], (f, 2048)),
+        "pitch_ac-441": (kpitch.pitch_ac, lambda t: (t(9000), 2048, 441, f),
+                         [], (f, 2048)),
+        "pitch_ac-1024": (kpitch.pitch_ac, lambda t: (t(9000), 1024, 256, f),
+                          [], (f, 1024)),
+    }
+
+
+@pytest.mark.parametrize("case", list(_wrapper_cases()))
+def test_wrapper_picks_kernel_or_twin_by_shape(monkeypatch, case):
+    """On the fake card a wrapper launches its kernel (one entry called,
+    one launch counted, under the span ``kernel.<name>``) at a shape the
+    kernel takes, and at one it does not runs its twin on the tensor's own
+    device: no entry called, no launch counted, the twin's shape out.  B2
+    at sizes other than 2048 fetches its frames through B9's wrapper,
+    which launches at the sizes B9 takes."""
+    fn, make, want, shape = _wrapper_cases()[case]
+    rec = fake_card(monkeypatch)
+    total = sum(w.launches for w in _build.COUNTED)
+    tracing.start()
+    try:
+        out = fn(*make(_m))
+    finally:
+        tracing.stop()
+    out = out[0] if isinstance(out, tuple) else out
+    assert tuple(out.shape) == shape and out.device.type == "meta"
+    assert [name for name, _args in rec.calls] == [e for e, _s in want]
+    assert [r.name for r in tracing.records()] == [
+        "kernel." + s for _e, s in want]
+    assert sum(w.launches for w in _build.COUNTED) == total + len(want)
+
+
+@pytest.mark.parametrize("case", list(_wrapper_cases()))
+def test_moved_sites_run_the_twin_bit_for_bit(case):
+    """On the CPU every such wrapper gives its twin's bits at both shapes
+    (B2's at other sizes: B9's twin and ``torch.fft.rfft``), and the
+    engine's pitch analysis gives the plain formulation's."""
+    fn, make, _want, _shape = _wrapper_cases()[case]
+    gen = torch.Generator().manual_seed(len(case))
+
+    def rand(*shape, dtype=torch.float32):
+        if dtype == torch.int32:
+            return torch.randint(-100, 9100, shape, generator=gen,
+                                 dtype=torch.int32)
+        return torch.rand(shape, generator=gen, dtype=dtype)
+
+    args = make(rand)
+    got = fn(*args)
+    plain = {kpv.synth_ola_phase: kpv.synth_ola_phase_plain,
+             kpv.analysis: kpv.analysis_plain,
+             kframes.extract_frames: kframes.extract_frames_plain,
+             kpv.synth_ola: kpv.synth_ola_plain,
+             kcols.spectrogram_columns_fused: kcols.spectrogram_columns_plain,
+             kstft.stft_mags: kstft.stft_mag_plain,
+             kpitch.pitch_ac: kpitch.pitch_ac_plain}[fn]
+    want = plain(*args)
+    got, want = ((x,) if torch.is_tensor(x) else x for x in (got, want))
+    assert len(got) == len(want)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    if fn is kpitch.pitch_ac:
+        wav, frame, hop, n = args
+        lag_range = (40, frame - 40)
+        frames = kpv.hop_frames(wav, frame, hop, n)
+        centred = frames - frames.mean(dim=1, keepdim=True)
+        for g, w in zip(tpitch._pitch_device(wav, frame, hop, n, *lag_range),
+                        tpitch.pitch_core(centred, frame, *lag_range)):
+            assert torch.equal(g, w)
 
 
 def test_operand_checks():

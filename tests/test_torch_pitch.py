@@ -26,6 +26,7 @@ from melonix_tpu.kernels import pallas_pitch
 import melonix_tpu_torch as mt
 from melonix_tpu_torch.engine import pitch as tpitch
 from melonix_tpu_torch.kernels import pitch as kpitch
+from torch_fake_card import fake_card
 
 torch.set_num_threads(2)
 
@@ -294,31 +295,17 @@ def test_pair_walk_writes_every_frame_once(frames):
 
 
 def test_b8_entry_takes_the_4096_pair_table(monkeypatch):
-    """The wrapper's CUDA branch on ``meta`` tensors with a recording
-    library: one mlx_pitch_ac call with (n, F, hop), the 4096-point pair
-    twiddle table, one launch counted."""
-    import contextlib
-
-    from melonix_tpu_torch.kernels import _build
+    """The wrapper's CUDA branch on the fake card: one mlx_pitch_ac call
+    with (n, F, hop), the 4096-point pair twiddle table, one launch
+    counted."""
     from melonix_tpu_torch.kernels import pv as kpv
 
-    calls, tables = [], []
-
-    class Lib:
-        def mlx_pitch_ac(self, *args):
-            calls.append(args)
-            return 0
+    rec, tables = fake_card(monkeypatch), []
 
     def table(size, dev):
         tables.append(size)
         return kpv.pair_twiddles(size, dev)
 
-    monkeypatch.setattr(kpitch.pitch_ac, "launches", kpitch.pitch_ac.launches)
-    monkeypatch.setattr(_build, "cuda_device", lambda t: t.device)
-    monkeypatch.setattr(_build, "library", lambda: Lib())
-    monkeypatch.setattr(_build, "stream", lambda dev: 0)
-    monkeypatch.setattr(torch.cuda, "device",
-                        lambda dev: contextlib.nullcontext())
     monkeypatch.setattr(kpitch, "pair_twiddles", table)
     meta = torch.device("meta")
     before = kpitch.pitch_ac.launches
@@ -326,7 +313,9 @@ def test_b8_entry_takes_the_4096_pair_table(monkeypatch):
         ac, w = kpitch.pitch_ac(torch.zeros(50000).to(meta), 2048, 512,
                                 frames)
         assert ac.shape == w.shape == (frames, 2048)
-        assert calls[-1][1] == 50000 and calls[-1][5:7] == (frames, 512)
+        name, args = rec.calls[-1]
+        assert name == "mlx_pitch_ac"
+        assert args[1] == 50000 and args[5:7] == (frames, 512)
     assert tables == [4096] * 3
     assert kpitch.pitch_ac.launches == before + 3
     tab = kpv.pair_twiddles(4096, torch.device("cpu")).numpy()
@@ -578,11 +567,13 @@ def test_frame_2048_routes_through_b8_once(monkeypatch):
 
 def test_frame_1024_takes_the_plain_formulation(monkeypatch):
     """test_autotune.py:80's frame 1024: B8 does not take it (as
-    pallas_pitch.supported does not), and the curve still equals JAX's."""
+    pallas_pitch.supported does not), so its wrapper's one call runs the
+    plain twin, and the curve still equals JAX's."""
     calls = _count_b8(monkeypatch)
     x, sr, jcfg, tcfg = SIGNALS["frame1024_8k"]()
     got = mt.pitch_curve(x, sr, config=tcfg, device="cpu")
-    assert calls == []
+    assert len(calls) == 1 and calls[0][0] == 1024
+    assert not kpitch.supported(*calls[0])
     assert_curves_close(got, jpitch.pitch_curve(x, sr, config=jcfg))
 
 

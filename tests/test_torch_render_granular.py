@@ -20,7 +20,6 @@ block of more candidates than one tile; a track shorter than one block.
 Inputs come from seeded numpy generators.
 """
 
-import contextlib
 import re
 
 import jax.numpy as jnp
@@ -39,6 +38,7 @@ import melonix_tpu_torch as mt
 from melonix_tpu_torch.engine import render as trender
 from melonix_tpu_torch.kernels import _build
 from melonix_tpu_torch.kernels import render as krender
+from torch_fake_card import fake_card
 
 torch.set_num_threads(2)
 
@@ -290,29 +290,11 @@ def test_wrapper_refuses_other_devices():
     assert krender.render_granular.launches == before
 
 
-class _Recorder:
-    """Stands in for the kernel library: records each entry point's call."""
-
-    def __init__(self):
-        self.calls = []
-
-    def __getattr__(self, name):
-        return lambda *args: self.calls.append((name, args)) or 0
-
-
 @pytest.fixture
 def fake_cuda(monkeypatch):
-    """The wrapper's CUDA branch on ``meta`` tensors with a recording
-    library: which entry would launch, with which sizes, without a card."""
-    rec = _Recorder()
-    monkeypatch.setattr(krender.render_granular, "launches",
-                        krender.render_granular.launches)  # restored after
-    monkeypatch.setattr(_build, "cuda_device", lambda t: t.device)
-    monkeypatch.setattr(_build, "library", lambda: rec)
-    monkeypatch.setattr(_build, "stream", lambda dev: 0)
-    monkeypatch.setattr(torch.cuda, "device",
-                        lambda dev: contextlib.nullcontext())
-    return rec
+    """The wrapper's CUDA branch on the fake card: which entry would
+    launch, with which sizes, without a card."""
+    return fake_card(monkeypatch)
 
 
 def test_render_full_launches_the_entry_once(fake_cuda):

@@ -39,6 +39,7 @@ from melonix_tpu_torch.engine import phase_vocoder as tpv
 from melonix_tpu_torch.engine import pv_stream as tps
 from melonix_tpu_torch.kernels import _build
 from melonix_tpu_torch.kernels import resample as kres
+from torch_fake_card import fake_card
 
 torch.set_num_threads(2)
 
@@ -390,31 +391,15 @@ def test_reader_refuses_bad_shapes_and_rows(no_library):
         kres.LerpReader(y, pos.to("meta"), base, 20)
 
 
-class _Recorder:
-    """Stands in for the kernel library: records each entry point's call."""
-
-    def __init__(self):
-        self.calls = []
-
-    def __getattr__(self, name):
-        return lambda *args: self.calls.append((name, args)) or 0
-
-
 @pytest.fixture
 def fake_cuda(monkeypatch):
-    """The launcher on ``meta`` tensors with a recording library, a plain
-    host buffer standing in for the pinned one and a fixed device address."""
-    rec = _Recorder()
+    """The launcher on the fake card (stream 7), a plain host buffer
+    standing in for the pinned one and a fixed device address."""
+    rec = fake_card(monkeypatch, stream=7)
     grown = []
-    monkeypatch.setattr(_build, "cuda_device", lambda t: t.device)
-    monkeypatch.setattr(_build, "library", lambda: rec)
-    monkeypatch.setattr(_build, "stream", lambda dev: 7)
     monkeypatch.setattr(_build, "host_device_pointer", lambda t: 0xC0DE)
     monkeypatch.setattr(kres, "_pinned",
                         lambda n: grown.append(n) or torch.zeros(n))
-    monkeypatch.setattr(torch.cuda, "device",
-                        lambda dev: contextlib.nullcontext())
-    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
     monkeypatch.setattr(torch.cuda, "current_stream", lambda dev: type(
         "S", (), {"synchronize": lambda self: grown.append("sync")})())
     return rec, grown
@@ -487,24 +472,26 @@ def test_resample_lerp_runs_the_window_entry_over_its_output(fake_cuda):
 
 
 def test_reader_makes_its_card_current(fake_cuda, monkeypatch):
-    """A read while another card is current launches inside a context of
-    the reader's card; on its own card it enters none."""
+    """Every read launches inside a context of the reader's card (the
+    launch path's), whichever card is current, and the launch runs with
+    that card current."""
     rec, _grown = fake_cuda
-    entered = []
+    entered, current = [], [1]
 
     @contextlib.contextmanager
-    def device(index):
-        entered.append(index)
-        monkeypatch.setattr(torch.cuda, "current_device", lambda: index)
+    def device(dev):
+        entered.append(dev)
+        current.append(dev)
         yield
+        current.pop()
 
     monkeypatch.setattr(torch.cuda, "device", device)
+    monkeypatch.setattr(_build, "stream", lambda dev: current[-1])
     r = kres.LerpReader(*_reader_operands("meta", nb=2), 24)
     r.read(0, 100)
-    assert entered == []
-    monkeypatch.setattr(torch.cuda, "current_device", lambda: 1)
     r.read(100, 100)
-    assert entered == [0] and len(rec.calls) == 2
+    assert entered == [r.device] * 2 and current == [1]
+    assert [args[-1] for _name, args in rec.calls] == [r.device] * 2
 
 
 def test_window_entries_are_registered():

@@ -9,7 +9,6 @@ the Hann |STFT| pyramid and the waveform min/max pyramid.  The CUDA kernels
 are held to these twins on the card by chip_smoke.py.
 """
 
-import contextlib
 import sys
 import threading
 import time
@@ -40,6 +39,7 @@ from melonix_tpu_torch.kernels import pv as kpv
 from melonix_tpu_torch.kernels import stft as kstft
 from melonix_tpu_torch.runtime.spec_pyramid import SpecPyramid
 from melonix_tpu_torch.ui.colormap import colormap_lut, colormap_np, colormap_torch
+from torch_fake_card import fake_card
 
 torch.set_num_threads(2)
 
@@ -236,9 +236,17 @@ def test_supported_predicates_equal_jax():
     (1000, 250, "plain"), (2048 * 40, 4096 * 4, "b12"),
 ])
 def test_stft_mags_device_routes_like_jax(monkeypatch, size, hop, route):
-    """2048 points go to B1, the shapes pallas_stft took to B12 (raising
-    beyond the cap on CUDA), the rest to plain rfft; every route computes
-    JAX's stft_mags_device."""
+    """2048 points go to B1, the shapes pallas_stft took to B12, the rest
+    to plain rfft, B12's wrapper picking between the last two (on the fake
+    card: one launch or none); every route computes JAX's
+    stft_mags_device."""
+    rec = fake_card(monkeypatch)
+    meta = torch.zeros(3 * size).to("meta")
+    out = tspec.stft_mags_device(meta, torch.zeros(size).to("meta"), size,
+                                 hop, 2, scale=0.5)
+    assert out.shape == (2, size // 2)
+    assert len(rec.calls) == (route != "plain")
+    monkeypatch.undo()
     calls = []
     for mod, name in ((kpv, "b1"), (kstft, "b12")):
         real = mod.stft_mag
@@ -249,7 +257,7 @@ def test_stft_mags_device_routes_like_jax(monkeypatch, size, hop, route):
     win = tspec.hann_window(size)
     nf = tspec.num_frames(len(x), size, hop)
     got = tspec.stft_mags_device(_t(x), _t(win), size, hop, nf, scale=0.5)
-    assert calls == ([] if route == "plain" else [route])
+    assert calls == (["b1"] if route == "b1" else ["b12"])
     want = np.asarray(jspec.stft_mags_device(jnp.asarray(x), jnp.asarray(win),
                                              size, hop, nf, scale=0.5))
     assert got.shape == want.shape and _snr_db(got.numpy(), want) < -100.0
@@ -260,7 +268,17 @@ def test_stft_mags_device_routes_like_jax(monkeypatch, size, hop, route):
 ])
 def test_spectrogram_columns_device_routes_like_jax(monkeypatch, size, route):
     """The sizes pallas_columns took go to B7, the rest to its plain twin
-    (JAX runs XLA there); every route computes JAX's columns."""
+    (JAX runs XLA there), B7's wrapper picking (on the fake card: one B7
+    launch or none); every route computes JAX's columns."""
+    rec = fake_card(monkeypatch)
+    meta = torch.zeros(4, dtype=torch.int32).to("meta")
+    before = kcols.spectrogram_columns_fused.launches
+    out = tspec.spectrogram_columns_device(torch.zeros(9000).to("meta"),
+                                           meta, meta, size=size)
+    assert out.shape == (4, size // 2) and out.dtype == torch.float32
+    launched = kcols.spectrogram_columns_fused.launches - before
+    assert launched == len(rec.calls) == (route == "b7")
+    monkeypatch.undo()
     calls = []
     for name, tag in (("spectrogram_columns_fused", "b7"),
                       ("spectrogram_columns_plain", "plain")):
@@ -273,35 +291,11 @@ def test_spectrogram_columns_device_routes_like_jax(monkeypatch, size, route):
     starts = (ends - 300).astype(np.int32)
     got = tspec.spectrogram_columns_device(_t(x), _t(starts), _t(ends),
                                            size=size).numpy()
-    assert calls[:1] == [route]
+    assert calls == ["b7", "plain"]
     want = np.asarray(jspec.spectrogram_columns_device(
         jnp.asarray(x), jnp.asarray(starts), jnp.asarray(ends), size=size))
     assert got.shape == want.shape == (4, size // 2)
     assert _snr_db(got, want) < -100.0
-
-
-class _Recorder:
-    """Stands in for the kernel library: records each entry point's call."""
-
-    def __init__(self):
-        self.calls = []
-
-    def __getattr__(self, name):
-        return lambda *args: self.calls.append((name, args)) or 0
-
-
-def _fake_cuda(monkeypatch):
-    """Route the wrappers' CUDA branch onto ``meta`` tensors (allocation
-    without memory) with a recording library: what would launch, and with
-    which sizes, without a card."""
-    rec = _Recorder()
-    for fn in (kstft.stft_mag, kcols.spectrogram_columns_fused):
-        monkeypatch.setattr(fn, "launches", fn.launches)  # restored after
-    monkeypatch.setattr(_build, "cuda_device", lambda t: t.device)
-    monkeypatch.setattr(_build, "library", lambda: rec)
-    monkeypatch.setattr(_build, "stream", lambda dev: 0)
-    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
-    return rec
 
 
 def test_b12_beyond_cap_raises_on_cuda_tensors(monkeypatch):
@@ -316,7 +310,7 @@ def test_b12_beyond_cap_raises_on_cuda_tensors(monkeypatch):
     the pair transform at 4096, the frame tile at 1536 and the on-chip
     transform at 32,768, as B7 does.  Only a size int32 indices cannot
     reach raises NotImplementedError, naming why, before any launch."""
-    rec = _fake_cuda(monkeypatch)
+    rec = fake_card(monkeypatch)
     size, meta = 65536, torch.device("meta")
     wav = torch.zeros(300000).to(meta)
     b12, b7 = kstft.stft_mag.launches, kcols.spectrogram_columns_fused.launches

@@ -20,7 +20,6 @@ route bit for bit).  These tests hold what its design rests on:
 * which C entry each wrapper calls, with which table and route.
 """
 
-import contextlib
 import os
 import re
 
@@ -33,9 +32,9 @@ from melonix_tpu.engine import phase_vocoder as jpv
 from melonix_tpu.engine import spectral as jspec
 
 from melonix_tpu_torch.engine.spectral import hann_window
-from melonix_tpu_torch.kernels import _build
 from melonix_tpu_torch.kernels import pv as kpv
 from test_torch_fft import pair_model
+from torch_fake_card import fake_card
 from test_torch_scan import _snr
 
 torch.set_num_threads(2)
@@ -484,24 +483,12 @@ def test_shared_memory_per_cta(hop, fused, ctas):
 # ----------------------------------------------------------------------
 
 
-class _Recorder:
-    """Stands in for the kernel library: records each entry point's call."""
-
-    def __init__(self):
-        self.calls = []
-
-    def __getattr__(self, name):
-        return lambda *args: self.calls.append((name, args)) or 0
-
-
 @pytest.fixture
 def fake_cuda(monkeypatch):
-    """The wrappers' CUDA branch on ``meta`` tensors with a recording
-    library and a recording twiddle table."""
-    rec = _Recorder()
+    """The wrappers' CUDA branch on the fake card with a recording twiddle
+    table."""
+    rec = fake_card(monkeypatch)
     rec.tables = []
-    for fn in (kpv.synth_ola, kpv.synth_ola_phase):
-        monkeypatch.setattr(fn, "launches", fn.launches)  # restored after
     real = kpv.pair_twiddles
 
     def tables(size, device):
@@ -509,11 +496,6 @@ def fake_cuda(monkeypatch):
         return real(size, device)
 
     monkeypatch.setattr(kpv, "pair_twiddles", tables)
-    monkeypatch.setattr(_build, "cuda_device", lambda t: t.device)
-    monkeypatch.setattr(_build, "library", lambda: rec)
-    monkeypatch.setattr(_build, "stream", lambda dev: 0)
-    monkeypatch.setattr(torch.cuda, "device",
-                        lambda dev: contextlib.nullcontext())
     return rec
 
 
